@@ -1,0 +1,344 @@
+"""The FastPM solver: species, time evolution, events
+(reference: libfastpm/solver.c, vpm.c).
+
+Port of the single-device subset of fastpm_tpu/solver.py: one CDM
+species, force modes fastpm and pm, the variable-resolution force mesh
+(VPM) table, and the reference's event architecture (events fire between
+the kick / drift / force actions). The force step is gravity.compute_force
+on the solver's device.
+
+Not in this slice (NotImplementedError; see ROADMAP.md): force modes
+cola, za and 2lpt, stale stepping, rehome, PGD, the neutrino linear
+response, ncdm and other extra species, and running across devices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .cosmology import Cosmology, FIDUCIAL
+from .device import resolve_device
+from .kdk import KickFactor, DriftFactor
+from .timemachine import (StateTable, ACTION_FORCE, ACTION_KICK,
+                          ACTION_DRIFT)
+from .mesh import PM
+from .painter import Painter
+from .store import Store, lattice_store
+from .gravity import compute_force
+from .lpt import lpt_solve, lpt_evolve
+from . import transfers, events as ev
+from .units import RHO_CRIT, HUBBLE_CONSTANT
+
+__all__ = ["SolverConfig", "Solver", "CDM"]
+
+CDM = "cdm"
+
+_LATER = "is not in this slice of the port (see ROADMAP.md)"
+
+
+def _f32(a: float) -> float:
+    """A coefficient rounded to float32, as the reference's float
+    arithmetic sees it."""
+    return float(np.float32(a))
+
+
+@dataclass
+class SolverConfig:
+    """Mirror of FastPMConfig (api/fastpm/solver.h) with lua-schema
+    defaults (src/lua-runtime-fastpm.lua), restricted to what this
+    slice serves. stale_every, rehome and pgdc keep the JAX package's
+    names so that asking for them fails loudly."""
+
+    nc: int
+    boxsize: float
+    time_step: Sequence[float] = (1.0,)
+    force_mode: str = "fastpm"        # fastpm | pm (zola = fastpm)
+    kernel_type: str = "1_4"
+    softening_type: str = "none"      # dealiasing_type in lua
+    painter_type: str = "cic"
+    painter_support: int = 2
+    pm_nc_factor: object = 2          # scalar or [(a_start, factor), ...]
+    lpt_nc_factor: float = 1.0
+    use_shift: bool = False
+    za: bool = False                  # ZA-only ICs (drop dx2)
+    use_dx1_only: bool = False
+    nLPT: float = -2.5
+    # finite-ness scan of delta_k and acc after every force step
+    # (pm_check_values, gravity.c:350-383), fetched one force later
+    check_values: bool = False
+    stale_every: int = 0
+    rehome: bool = False
+    pgdc: bool = False
+
+    def __post_init__(self):
+        if self.force_mode == "zola":
+            # lua maps zola to FASTPM_FORCE_FASTPM (lua-runtime-fastpm.lua:
+            # force_mode.choices); the za flag is independent
+            self.force_mode = "fastpm"
+        if self.za:
+            self.use_dx1_only = True
+        if self.force_mode not in ("fastpm", "pm"):
+            raise NotImplementedError(
+                f"force_mode {self.force_mode!r} {_LATER}")
+        for name, on in (("stale stepping", self.stale_every > 1),
+                         ("rehome", self.rehome), ("PGD", self.pgdc)):
+            if on:
+                raise NotImplementedError(f"{name} {_LATER}")
+
+    @property
+    def vpm_table(self) -> List[Tuple[float, float]]:
+        t = self.pm_nc_factor
+        if np.isscalar(t):
+            return [(0.0, float(t))]
+        return [(float(a), float(f)) for a, f in t]
+
+
+class Solver:
+    """Holds the CDM store, the PM hierarchy, cosmology, and events
+    (FastPMSolver, solver.c:24-152) on one device: `device` when given,
+    else the first CUDA device (raises when there is none)."""
+
+    def __init__(self, config: SolverConfig,
+                 cosmology: Optional[Cosmology] = None, device=None):
+        self.device = resolve_device(device)
+        self.config = config
+        self.cosmology = cosmology if cosmology is not None else FIDUCIAL
+        if self.cosmology.ncdm_linearresponse:
+            raise NotImplementedError(f"the neutrino linear response {_LATER}")
+        self.event_handlers = ev.EventHandlers()
+
+        nc = config.nc
+        box = config.boxsize
+        dev = self.device
+        self.basepm = PM(nc, box, device=dev)
+        self.lptpm = PM(int(nc * config.lpt_nc_factor), box, device=dev)
+        # variable-resolution force meshes (vpm.c:22-58)
+        self.vpm_list = [(a_start, PM(int(nc * f), box, device=dev))
+                         for a_start, f in config.vpm_table]
+
+        shift = 0.5 * box / nc if config.use_shift else 0.0
+        self.species: Dict[str, Store] = {CDM: lattice_store(
+            self.basepm, Nc=nc, shift=shift, columns=("v", "acc", "id"),
+            name="cdm")}
+        # deferred check_values flag of the last force (_settle_cv)
+        self._cv_pending = None
+
+    def add_species(self, name: str, store: Store) -> None:
+        if name != CDM:
+            raise NotImplementedError(f"species {name!r} {_LATER}")
+        self.species[name] = store
+
+    def iter_species(self):
+        if CDM in self.species:
+            yield CDM
+
+    # ---- PM selection (vpm.c:9-20) ----
+
+    def find_pm(self, a: float) -> PM:
+        best = self.vpm_list[0][1]
+        for a_start, pm in self.vpm_list:
+            if a_start <= a:
+                best = pm
+        return best
+
+    # ---- LPT setup (solver.c:154-233) ----
+
+    def setup_lpt(self, delta_k_ic, a0: float) -> None:
+        """2LPT initialization of the CDM species from the
+        z=0-normalized linear delta_k (complex64 on the lptpm mesh)."""
+        cfg = self.config
+        p = self.species[CDM]
+        p = p.replace(M0=self.cosmology.Omega_cdm * RHO_CRIT
+                      * (cfg.boxsize / cfg.nc) ** 3)
+
+        self.event_handlers.emit(ev.EVENT_LPT, ev.STAGE_BEFORE,
+                                 solver=self, pm=self.lptpm,
+                                 delta_k=delta_k_ic, store=p)
+        if delta_k_ic is not None:
+            # readout at the de-shifted particle positions (pm2lpt.c:27-34)
+            shift0 = 0.5 * cfg.boxsize / cfg.nc if cfg.use_shift else 0.0
+            dx1, dx2 = lpt_solve(self.lptpm, delta_k_ic.to(self.device),
+                                 p.x - _f32(shift0), cfg.kernel_type)
+            p = p.replace(dx1=dx1, dx2=dx2)
+        if cfg.use_dx1_only and p.dx2 is not None:
+            p = p.replace(dx2=torch.zeros_like(p.dx2))
+        p = lpt_evolve(self.cosmology, a0, p, za_only=False)
+        self.species[CDM] = p.replace(dx1=None, dx2=None)
+        self.event_handlers.emit(ev.EVENT_LPT, ev.STAGE_AFTER,
+                                 solver=self, pm=self.lptpm,
+                                 delta_k=delta_k_ic,
+                                 store=self.species[CDM])
+
+    # ---- factors (cached per step endpoints) ----
+
+    def _kick_factor(self, ai, ac, af) -> KickFactor:
+        return _cached_kick(self.cosmology, self.config.force_mode,
+                            float(ai), float(ac), float(af), self.config.nLPT)
+
+    def _drift_factor(self, ai, ac, af) -> DriftFactor:
+        return _cached_drift(self.cosmology, self.config.force_mode,
+                             float(ai), float(ac), float(af),
+                             self.config.nLPT)
+
+    # ---- actions ----
+
+    def do_force(self, trans, states: StateTable, iend: int) -> None:
+        cfg = self.config
+        pm = self.find_pm(trans.a_f)
+        painter = Painter(pm, cfg.painter_type, cfg.painter_support)
+        N = sum(self.species[n].np_local for n in self.iter_species())
+        a_n = states.find_next_force_time(iend)
+        self.event_handlers.emit(
+            ev.EVENT_FORCE, ev.STAGE_BEFORE, solver=self, pm=pm,
+            a_f=trans.a_f, a_n=a_n, N=N, delta_k=None)
+        # settle the PREVIOUS force's deferred finite-ness flag
+        self._settle_cv()
+
+        # decompose analog: the periodic wrap (solver.c:571-592). The
+        # solver lets go of the old store so the cell sort's permuted
+        # copy is the only one alive
+        p, delta_k = compute_force(pm, painter,
+                                   self.species.pop(CDM).wrap(pm.BoxSize),
+                                   cfg.kernel_type, cfg.softening_type)
+        self.species[CDM] = p
+        if cfg.check_values:
+            # stays on the device until the next force or snapshot
+            self._cv_pending = (~(torch.isfinite(torch.view_as_real(
+                delta_k)).all() & torch.isfinite(p.acc).all()), trans.a_f)
+
+        # compensate the CIC window so the event sees a de-aliased
+        # spectrum (solver.c:466-471); skipped when nobody listens
+        delta_k_decic = None
+        if self.event_handlers.has(ev.EVENT_FORCE, ev.STAGE_AFTER):
+            delta_k_decic = transfers.apply_decic(pm, delta_k)
+        del delta_k
+        self.event_handlers.emit(
+            ev.EVENT_FORCE, ev.STAGE_AFTER, solver=self, pm=pm,
+            a_f=trans.a_f, a_n=a_n, N=N, delta_k=delta_k_decic)
+
+    def kick_one(self, p: Store, kick: KickFactor, af: float) -> Store:
+        """Apply a kick to a store (fastpm_kick_store, factors.c:147-197)."""
+        dda, _Dv1, _Dv2 = kick.coefficients(p.a_v, af)
+        return p.replace(v=p.v + p.acc * _f32(dda), a_v=float(af))
+
+    def drift_one(self, p: Store, drift: DriftFactor, af: float) -> Store:
+        """Apply a drift to a store (fastpm_drift_one, factors.c:72-115)."""
+        dyyy, _da1, _da2 = drift.coefficients(p.a_x, af)
+        return p.replace(x=p.x + p.v * _f32(dyyy), a_x=float(af))
+
+    def do_kick(self, trans, states: StateTable, iend: int) -> None:
+        kick = self._kick_factor(trans.a_i, trans.a_r, trans.a_f)
+        end = states.table[iend]
+        if end[1] == end[2]:  # x and v synced after this kick
+            dual = states.find_dual(iend - 1, ACTION_KICK)
+            if dual is None:
+                raise RuntimeError("dual transition not found")
+            drift = self._drift_factor(dual.a_i, dual.a_r, dual.a_f)
+            self._do_interpolation(drift, kick, trans.a_i, trans.a_f,
+                                   ev.TIMESTEP_CUR)
+        for name in self.iter_species():
+            p = self.species[name]
+            if abs(kick.ai - p.a_v) > 1e-12 or abs(kick.ac - p.a_x) > 1e-12:
+                raise RuntimeError("kick is inconsistent with state")
+            self.species[name] = self.kick_one(p, kick, trans.a_f)
+
+    def do_drift(self, trans, states: StateTable, iend: int) -> None:
+        drift = self._drift_factor(trans.a_i, trans.a_r, trans.a_f)
+        end = states.table[iend]
+        if end[1] == end[2]:
+            dual = states.find_dual(iend - 1, ACTION_DRIFT)
+            if dual is None:
+                raise RuntimeError("dual transition not found")
+            kick = self._kick_factor(dual.a_i, dual.a_r, dual.a_f)
+            self._do_interpolation(drift, kick, trans.a_i, trans.a_f,
+                                   ev.TIMESTEP_CUR)
+        for name in self.iter_species():
+            p = self.species[name]
+            if abs(drift.ai - p.a_x) > 1e-12 or abs(drift.ac - p.a_v) > 1e-12:
+                raise RuntimeError("drift is inconsistent with state")
+            self.species[name] = self.drift_one(p, drift, trans.a_f)
+
+    def _settle_cv(self) -> None:
+        """Deferred check_values fetch; raises like fastpm_raise
+        (logging.c:24-35) if the force went non-finite."""
+        pending = self._cv_pending
+        if pending is None:
+            return
+        self._cv_pending = None
+        flag, a_f = pending
+        if bool(flag):
+            raise FloatingPointError(
+                "force produced non-finite values (delta_k or acc) "
+                f"at a_f={a_f}")
+
+    def _do_interpolation(self, drift, kick, a1, a2, whence):
+        # snapshots must never consume an unverified force result
+        self._settle_cv()
+        self.event_handlers.emit(
+            ev.EVENT_INTERPOLATION, ev.STAGE_BEFORE, solver=self,
+            drift=drift, kick=kick, a1=a1, a2=a2, whence=whence)
+
+    # ---- evolution (solver.c:282-356) ----
+
+    def evolve(self, time_step: Optional[Sequence[float]] = None) -> None:
+        cfg = self.config
+        ts = list(time_step if time_step is not None else cfg.time_step)
+
+        # warmup: zero acc (solver.c:380-394)
+        for name in self.iter_species():
+            p = self.species[name]
+            if p.acc is not None:
+                self.species[name] = p.replace(acc=torch.zeros_like(p.acc))
+
+        states = StateTable(ts)
+        for i in range(1, len(states.table)):
+            trans = states.transition(i - 1, i)
+            self.event_handlers.emit(ev.EVENT_TRANSITION, ev.STAGE_BEFORE,
+                                     solver=self, transition=trans)
+            if trans.action == ACTION_KICK:
+                self.do_kick(trans, states, i)
+            elif trans.action == ACTION_DRIFT:
+                self.do_drift(trans, states, i)
+            elif trans.action == ACTION_FORCE:
+                self.do_force(trans, states, i)
+            self.event_handlers.emit(ev.EVENT_TRANSITION, ev.STAGE_AFTER,
+                                     solver=self, transition=trans)
+            if i == 1:
+                # initial interpolation event (solver.c:334-345)
+                a0 = ts[0]
+                self._do_interpolation(self._drift_factor(a0, a0, a0),
+                                       self._kick_factor(a0, a0, a0),
+                                       a0, a0, ev.TIMESTEP_START)
+        a1 = ts[-1]
+        self._do_interpolation(self._drift_factor(a1, a1, a1),
+                               self._kick_factor(a1, a1, a1),
+                               a1, a1, ev.TIMESTEP_END)
+
+    # ---- snapshots (solver.c:594-759) ----
+
+    def set_snapshot(self, p: Store, drift: DriftFactor, kick: KickFactor,
+                     aout: float) -> Store:
+        """Interpolate a species to aout and convert the internal velocity
+        to peculiar km/s (fastpm_set_species_snapshot)."""
+        po = p.compact()
+        if drift is not None:
+            po = self.drift_one(po, drift, aout)   # uses the OLD velocity
+        if kick is not None:
+            po = self.kick_one(po, kick, aout)
+        po = po.replace(v=po.v * _f32(HUBBLE_CONSTANT / aout))
+        return po.wrap(self.basepm.BoxSize)
+
+
+@lru_cache(maxsize=4096)
+def _cached_kick(c, mode, ai, ac, af, nLPT):
+    return KickFactor(c, mode, ai, ac, af, nLPT)
+
+
+@lru_cache(maxsize=4096)
+def _cached_drift(c, mode, ai, ac, af, nLPT):
+    return DriftFactor(c, mode, ai, ac, af, nLPT)

@@ -1,0 +1,139 @@
+"""The port's CIC paint (K1) and readout (K2) against the JAX package.
+
+On the CPU the port's wrappers take their plain versions; these are held
+against the Pallas from8 kernels in interpret mode (fed a
+make_prepare_fn(base_only=True) bundle, as the JAX force feeds them) and
+against the JAX scatter/gather Painter. The CUDA case holds the kernels
+against the plain versions on the card and skips without one; it needs
+no JAX, so on a GPU machine without it the file runs as
+`python -m pytest --noconftest tests/test_torch_cic.py -m cuda`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fastpm_torch.ops import cic
+
+NC, BOX, N = 32, 64.0, 5000
+
+
+def _positions(kind):
+    rng = np.random.default_rng({"uniform": 1, "clustered": 2,
+                                 "boundary": 3}[kind])
+    if kind == "uniform":
+        pos = rng.uniform(0, BOX, (N, 3))
+    elif kind == "clustered":
+        # most particles in a couple of cells: many per cell
+        pos = np.concatenate([10 + 0.4 * rng.random((4000, 3)),
+                              rng.uniform(0, BOX, (N - 4000, 3))])
+    else:
+        # box edges, the origin, exact cell boundaries, and positions
+        # equal to the box size (a float32 wrap can produce them)
+        g = np.stack(np.meshgrid(*[np.arange(4) * 16.0] * 3,
+                                 indexing="ij"), axis=-1).reshape(-1, 3)
+        pos = np.concatenate([
+            g, np.full((4, 3), BOX - 1e-3), np.full((4, 3), 0.0005),
+            np.full((4, 3), BOX), [[BOX, 0.0, 31.0], [0.0, BOX, BOX]],
+            rng.uniform(0, BOX, (N - len(g) - 14, 3))])
+    return pos.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pallas_from8():
+    """The from8 paint and readout, jitted with their prepare so each
+    compiles once for the module's single (mesh, N) shape."""
+    import jax
+    from fastpm_tpu.mesh import PM as JPM
+    from fastpm_tpu.ops.paint_pallas import (make_prepare_fn,
+                                             make_paint_from8_fn)
+    from fastpm_tpu.ops.readout_pallas import make_readout3_from8_fn
+    jpm = JPM(NC, BOX)
+    prepare = make_prepare_fn(jpm, C=1024, base_only=True)
+    paint = make_paint_from8_fn(jpm, K=128, C=1024, interpret=True)
+    # gather_mode="highest": f32 dots, exact to f32 rounding
+    read = make_readout3_from8_fn(jpm, K=128, C=1024, interpret=True,
+                                  gather_mode="highest")
+    return (jpm, jax.jit(lambda pos: paint(prepare(pos))),
+            jax.jit(lambda pos, a, b, c: read(prepare(pos), a, b, c)))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "boundary"])
+def test_paint_plain_matches_jax(pallas_from8, kind):
+    import jax.numpy as jnp
+    from fastpm_tpu.painter import Painter as JPainter
+    jpm, paint8, _ = pallas_from8
+    pos = _positions(kind)
+    got = cic.cic_paint(torch.from_numpy(pos), jpm.Nmesh,
+                        jpm.InvCellSize).numpy()
+    painter = np.asarray(JPainter(jpm, "cic", backend="never").paint(
+        jnp.asarray(pos)))
+    # plain scatter vs scatter: f32 summation order only
+    np.testing.assert_allclose(got, painter, rtol=1e-5, atol=2e-6)
+    # the Pallas kernel deposits bf16 hi+lo split weights
+    # (paint_pallas.py:1153-1160), good to ~2^-17 of a weight, so it
+    # is held at the atol its own test uses (test_pallas_paint.py:370)
+    np.testing.assert_allclose(got, np.asarray(paint8(jnp.asarray(pos))),
+                               rtol=1e-5, atol=2e-5)
+    assert got.sum() == pytest.approx(N, rel=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "boundary"])
+def test_readout_plain_matches_jax(pallas_from8, kind):
+    import jax.numpy as jnp
+    from fastpm_tpu.painter import Painter as JPainter
+    jpm, _, read8 = pallas_from8
+    pos = _positions(kind)
+    rng = np.random.default_rng(7)
+    cs = [rng.standard_normal((NC,) * 3).astype(np.float32)
+          for _ in range(3)]
+    got = cic.cic_readout([torch.from_numpy(c) for c in cs],
+                          torch.from_numpy(pos), jpm.InvCellSize).numpy()
+    want = np.asarray(read8(jnp.asarray(pos), *map(jnp.asarray, cs)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6)
+    painter = JPainter(jpm, "cic", backend="never")
+    want = np.stack([np.asarray(painter.readout(jnp.asarray(c),
+                                                jnp.asarray(pos)))
+                     for c in cs], axis=-1)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6)
+
+
+def test_cell_sort_orders_by_padded_key():
+    """sort_by_cell orders particles as the JAX padded cell key does
+    (base_cell_frac), including the wrap of positions at the box size."""
+    import jax.numpy as jnp
+    from fastpm_tpu.mesh import PM as JPM
+    from fastpm_tpu.ops.paint_pallas import base_cell_frac
+    jpm = JPM(NC, BOX)
+    pos = _positions("boundary")
+    perm = cic.sort_by_cell(torch.from_numpy(pos), jpm.Nmesh,
+                            jpm.InvCellSize).numpy()
+    cell, _ = base_cell_frac(jnp.asarray(pos),
+                             np.asarray(jpm.InvCellSize, np.float32),
+                             NC, NC, NC, NC + 1, NC + 1)
+    cell = np.asarray(cell)
+    np.testing.assert_array_equal(perm, np.argsort(cell, kind="stable"))
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    nmesh = (NC,) * 3
+    inv = (NC / BOX,) * 3
+    for kind in ("uniform", "clustered", "boundary"):
+        x = torch.from_numpy(_positions(kind)).to(dev)
+        x = x[cic.sort_by_cell(x, nmesh, inv)]
+        masses = torch.rand(x.shape[0], device=dev) + 0.5
+        for mass in (2.0, masses):
+            got = cic.cic_paint(x, nmesh, inv, mass)
+            want = cic.cic_paint_plain(x, nmesh, inv, mass)
+            # f32 atomics in run-dependent order vs index_add_
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+        fields = [torch.randn(nmesh, device=dev) for _ in range(3)]
+        for k in (1, 3):
+            torch.testing.assert_close(
+                cic.cic_readout(fields[:k], x, inv),
+                cic.cic_readout_plain(fields[:k], x, inv),
+                rtol=1e-5, atol=2e-6)
