@@ -7,23 +7,38 @@ Run from the root of the repository, with no arguments:
 
 Phases, in order (any failure ends the script with a nonzero exit):
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from fastpm_torch/csrc/ with nvcc (sm_90a);
-3. kernel checks at the main path's shapes (256^3 = 16.8 M particles,
-   a 512^3 mesh; uniform and clustered particles): each kernel against
-   its plain PyTorch version on the card, K2 also with the one 256^3
-   field of the 2LPT readouts, and CUDA-event timings of the
-   kernel, the plain version, a PyTorch yardstick where one exists, and
-   the least time the card could take (bytes at 3.35 TB/s);
-4. golden: tests/fixtures/nbodykit.lua through fastpm_torch.cli.main
+2. build the CUDA kernels from fastpm_torch/csrc/ (one nvcc per source,
+   all started together, sm_90a);
+3. K1 / K2 checks at the main path's shapes (256^3 = 16.8 M cell-sorted
+   particles, a 512^3 mesh; uniform and clustered particles): each
+   kernel against its plain PyTorch version on the card, K2 also with
+   the one 256^3 field of the 2LPT readouts, and CUDA-event timings of
+   the kernel, the plain version, a PyTorch yardstick where one exists,
+   and the least time the card could take (bytes at 3.35 TB/s);
+4. K3 / K4 checks at the ncdm path's shapes, particles in store order:
+   K3 adds 16.8 M CDM particles (scalar mass) and 5.24 M ncdm particles
+   (a mass column) into one 512^3 canvas, K4 reads the three 512^3
+   force fields at both sets; against the plain versions, the total
+   mass, and the same timings; then the bounds of K5-K7, still to port;
+5. golden: tests/fixtures/nbodykit.lua through fastpm_torch.cli.main
    writes 1894 FOF objects at a = 0.6667 and 1668 at a = 1.0, and logs
    the input sigma8 0.815897;
-5. device agreement: one 32^3 Lua file on the CPU and on the card;
-   positions and velocities agree by id;
-6. the main path at full size: the nbodykit.lua physics at nc = 256,
+6. device agreement: one 32^3 Lua file, and tests/fixtures/ncdm.lua
+   (16^3 CDM + 1280 ncdm), on the CPU and on the card; both species
+   agree by id, and 2/Mass agrees;
+7. the main path at full size: the nbodykit.lua physics at nc = 256,
    boxsize = 768 on a 512^3 force mesh (B2), 5 time steps, P(k) files
-   and a z = 0 snapshot, through fastpm_torch.cli.run_fastpm; the K1 /
-   K2 launch counters show every force step went through the kernels;
-7. a JSON line of the kernels, the card line again, and the result line.
+   and a z = 0 snapshot, through fastpm_torch.cli.run_fastpm; the launch
+   counters show every force step went through K1 / K2 and none
+   through K3 / K4;
+8. the ncdm path at full width: tests/fixtures/ncdm.lua's physics at
+   nc = 256, boxsize = 768 on a 512^3 force mesh (16.8 M CDM + 5.24 M
+   ncdm particles), its 6 time steps, through run_fastpm; K3 and K4
+   launch twice per force step, K1 never; both species' ids complete,
+   the ncdm mass sums to Omega_ncdm * RHO_CRIT * boxsize^3, one finite
+   P(k) file per force step; the multi-species force step's time and
+   profile;
+9. a JSON line of the kernels, the card line again, and the result line.
 """
 
 import contextlib
@@ -41,9 +56,23 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 peak outside tensor cores
 
-# K1/K2 against their plain versions: f32 sums in another order (atomics
-# in run-dependent order), so elementwise atol 2e-6 + rtol 1e-5
+# the kernels against their plain versions: f32 sums in another order
+# (atomics in run-dependent order), so elementwise atol 2e-6 + rtol 1e-5
 ATOL, RTOL = 2e-6, 1e-5
+
+# wrapper name in fastpm_torch.ops.cic -> (source, the TPU kernel it
+# replaces)
+KERNELS = {
+    "cic_paint": ("fastpm_torch/csrc/cic_paint.cu",
+                  "fastpm_tpu/ops/paint_pallas.py:1012"),
+    "cic_readout": ("fastpm_torch/csrc/cic_readout.cu",
+                    "fastpm_tpu/ops/readout_pallas.py:836"),
+    "cic_paint_into": ("fastpm_torch/csrc/cic_paint_into.cu",
+                       "fastpm_tpu/ops/paint_pallas.py:70"),
+    # K4 launches K2's kernel with three fields, under its own counter
+    "cic_readout3": ("fastpm_torch/csrc/cic_readout.cu",
+                     "fastpm_tpu/ops/readout_pallas.py:48"),
+}
 
 SMALL_LUA = """
 nc = %(nc)d
@@ -95,6 +124,18 @@ def bound_ms(nbytes, nops):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    from fastpm_torch.ops import cic
+    for name in KERNELS:
+        getattr(cic, name).launches = 0
+
+
+def read_launches():
+    from fastpm_torch.ops import cic
+    return {name: getattr(cic, name).launches for name in KERNELS}
+
+
 def make_particles(kind, n, box, dev, seed):
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -131,31 +172,19 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
         x = x[cic.sort_by_cell(x, mesh, inv)].contiguous()
 
         got = cic.cic_paint(x, mesh, inv)
-        want = cic.cic_paint_plain(x, mesh, inv)
-        diff = (got - want).abs()
-        ok = bool((diff <= ATOL + RTOL * want.abs()).all())
-        err = float(diff.max())
-        print("K1 cic_paint %s: max_abs_err %.3g (atol %g + rtol %g) %s"
-              % (kind, err, ATOL, RTOL, "ok" if ok else "FAIL"))
-        if not ok or abs(float(got.sum()) - n) > 1e-4 * n:
-            raise SystemExit("K1 disagrees with its plain version")
+        err = check_close("K1 cic_paint %s" % kind, got,
+                          cic.cic_paint_plain(x, mesh, inv))
+        if abs(float(got.sum()) - n) > 1e-4 * n:
+            raise SystemExit("K1 does not conserve the total mass")
         rows["cic_paint"]["err"] = max(rows["cic_paint"]["err"], err)
-        del got, want, diff
+        del got
 
         for label, fs, fi in (("3 fields %d^3" % nmesh, fields, inv),
                               ("1 field %d^3" % nc, [lpt_field], lpt_inv)):
-            got = cic.cic_readout(fs, x, fi)
-            want = cic.cic_readout_plain(fs, x, fi)
-            diff = (got - want).abs()
-            ok = bool((diff <= ATOL + RTOL * want.abs()).all())
-            err = float(diff.max())
-            print("K2 cic_readout %s, %s: max_abs_err %.3g (atol %g + "
-                  "rtol %g) %s" % (kind, label, err, ATOL, RTOL,
-                                   "ok" if ok else "FAIL"))
-            if not ok:
-                raise SystemExit("K2 disagrees with its plain version")
+            err = check_close("K2 cic_readout %s, %s" % (kind, label),
+                              cic.cic_readout(fs, x, fi),
+                              cic.cic_readout_plain(fs, x, fi))
             rows["cic_readout"]["err"] = max(rows["cic_readout"]["err"], err)
-            del got, want, diff
 
         key = "" if kind == "uniform" else "_" + kind
         rows["cic_paint"]["ms" + key] = time_ms(
@@ -168,7 +197,7 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
             lambda: cic.cic_readout_plain(fields, x, inv), reps)
         if kind == "uniform":
             rows["cic_readout"]["library_ms"] = grid_sample_ms(
-                fields, x, inv, nmesh, reps)
+                fields, [x], inv, nmesh, reps)
     torch.cuda.synchronize()
 
     # bytes: positions read once, the canvas / fields read or written
@@ -177,6 +206,25 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
     rows["cic_paint"]["bound"] = bound_ms(12 * n + 4 * cells, 40 * n)
     rows["cic_readout"]["bound"] = bound_ms(12 * n + 3 * 4 * cells
                                             + 12 * n, (40 + 48) * n)
+    print_rows(rows)
+    return rows
+
+
+def unported_bounds(nc=256, nmesh=512):
+    """Print the least times of the kernels still to port at the main
+    path's shapes: K5 and K6 do K1's and K2's work; one K7 merge pass
+    reads and writes N i32 keys with 6 f32 payloads (positions and
+    velocities, as make_prepare_carry_fn feeds it)."""
+    n, cells = nc ** 3, nmesh ** 3
+    for name, nbytes, nops in (
+            ("K5 _paint_kernel4", 12 * n + 4 * cells, 40 * n),
+            ("K6 _readout_kernel4", 24 * n + 12 * cells, 88 * n),
+            ("K7 _merge_kernel, one pass", 2 * 28 * n, 0)):
+        ms, by = bound_ms(nbytes, nops)
+        print("to port: %s bound_ms %.4f (%s)" % (name, ms, by))
+
+
+def print_rows(rows):
     for name, r in rows.items():
         print("%s: kernel_ms %.4f plain_ms %.4f library_ms %s bound_ms "
               "%.4f (%s) | clustered kernel_ms %.4f plain_ms %.4f"
@@ -184,13 +232,110 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
                  "%.4f" % r["library_ms"] if "library_ms" in r else "null",
                  r["bound"][0], r["bound"][1], r["ms_clustered"],
                  r["plain_ms_clustered"]))
+
+
+def check_close(label, got, want):
+    """Elementwise atol + rtol against the plain version; returns the
+    max abs error and raises SystemExit on a mismatch."""
+    diff = (got - want).abs()
+    ok = bool((diff <= ATOL + RTOL * want.abs()).all())
+    err = float(diff.max())
+    print("%s: max_abs_err %.3g (atol %g + rtol %g) %s"
+          % (label, err, ATOL, RTOL, "ok" if ok else "FAIL"))
+    if not ok:
+        raise SystemExit("%s disagrees with its plain version" % label)
+    return err
+
+
+def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
+                       nsplit=20, reps=10):
+    """Phase 4: K3 and K4 at the ncdm path's shapes, particles in store
+    order (a random permutation). A row's times are one force step's
+    work: K3 paints both species into one canvas, K4 reads the three
+    fields at both."""
+    import torch
+    from fastpm_torch.ops import cic
+
+    mesh = (nmesh,) * 3
+    inv = (nmesh / box,) * 3
+    n_cdm, n_nu = nc ** 3, (nc // every) ** 3 * nsplit
+    cells = nmesh ** 3
+    m_cdm = 1.0
+    rows = {"cic_paint_into": dict(err=0.0), "cic_readout3": dict(err=0.0)}
+    g = torch.Generator(device=dev).manual_seed(17)
+    fields = [torch.randn(mesh, generator=g, device=dev) for _ in range(3)]
+    masses = 0.5 + torch.rand(n_nu, generator=g, device=dev)
+    for kind in ("uniform", "clustered"):
+        xs = []
+        for n, seed in ((n_cdm, 21), (n_nu, 23)):
+            x = make_particles(kind, n, box, dev, seed)
+            xs.append(x[torch.randperm(n, generator=g, device=dev)])
+        x_cdm, x_nu = xs
+
+        def paint(fn, canvas):
+            fn(canvas, x_cdm, inv, m_cdm)
+            return fn(canvas, x_nu, inv, masses)
+
+        got = paint(cic.cic_paint_into, torch.zeros(mesh, device=dev))
+        want = paint(cic.cic_paint_into_plain, torch.zeros(mesh, device=dev))
+        err = check_close("K3 cic_paint_into %s, CDM + ncdm" % kind,
+                          got, want)
+        total = m_cdm * n_cdm + float(masses.double().sum())
+        if abs(float(got.double().sum()) - total) > 1e-4 * total:
+            raise SystemExit("K3 does not conserve the total mass")
+        rows["cic_paint_into"]["err"] = max(rows["cic_paint_into"]["err"],
+                                            err)
+        del want
+        for x, label in ((x_cdm, "CDM"), (x_nu, "ncdm")):
+            err = check_close(
+                "K4 cic_readout3 %s, 3 fields %d^3 at %s" % (kind, nmesh,
+                                                            label),
+                cic.cic_readout3(*fields, x, inv),
+                cic.cic_readout_plain(fields, x, inv))
+            rows["cic_readout3"]["err"] = max(rows["cic_readout3"]["err"],
+                                              err)
+
+        key = "" if kind == "uniform" else "_" + kind
+        # repeated adds into one canvas: the work of a force step's paint
+        rows["cic_paint_into"]["ms" + key] = time_ms(
+            lambda: paint(cic.cic_paint_into, got), reps)
+        rows["cic_paint_into"]["plain_ms" + key] = time_ms(
+            lambda: paint(cic.cic_paint_into_plain, got), reps)
+        rows["cic_readout3"]["ms" + key] = time_ms(
+            lambda: [cic.cic_readout3(*fields, x, inv) for x in xs], reps)
+        rows["cic_readout3"]["plain_ms" + key] = time_ms(
+            lambda: [cic.cic_readout_plain(fields, x, inv) for x in xs],
+            reps)
+        if kind == "uniform":
+            rows["cic_paint_into"]["ms_cdm"] = time_ms(
+                lambda: cic.cic_paint_into(got, x_cdm, inv, m_cdm), reps)
+            rows["cic_paint_into"]["ms_ncdm"] = time_ms(
+                lambda: cic.cic_paint_into(got, x_nu, inv, masses), reps)
+            rows["cic_readout3"]["library_ms"] = grid_sample_ms(
+                fields, xs, inv, nmesh, reps)
+        del got
+    torch.cuda.synchronize()
+
+    # bytes: positions (and the ncdm masses) read once, the canvas read
+    # and written once (K3 adds into it), the fields read once and the
+    # values written once (K4). operations: as K1 / K2 per particle
+    n = n_cdm + n_nu
+    rows["cic_paint_into"]["bound"] = bound_ms(
+        12 * n + 4 * n_nu + 2 * 4 * cells, 40 * n)
+    rows["cic_readout3"]["bound"] = bound_ms(
+        12 * n + 3 * 4 * cells + 12 * n, (40 + 48) * n)
+    print_rows(rows)
+    print("cic_paint_into uniform: CDM alone %.4f ms, ncdm alone %.4f ms"
+          % (rows["cic_paint_into"]["ms_cdm"],
+             rows["cic_paint_into"]["ms_ncdm"]))
     return rows
 
 
-def grid_sample_ms(fields, x, inv, nmesh, reps):
-    """A PyTorch yardstick for K2, never used by the port: trilinear
-    grid_sample (align_corners=True) of the three fields, wrap-padded by
-    one plane per axis, at the particles."""
+def grid_sample_ms(fields, xs, inv, nmesh, reps):
+    """A PyTorch yardstick for K2 and K4, never used by the port:
+    trilinear grid_sample (align_corners=True) of the three fields,
+    wrap-padded by one plane per axis, at each set of particles in xs
+    (one call per set, timed together)."""
     import torch
     import torch.nn.functional as F
     from fastpm_torch.ops import cic
@@ -198,16 +343,18 @@ def grid_sample_ms(fields, x, inv, nmesh, reps):
     padded = torch.cat([padded, padded[:, :1]], dim=1)
     padded = torch.cat([padded, padded[:, :, :1]], dim=2)
     padded = torch.cat([padded, padded[:, :, :, :1]], dim=3)[None]
-    g = x * torch.tensor(inv, device=x.device)
     # grid (x, y, z) indexes (W, H, D) = (iz, iy, ix); padded size n + 1
-    grid = (g.flip(-1) * (2.0 / nmesh) - 1.0).reshape(1, -1, 1, 1, 3)
+    grids = [((x * torch.tensor(inv, device=x.device)).flip(-1)
+              * (2.0 / nmesh) - 1.0).reshape(1, -1, 1, 1, 3) for x in xs]
 
     def call():
-        return F.grid_sample(padded, grid, mode="bilinear",
-                             padding_mode="border", align_corners=True)
+        return [F.grid_sample(padded, grid, mode="bilinear",
+                              padding_mode="border", align_corners=True)
+                for grid in grids]
 
-    out = call()[0, :, :, 0, 0].T
-    err = float((out - cic.cic_readout_plain(fields, x, inv)).abs().max())
+    err = max(float((out[0, :, :, 0, 0].T
+                     - cic.cic_readout_plain(fields, x, inv)).abs().max())
+              for out, x in zip(call(), xs))
     print("grid_sample yardstick: max_abs_err vs plain readout %.3g" % err)
     return time_ms(call, reps)
 
@@ -219,7 +366,7 @@ def write_lua(path, text):
 
 
 def golden(dev, tmp):
-    """Phase 4: nbodykit.lua through the CLI on the card."""
+    """Phase 5: nbodykit.lua through the CLI on the card."""
     from fastpm_torch import cli
     from fastpm_torch.io.bigfile import BigFile
     out = os.path.join(tmp, "golden")
@@ -245,18 +392,34 @@ def golden(dev, tmp):
             raise SystemExit("golden: FOF count mismatch")
 
 
-def read_by_id(path):
+def read_by_id(path, dataset="1", columns=("Position", "Velocity")):
+    """(ids, *columns) of one species, sorted by id."""
     import numpy as np
     from fastpm_torch.io.bigfile import BigFile
     bf = BigFile(path)
-    ids = bf.open_block("1/ID").read_all().reshape(-1)
+    ids = bf.open_block(dataset + "/ID").read_all().reshape(-1)
     o = np.argsort(ids)
-    return (ids[o], bf.open_block("1/Position").read_all().reshape(-1, 3)[o],
-            bf.open_block("1/Velocity").read_all().reshape(-1, 3)[o])
+    return (ids[o],) + tuple(
+        bf.open_block("%s/%s" % (dataset, c)).read_all()[o] for c in columns)
+
+
+def ncdm_lua(tmp, name, nc=None, box=None):
+    """tests/fixtures/ncdm.lua with its table paths pointed at FIXTURES
+    and its outputs at tmp/name; nc and boxsize replaced when given.
+    Returns (path of the Lua file, output directory)."""
+    out = os.path.join(tmp, name)
+    src = open(os.path.join(FIXTURES, "ncdm.lua")).read()
+    src = re.sub(r'"[^"]*/(\w+\.txt)"',
+                 lambda m: '"%s"' % os.path.join(FIXTURES, m.group(1)), src)
+    if nc is not None:
+        src = re.sub(r"(?m)^nc = .*$", "nc = %d" % nc, src)
+        src = re.sub(r"(?m)^boxsize = .*$", "boxsize = %r" % box, src)
+    return (write_lua(os.path.join(tmp, name + ".lua"),
+                      src.replace("OUTDIR", out)), out)
 
 
 def device_agreement(dev, tmp, nc=32, box=96.0):
-    """Phase 5: the same 32^3 run on the CPU and on the card agree by id
+    """Phase 6: the same 32^3 run on the CPU and on the card agree by id
     to 1e-4 of a cell in position and 1e-4 of the rms in velocity."""
     import numpy as np
     from fastpm_torch import cli
@@ -282,9 +445,38 @@ def device_agreement(dev, tmp, nc=32, box=96.0):
         raise SystemExit("device agreement failed")
 
 
+def ncdm_agreement(dev, tmp, nc=16, box=128.0):
+    """Phase 6, second case: tests/fixtures/ncdm.lua on the CPU and on
+    the card. Both species agree by id to 1e-4 of a cell in position and
+    1e-4 of the rms in velocity, and 2/Mass to 1e-6 relative."""
+    import numpy as np
+    from fastpm_torch import cli
+    snaps = {}
+    for where in ("cpu", dev):
+        conf, out = ncdm_lua(tmp, "ncdm_agree_%s" % where)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main([conf], device=where)
+        snaps[where] = os.path.join(out, "fastpm_1.0000")
+    for dataset, cols in (("1", ("Position", "Velocity")),
+                          ("2", ("Position", "Velocity", "Mass"))):
+        a, b = (read_by_id(snaps[w], dataset, cols) for w in ("cpu", dev))
+        dx = b[1] - a[1]
+        dx -= np.round(dx / box) * box
+        ex = float(np.abs(dx).max()) / (box / nc)
+        ev = float(np.abs(b[2] - a[2]).max() / a[2].std())
+        em = (float(np.abs(b[3] / a[3] - 1).max()) if dataset == "2"
+              else 0.0)
+        print("device agreement ncdm.lua dataset %s (%d particles): max "
+              "|dx| %.3g cell, max |dv| %.3g rms, max mass rel err %.3g"
+              % (dataset, len(a[0]), ex, ev, em))
+        if not (np.array_equal(a[0], b[0]) and ex < 1e-4 and ev < 1e-4
+                and em < 1e-6):
+            raise SystemExit("ncdm device agreement failed")
+
+
 def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
-    """Phase 6: the full-size run; returns (solver, force steps, rows of
-    measurements)."""
+    """Phase 7: the main path at full size through run_fastpm; returns
+    the launch counts of the run."""
     import numpy as np
     import torch
     from fastpm_torch import cli, gravity
@@ -299,15 +491,13 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
         ps=os.path.join(FIXTURES, "powerspec.txt")))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cic.cic_paint.launches = 0
-    cic.cic_readout.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     log = Log(echo=False)
     solver = cli.run_fastpm(load_params(conf), log=log, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"cic_paint": cic.cic_paint.launches,
-                "cic_readout": cic.cic_readout.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     nforce = nstep
@@ -315,13 +505,17 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
           "wall %.2f s (IC, 2LPT, steps, P(k), snapshot)"
           % (nc, 2 * nc, nforce, wall))
     print("main path: launches K1 cic_paint %d (want %d), K2 cic_readout "
-          "%d (want %d = force steps + 6 LPT readouts)"
-          % (launches["cic_paint"], nforce, launches["cic_readout"],
-             nforce + 6))
+          "%d (want %d = force steps + 6 LPT readouts), K3 %d and K4 %d "
+          "(want 0)" % (launches["cic_paint"], nforce,
+                        launches["cic_readout"], nforce + 6,
+                        launches["cic_paint_into"],
+                        launches["cic_readout3"]))
     print("main path: max_memory_allocated %.3f GB"
           % (peak / 1e9))
-    if launches != {"cic_paint": nforce, "cic_readout": nforce + 6}:
-        raise SystemExit("main path did not run through the kernels")
+    if launches != {"cic_paint": nforce, "cic_readout": nforce + 6,
+                    "cic_paint_into": 0, "cic_readout3": 0}:
+        raise SystemExit("main path did not run through K1 / K2 alone: %s"
+                         % launches)
 
     # outputs: the z=0 snapshot and one P(k) file per force step
     ids, x, v = read_by_id(os.path.join(out, "fastpm_1.0000"))
@@ -341,12 +535,89 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
     pm = solver.find_pm(1.0)
     painter = Painter(pm, "cic")
     store = solver.species["cdm"]
-    force_ms = time_ms(lambda: gravity.compute_force(
+    force_ms = time_ms(lambda: gravity.compute_force_carry(
         pm, painter, store.wrap(pm.BoxSize)), reps=5)
     print("main path: force step %.2f ms (sort + K1 + FFTs + K2) = "
           "%.4g particle-steps/s" % (force_ms, nc ** 3 / force_ms * 1e3))
-    profile_force(lambda: gravity.compute_force(
+    profile_force(lambda: gravity.compute_force_carry(
         pm, painter, store.wrap(pm.BoxSize)))
+    return launches
+
+
+def ncdm_path(dev, tmp, nc=256, box=768.0):
+    """Phase 8: ncdm.lua's physics at full width through run_fastpm;
+    returns the launch counts of the run."""
+    import numpy as np
+    import torch
+    from fastpm_torch import cli, gravity
+    from fastpm_torch.config.params import load_params
+    from fastpm_torch.diagnostics import Log
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.units import RHO_CRIT
+
+    conf, out = ncdm_lua(tmp, "ncdm_full", nc=nc, box=box)
+    params = load_params(conf)
+    nforce = len(params.time_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    log = Log(echo=False)
+    solver = cli.run_fastpm(params, log=log, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    cdm, nu = solver.species["cdm"], solver.species["ncdm"]
+    n = cdm.np_local + nu.np_local
+    print("ncdm path: %d CDM + %d ncdm particles, %d^3 force mesh, %d "
+          "force steps, wall %.2f s (ICs and 2LPT of both species, steps, "
+          "P(k), snapshot)" % (cdm.np_local, nu.np_local, 2 * nc, nforce,
+                               wall))
+    want = {"cic_paint": 0, "cic_readout": 6 + 9,
+            "cic_paint_into": 2 * nforce, "cic_readout3": 2 * nforce}
+    print("ncdm path: launches %s (want %s: K3 and K4 twice per force "
+          "step, K2 = 6 CDM + 9 ncdm 2LPT readouts)" % (launches, want))
+    print("ncdm path: max_memory_allocated %.3f GB" % (peak / 1e9))
+    if launches != want:
+        raise SystemExit("ncdm path did not run through K3 / K4")
+
+    snap = os.path.join(out, "fastpm_1.0000")
+    for dataset, count in (("1", cdm.np_local), ("2", nu.np_local)):
+        ids, x, v = read_by_id(snap, dataset)
+        if not (np.array_equal(ids, np.arange(count))
+                and np.isfinite(x).all() and np.isfinite(v).all()
+                and x.min() >= 0 and x.max() < box):
+            raise SystemExit("ncdm path: bad snapshot dataset %s" % dataset)
+    mass = read_by_id(snap, "2", ("Mass",))[1].astype(np.float64)
+    want_mass = solver.cosmology.Omega_ncdm * RHO_CRIT * box ** 3
+    rel = abs(mass.sum() / want_mass - 1)
+    print("ncdm path: 2/Mass sum %.10g, Omega_ncdm RHO_CRIT L^3 %.10g, "
+          "rel err %.3g" % (mass.sum(), want_mass, rel))
+    if not ((mass > 0).all() and rel < 1e-5):
+        raise SystemExit("ncdm path: bad ncdm masses")
+    pk_files = sorted(f for f in os.listdir(out)
+                      if f.startswith("powerspec_"))
+    if len(pk_files) != nforce or not all(
+            np.isfinite(np.loadtxt(os.path.join(out, f), comments="#")).all()
+            for f in pk_files):
+        raise SystemExit("ncdm path: bad power spectrum output")
+    print("ncdm path: %s, last line of the log: %s"
+          % (pk_files, log.lines[-1]))
+
+    # the multi-species force step alone, on the z=0 state
+    pm = solver.find_pm(1.0)
+    painter = Painter(pm, "cic")
+    stores = [p.wrap(pm.BoxSize) for p in (cdm, nu)]
+
+    def step():
+        return gravity.compute_force(pm, painter, stores)
+
+    force_ms = time_ms(step, reps=5)
+    print("ncdm path: force step %.2f ms (K3 x 2 + FFTs + K4 x 2) = "
+          "%.4g particle-steps/s (N = %.1f M)"
+          % (force_ms, n / force_ms * 1e3, n / 1e6))
+    profile_force(step)
     return launches
 
 
@@ -397,25 +668,30 @@ def main():
                                      for s in cudalib.SOURCES]))
 
     rows = check_kernels(dev)
+    rows.update(check_kernels_ncdm(dev))
+    unported_bounds()
     with tempfile.TemporaryDirectory() as tmp:
         golden(dev, tmp)
         device_agreement(dev, tmp)
+        ncdm_agreement(dev, tmp)
+        # each path's launches are read from its own run
         launches = main_path(dev, tmp)
+        ncdm_launches = ncdm_path(dev, tmp)
+    for name in ("cic_paint_into", "cic_readout3"):
+        launches[name] = ncdm_launches[name]
 
-    meta = {
-        "cic_paint": ("fastpm_torch/csrc/cic_paint.cu",
-                      "fastpm_tpu/ops/paint_pallas.py:1012"),
-        "cic_readout": ("fastpm_torch/csrc/cic_readout.cu",
-                        "fastpm_tpu/ops/readout_pallas.py:836"),
-    }
     kernels = []
     for name, r in rows.items():
+        source, replaces = KERNELS[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1],
+            # K1 and K3: no single PyTorch call deposits with CIC
+            # weights (index_add_ needs the corners and weights first,
+            # which is the plain version)
             "library_ms": r.get("library_ms"),
             "ms_clustered": r["ms_clustered"],
             "plain_ms_clustered": r["plain_ms_clustered"]})

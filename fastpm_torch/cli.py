@@ -2,8 +2,9 @@
 `python -m fastpm_torch.cli <file.lua>`.
 
 Port of fastpm_tpu/cli.py for one device: Lua parameter file -> IC
-pipeline -> 2LPT -> evolution with event handlers for the per-step
-power spectrum, interpolated bigfile snapshots and host FOF catalogs.
+pipeline -> 2LPT (CDM, and the Fermi-Dirac split ncdm species when
+m_ncdm is set) -> evolution with event handlers for the per-step power
+spectrum, interpolated bigfile snapshots and host FOF catalogs.
 A parameter this slice does not serve stops the run with SystemExit
 naming it (see ROADMAP.md).
 """
@@ -13,10 +14,14 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
+
 from .config.params import load_params, Params
 from .cosmology import Cosmology
 from .device import resolve_device
-from .solver import Solver, SolverConfig
+from .solver import Solver, SolverConfig, NCDM
+from .store import lattice_store
+from .ncdm import NcdmInitData, split_ncdm
 from .powerspectrum import FuncK, sigma_tophat
 from .diagnostics import attach_standard_handlers, Log
 from . import ic, events as ev, transfers
@@ -24,15 +29,15 @@ from .io.snapshots import write_snapshot, write_halo_catalog
 from .fof import find_halos
 
 __all__ = ["main", "run_fastpm", "build_cosmology", "build_config",
-           "prepare_deltak", "SnapshotChecker"]
+           "prepare_deltak", "prepare_ncdm", "SnapshotChecker"]
 
 # parameters whose feature is a later slice: each must be unset/false
 _LATER_PARAMS = (
-    "read_lineark", "read_whitenoisek", "read_runpbic", "read_grafic",
-    "read_linear_growth_rate", "write_whitenoisek", "write_lineark",
+    "read_lineark", "read_lineark_ncdm", "read_whitenoisek",
+    "read_runpbic", "read_grafic", "write_whitenoisek", "write_lineark",
     "write_linearr", "write_runpbic", "write_nonlineark",
     "write_runpb_snapshot", "write_rfof", "lc_write_usmesh",
-    "constraints", "m_ncdm", "ncdm_linearresponse", "pgdc",
+    "constraints", "ncdm_linearresponse", "pgdc",
     "compute_potential", "compute_tidal")
 
 
@@ -129,6 +134,58 @@ def prepare_deltak(solver: Solver, p: Params, log: Log):
     return dk, pk
 
 
+def prepare_ncdm(solver: Solver, p: Params, a0: float, log: Log):
+    """Massive-neutrino particle species setup
+    (prepare_ncdm, src/fastpm.c:716-847): staggered coarse lattice,
+    Fermi-Dirac split, own linear field, own 2LPT."""
+    if not p.m_ncdm or p.n_shell == 0:
+        return
+    every = int(p.every_ncdm)
+    nc_ncdm = p.nc // every
+    if p.nc % every != 0:
+        raise SystemExit("nc must be divisible by every_ncdm")
+
+    z_ref = 1.0 / p.time_step[0] - 1
+    log.info("ncdm reference redshift = %g", z_ref)
+    nid = NcdmInitData(boxsize=p.boxsize, cosmology=solver.cosmology,
+                       z=z_ref, n_shells=int(p.n_shell),
+                       n_side=int(p.n_side), lvk=p.lvk,
+                       sphere_scheme=p.ncdm_sphere_scheme)
+
+    shift0 = p.boxsize / nc_ncdm * 0.5 if p.shift else 0.0
+    sites = lattice_store(solver.lptpm, Nc=nc_ncdm, shift=shift0,
+                          columns=("v", "acc", "id"), name="ncdm")
+    # stagger wrt the cdm grid by half a cdm cell (src/fastpm.c:785-792)
+    stag = float(np.float32(p.boxsize / p.nc * 0.5))
+    sites = sites.replace(x=sites.x + stag,
+                          q_shift=tuple(s + stag for s in sites.q_shift))
+
+    ncdm = split_ncdm(nid, sites).wrap(p.boxsize)
+    log.info("average mass of a ncdm particle is %g",
+             float(ncdm.mass.double().mean()) / max(1, len(p.m_ncdm)))
+    solver.add_species(NCDM, ncdm)
+
+    # own linear field (fall back to cdm's inputs with a warning)
+    if not p.read_powerspectrum_ncdm:
+        log.info("WARNING: No ncdm powerspectrum input; using cdm's "
+                 "instead.")
+        dk, _ = prepare_deltak(solver, p, log)
+    else:
+        ns = dict(p.asdict())
+        ns["read_powerspectrum"] = p.read_powerspectrum_ncdm
+        ns["linear_density_redshift"] = p.linear_density_redshift_ncdm
+        dk, _ = prepare_deltak(
+            solver, Params(ns, source=p.source, filename=p.filename), log)
+
+    growth_rate_func_k = None
+    if p.read_linear_growth_rate_ncdm:
+        growth_rate_func_k = FuncK.from_file(p.read_linear_growth_rate_ncdm)
+        log.info("Reading ncdm linear growth rate from file: %s",
+                 p.read_linear_growth_rate_ncdm)
+    solver.setup_lpt(dk, a0, species=NCDM,
+                     growth_rate_func_k=growth_rate_func_k)
+
+
 class SnapshotChecker:
     """Interpolation-event handler writing snapshots and FOF catalogs at
     each aout (check_snapshots, src/fastpm.c:1144-1209). The particle
@@ -190,7 +247,10 @@ class SnapshotChecker:
     def write_one(self, aout, event):
         p, log, s = self.p, self.log, self.solver
         gi = s.cosmology.growth_info(aout)
-        cdm = s.set_snapshot(s.species["cdm"], event.drift, event.kick, aout)
+        species = {name: s.set_snapshot(s.species[name], event.drift,
+                                        event.kick, aout)
+                   for name in s.iter_species()}
+        cdm = species["cdm"]
         log.info("Snapshot a_x = %6.4f, a_v = %6.4f", cdm.a_x, cdm.a_v)
         log.info("Growth factor of snapshot %6.4f (a=%0.4f)", gi.D1, aout)
         log.info("Growth rate of snapshot %6.4f (a=%0.4f)", gi.f1, aout)
@@ -198,8 +258,9 @@ class SnapshotChecker:
         if p.write_snapshot:
             path = "%s_%0.04f" % (p.write_snapshot, aout)
             log.info("Writing a snapshot header to %s", path)
-            snapshot = {"cdm": cdm.replace(
-                **{c: t.cpu() for c, t in cdm.columns()})}
+            snapshot = {name: sp.replace(
+                **{c: t.cpu() for c, t in sp.columns()})
+                for name, sp in species.items()}
 
             def do_write(path=path, snapshot=snapshot):
                 rsd = write_snapshot(path, s.cosmology, snapshot,
@@ -250,6 +311,7 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
         dk, _pk = prepare_deltak(solver, p, log)
         solver.setup_lpt(dk, p.time_step[0])
         del dk
+        prepare_ncdm(solver, p, p.time_step[0], log)
         solver.evolve(solver.config.time_step)
     finally:
         # join in-flight background snapshot writes even when evolve

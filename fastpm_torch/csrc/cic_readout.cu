@@ -1,29 +1,34 @@
-// K2: CIC readout (gather) of 1 to 3 periodic mesh fields at particles.
+// K2 and K4: CIC readout (gather) of 1 to 3 periodic mesh fields at
+// particles in any order.
 //
-// Replaces the TPU kernel fastpm_tpu/ops/readout_pallas.py:_readout_kernel8
-// (reached through make_readout3_from8_fn), the one-pass 3-component
-// gather of cell-sorted particles from wrap-padded canvas windows.
+// Replaces two TPU kernels:
+// - K2 fastpm_tpu/ops/readout_pallas.py:_readout_kernel8 (reached through
+//   make_readout3_from8_fn), the one-pass 3-component gather of
+//   cell-sorted particles from wrap-padded canvas windows: the
+//   order-free force's readout and, with one field, the 2LPT readouts;
+// - K4 readout_pallas.py:_readout_kernel (reached through
+//   make_readout3_fn), which sorts unsorted particles by cell, gathers 24
+//   per-corner rows from canvas windows on the MXU, sums them and sorts
+//   the values back: the multi-species force's readout, once per species.
 //
-// Contract: the same base cell, fraction and corner weights as K1
-// (cic_paint.cu); out[i, c] = sum over the 8 corners of w * field_c at the
-// periodically wrapped corner. No wrap-padded canvases, windows or range
-// tables: the periodic wrap is index arithmetic.
+// Contract: the base cell, fraction and corner weights of cic_common.cuh;
+// out[i, c] = sum over the 8 corners of w * field_c at the periodically
+// wrapped corner. No wrap-padded canvases, windows or range tables: the
+// periodic wrap is index arithmetic. Thread i writes row i, so K4's rows
+// come back in the caller's order with no sort and no unsort.
 //
-// What bounds it on an H100: device-memory bytes. Each field is read
-// once if the particles are sorted by cell (the caller sorts them), so
-// the 8 corner loads of neighbouring threads share cache lines in L1/L2.
+// What bounds it on an H100: device-memory bytes when the particles are
+// sorted by cell (the carry force sorts them; the 2LPT readouts come in
+// lattice order), as the 8 corner loads of neighbouring threads share
+// cache lines in L1/L2; the latency of scattered loads when they are not
+// (a random store order misses L2 on most of its 24 loads per particle).
 // One thread per particle computes the 8 indices and weights once and
-// reuses them for every field. Staging canvas tiles in shared memory
-// over the sorted order is left for later work.
+// reuses them for every field. Staging canvas tiles in shared memory, or
+// binning unsorted particles by cell first, is left for later work.
 
-#include <cuda_runtime.h>
+#include "cic_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ int wrap_cell(int i, int n) {
-    int r = i % n;
-    return r < 0 ? r + n : r;
-}
 
 __global__ void cic_readout_kernel(const float* __restrict__ x, long long n,
                                    int nx, int ny, int nz,
@@ -32,42 +37,14 @@ __global__ void cic_readout_kernel(const float* __restrict__ x, long long n,
                                    const float* __restrict__ f1,
                                    const float* __restrict__ f2, int k,
                                    float* __restrict__ out) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    float g[3] = {__fmul_rn(x[3 * i], icx), __fmul_rn(x[3 * i + 1], icy),
-                  __fmul_rn(x[3 * i + 2], icz)};
-    int nm[3] = {nx, ny, nz};
-    int lo[3], hi[3];
-    float f[3], t[3];
-    for (int d = 0; d < 3; ++d) {
-        float b = floorf(g[d]);
-        f[d] = __fsub_rn(g[d], b);
-        t[d] = __fsub_rn(1.0f, f[d]);
-        lo[d] = wrap_cell((int)b, nm[d]);
-        hi[d] = lo[d] + 1 == nm[d] ? 0 : lo[d] + 1;
-    }
     size_t idx[8];
     float w[8];
-    int c = 0;
-    for (int dx = 0; dx < 2; ++dx) {
-        const size_t ix = (size_t)(dx ? hi[0] : lo[0]) * ny;
-        const float wx = dx ? f[0] : t[0];
-        for (int dy = 0; dy < 2; ++dy) {
-            const size_t ixy = (ix + (dy ? hi[1] : lo[1])) * nz;
-            const float wxy = __fmul_rn(wx, dy ? f[1] : t[1]);
-            for (int dz = 0; dz < 2; ++dz, ++c) {
-                idx[c] = ixy + (dz ? hi[2] : lo[2]);
-                w[c] = __fmul_rn(wxy, dz ? f[2] : t[2]);
-            }
-        }
-    }
+    fastpm_cic::corners(x, i, nx, ny, nz, icx, icy, icz, idx, w);
     const float* fields[3] = {f0, f1, f2};
-    for (int comp = 0; comp < k; ++comp) {
-        const float* fc = fields[comp];
-        float acc = 0.0f;
-        for (int j = 0; j < 8; ++j) acc += w[j] * __ldg(fc + idx[j]);
-        out[i * k + comp] = acc;
-    }
+    for (int comp = 0; comp < k; ++comp)
+        out[i * k + comp] = fastpm_cic::gather(fields[comp], idx, w);
 }
 
 }  // namespace

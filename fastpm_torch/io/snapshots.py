@@ -10,8 +10,8 @@ Layout (bigfile, MP-Gadget-compatible):
   MassTable, TotNumPart, unit system (io.c:288-320); ParamFile attr holds
   the full parameter file text for provenance (src/fastpm.c:97-116).
 - per-species datasets named "0" (baryon) "1" (cdm) "2" (ncdm) with
-  columns Position f4, Velocity f4 (peculiar km/s), ID i8, plus optional
-  Aemit/Potential/Tidal/Mass... (io.c:389-420).
+  columns Position f4, Velocity f4 (peculiar km/s), ID i8, and Mass f4
+  for a species with a per-particle mass (ncdm) (io.c:389-420).
 - per-dataset attrs persist the store metadata (q.strides/scale/shift/
   size, a.x, a.v, M0) making restart exact (io.c:446-456).
 """
@@ -41,6 +41,7 @@ COLUMN_BLOCKS = [
     ("dx2", "DX2", "f4"),
     ("v", "Velocity", "f4"),
     ("id", "ID", "i8"),
+    ("mass", "Mass", "f4"),
 ]
 
 

@@ -1,7 +1,8 @@
 """2LPT initial displacements (reference: libfastpm/pm2lpt.c).
 
-Port of fastpm_tpu/lpt.py: ~10 FFTs + readouts. The six readouts are
-CIC, so on a CUDA tensor they launch the K2 kernel (one field each).
+Port of fastpm_tpu/lpt.py: ~10 FFTs + readouts. The six readouts (nine
+with a growth-rate table) are CIC, so on a CUDA tensor they launch the
+K2 kernel (one field each).
 
 Conventions (pm_2lpt_solve):
 - dx1_d = readout_q[ c2r( diff_d( laplace(delta_k) ) ) ]
@@ -30,12 +31,15 @@ from .store import Store
 __all__ = ["lpt_solve", "lpt_evolve"]
 
 
-def lpt_solve(pm: PM, delta_k, q, kernel_type: str = "1_4"):
-    """Compute (dx1, dx2) at Lagrangian positions q (N,3).
+def lpt_solve(pm: PM, delta_k, q, kernel_type: str = "1_4",
+              growth_rate_func_k=None):
+    """Compute (dx1, dx2[, dv1]) at Lagrangian positions q (N,3).
 
     q should already include any half-cell shift handling: the reference
     de-shifts before readout (pm2lpt.c:27-34); pass the unshifted lattice.
-    Returns float32 tensors (N,3).
+    With growth_rate_func_k (a FuncK of the linear growth rate f(k)), dv1
+    is the 1LPT displacement weighted by f(k), read out from three more
+    c2r (the ncdm velocities). Returns float32 tensors (N,3).
     """
     potorder, gradorder, difforder, deconvolveorder = kernel_orders(kernel_type)
     painter = Painter(pm, "cic")
@@ -46,8 +50,14 @@ def lpt_solve(pm: PM, delta_k, q, kernel_type: str = "1_4"):
     def diff(dk, d):
         return transfers.apply_diff(pm, dk, d, difforder)
 
-    dx1 = torch.stack([painter.readout(pm.c2r(diff(pot(delta_k), d)), q)
-                       for d in range(3)], dim=-1)
+    dx1, dv1 = [], []
+    for d in range(3):
+        w = diff(pot(delta_k), d)
+        dx1.append(painter.readout(pm.c2r(w), q))
+        if growth_rate_func_k is not None:
+            wv = transfers.apply_any(pm, w, growth_rate_func_k)
+            dv1.append(painter.readout(pm.c2r(wv), q))
+    dx1 = torch.stack(dx1, dim=-1)
 
     D1 = (1, 2, 0)
     D2 = (2, 0, 1)
@@ -65,6 +75,8 @@ def lpt_solve(pm: PM, delta_k, q, kernel_type: str = "1_4"):
     dx2 = torch.stack([
         painter.readout(pm.c2r(diff(pot(source_k), d)) * (3.0 / 7), q)
         for d in range(3)], dim=-1)
+    if growth_rate_func_k is not None:
+        return dx1, dx2, torch.stack(dv1, dim=-1)
     return dx1, dx2
 
 
@@ -75,7 +87,8 @@ def lpt_evolve(c: Cosmology, a0: float, store: Store, za_only: bool = False):
     gi = c.growth_info(a0)
     E = c.E(a0)
     D1, D2, f1, f2 = gi.D1, gi.D2, gi.f1, gi.f2
-    Dv1 = D1 * a0 * a0 * E * f1
+    dv1_prefac = D1 * a0 * a0 * E
+    Dv1 = dv1_prefac * f1
     Dv2 = D2 * a0 * a0 * E * f2
     if za_only:
         D2 = 0.0
@@ -85,5 +98,9 @@ def lpt_evolve(c: Cosmology, a0: float, store: Store, za_only: bool = False):
         return float(np.float32(a))
 
     x = store.x + f32(D1) * store.dx1 + f32(D2) * store.dx2
-    v = store.v + f32(Dv2) * store.dx2 + f32(Dv1) * store.dx1
+    v = store.v + f32(Dv2) * store.dx2
+    if store.dv1 is not None:
+        v = v + f32(dv1_prefac) * store.dv1
+    else:
+        v = v + f32(Dv1) * store.dx1
     return store.replace(x=x, v=v, a_x=a0, a_v=a0)

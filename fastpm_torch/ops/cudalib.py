@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (fastpm_torch/csrc/*.cu).
 
-At first use one `nvcc` call compiles every source for sm_90a (Hopper)
-into build/fastpm_torch/libfastpm_cuda.so, which is loaded with ctypes. The
+At first use every source is compiled for sm_90a (Hopper) by its own
+`nvcc`, all started together, and the objects are linked into
+build/fastpm_torch/libfastpm_cuda.so, which is loaded with ctypes. The
 entry points have a plain C interface: pointers and the CUDA stream
 pass as c_void_p, and each returns cudaGetLastError(). Nothing here runs
 at import time, so the package imports where there is no nvcc.
@@ -23,6 +24,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "fastpm_torch")
 _LIBNAME = "libfastpm_cuda.so"
 SOURCES = tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cu"))))
+# a library older than any source or shared header is rebuilt
+_DEPENDS = SOURCES + tuple(sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -39,14 +42,25 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile every source into the shared library with one nvcc call
-    and return its path. Raises if nvcc fails."""
+    """Compile every source with its own nvcc process, all in parallel,
+    link the objects into the shared library and return its path.
+    Raises if any nvcc fails."""
     os.makedirs(_BUILD, exist_ok=True)
+    nvcc = _nvcc()
     out = os.path.join(_BUILD, _LIBNAME)
-    tmp = "%s.%d.tmp" % (out, os.getpid())
+    tag = os.getpid()
     flags = _FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    subprocess.run([_nvcc(), *_ARCH, *flags, "-shared", *SOURCES,
-                    "-o", tmp], check=True)
+    objs = [os.path.join(_BUILD, "%s.%d.o" % (
+        os.path.splitext(os.path.basename(s))[0], tag)) for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *_ARCH, *flags, "-c", src, "-o", obj])
+             for src, obj in zip(SOURCES, objs)]
+    failed = [src for src, p in zip(SOURCES, procs) if p.wait() != 0]
+    if failed:
+        raise RuntimeError("fastpm_torch: nvcc failed on %s" % failed)
+    tmp = "%s.%d.tmp" % (out, tag)
+    subprocess.run([nvcc, *_ARCH, "-shared", *objs, "-o", tmp], check=True)
+    for obj in objs:
+        os.remove(obj)
     # rename: a concurrent loader never sees a half-written library
     os.replace(tmp, out)
     return out
@@ -54,7 +68,7 @@ def build(verbose: bool = False) -> str:
 
 def _fresh(path: str) -> bool:
     return (os.path.exists(path) and all(
-        os.path.getmtime(path) >= os.path.getmtime(s) for s in SOURCES))
+        os.path.getmtime(path) >= os.path.getmtime(s) for s in _DEPENDS))
 
 
 def get_lib(verbose: bool = False) -> ctypes.CDLL:
@@ -73,10 +87,14 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    lib.fastpm_cic_paint.restype = I
-    lib.fastpm_cic_paint.argtypes = [P, L, I, I, I, F, F, F, F, P, P, P]
-    lib.fastpm_cic_readout.restype = I
-    lib.fastpm_cic_readout.argtypes = [P, L, I, I, I, F, F, F, P, P, P, I,
-                                       P, P]
+    # (x, n, nx, ny, nz, icx, icy, icz, ...)
+    head = [P, L, I, I, I, F, F, F]
+    for name, tail in (
+            ("fastpm_cic_paint", [F, P, P]),
+            ("fastpm_cic_paint_into", [F, P, P, P]),
+            ("fastpm_cic_readout", [P, P, P, I, P, P])):
+        fn = getattr(lib, name)
+        fn.restype = I
+        fn.argtypes = head + tail
     _lib = lib
     return lib

@@ -13,8 +13,10 @@ The generic path normalizes kernel weights per-axis to conserve mass
 (painter.c:195-213) and supports gradient readout along one axis
 (diffdir, painter.c:178-213).
 
-CIC with no diffdir goes through ops/cic.py: on a CUDA tensor that is
-the K1 / K2 kernels, on the CPU their plain versions. The generic path
+CIC with no diffdir goes through ops/cic.py: paint through K3 (any
+particle order, scalar or per-particle mass, into a given canvas),
+readout through K2 with one field, readout3 through K4. On a CUDA tensor
+those are the kernels, on the CPU their plain versions. The generic path
 serves quad, lanczos and gradient readouts.
 """
 
@@ -22,7 +24,6 @@ from __future__ import annotations
 
 import itertools
 
-import numpy as np
 import torch
 
 from .mesh import PM
@@ -156,20 +157,23 @@ class Painter:
 
     # ---- public API ----
 
-    def paint(self, pos, mass=1.0):
-        """Deposit mass (scalar or (N,) tensor) at pos (N,3) into a new
-        zeroed canvas."""
+    def paint(self, pos, mass=1.0, canvas=None):
+        """Deposit mass (scalar or (N,) tensor) at pos (N,3) into canvas
+        (a contiguous pm.rshape tensor, updated in place; a new zeroed
+        one if None). Returns the accumulated canvas."""
         pm = self.pm
+        if canvas is None:
+            canvas = torch.zeros(pm.rshape, dtype=pm.dtype,
+                                 device=pos.device)
         if self._is_cic:
-            return cic.cic_paint(pos, pm.Nmesh, pm.InvCellSize, mass)
-        flat = torch.zeros(int(np.prod(pm.Nmesh)), dtype=pm.dtype,
-                           device=pos.device)
+            return cic.cic_paint_into(canvas, pos, pm.InvCellSize, mass)
+        flat = canvas.view(-1)
         ipos, dx, ksum = self._base_and_frac(pos)
         for off in self.offsets:
             w = self._corner_weight(dx, ksum, off) * mass
             flat.index_add_(0, self._corner_flat(ipos, off),
                             w.to(pm.dtype))
-        return flat.reshape(pm.rshape)
+        return canvas
 
     def readout(self, canvas, pos):
         """Interpolate canvas at pos (N,3) -> (N,)."""
@@ -186,6 +190,6 @@ class Painter:
     def readout3(self, cx, cy, cz, pos):
         """Three-component force readout (N,3) -- the gravity hot path."""
         if self._is_cic:
-            return cic.cic_readout([cx, cy, cz], pos, self.pm.InvCellSize)
+            return cic.cic_readout3(cx, cy, cz, pos, self.pm.InvCellSize)
         return torch.stack([self.readout(f, pos) for f in (cx, cy, cz)],
                            dim=-1)

@@ -1,15 +1,17 @@
 """The FastPM solver: species, time evolution, events
 (reference: libfastpm/solver.c, vpm.c).
 
-Port of the single-device subset of fastpm_tpu/solver.py: one CDM
-species, force modes fastpm and pm, the variable-resolution force mesh
-(VPM) table, and the reference's event architecture (events fire between
-the kick / drift / force actions). The force step is gravity.compute_force
-on the solver's device.
+Port of the single-device subset of fastpm_tpu/solver.py: the CDM and
+ncdm species, force modes fastpm and pm, the variable-resolution force
+mesh (VPM) table, and the reference's event architecture (events fire
+between the kick / drift / force actions). The force step is
+gravity.compute_force_carry for one scalar-mass species and
+gravity.compute_force (every species into one canvas) otherwise, on the
+solver's device.
 
 Not in this slice (NotImplementedError; see ROADMAP.md): force modes
 cola, za and 2lpt, stale stepping, rehome, PGD, the neutrino linear
-response, ncdm and other extra species, and running across devices.
+response, baryons, and running across devices.
 """
 
 from __future__ import annotations
@@ -29,14 +31,18 @@ from .timemachine import (StateTable, ACTION_FORCE, ACTION_KICK,
 from .mesh import PM
 from .painter import Painter
 from .store import Store, lattice_store
-from .gravity import compute_force
+from .gravity import compute_force, compute_force_carry, carry_eligible
 from .lpt import lpt_solve, lpt_evolve
 from . import transfers, events as ev
 from .units import RHO_CRIT, HUBBLE_CONSTANT
 
-__all__ = ["SolverConfig", "Solver", "CDM"]
+__all__ = ["SolverConfig", "Solver", "CDM", "BARYON", "NCDM",
+           "SPECIES_ORDER"]
 
+BARYON = "baryon"
 CDM = "cdm"
+NCDM = "ncdm"
+SPECIES_ORDER = (BARYON, CDM, NCDM)
 
 _LATER = "is not in this slice of the port (see ROADMAP.md)"
 
@@ -99,7 +105,7 @@ class SolverConfig:
 
 
 class Solver:
-    """Holds the CDM store, the PM hierarchy, cosmology, and events
+    """Holds the species stores, the PM hierarchy, cosmology, and events
     (FastPMSolver, solver.c:24-152) on one device: `device` when given,
     else the first CUDA device (raises when there is none)."""
 
@@ -129,13 +135,14 @@ class Solver:
         self._cv_pending = None
 
     def add_species(self, name: str, store: Store) -> None:
-        if name != CDM:
+        if name not in (CDM, NCDM):
             raise NotImplementedError(f"species {name!r} {_LATER}")
         self.species[name] = store
 
     def iter_species(self):
-        if CDM in self.species:
-            yield CDM
+        for name in SPECIES_ORDER:
+            if name in self.species:
+                yield name
 
     # ---- PM selection (vpm.c:9-20) ----
 
@@ -148,31 +155,37 @@ class Solver:
 
     # ---- LPT setup (solver.c:154-233) ----
 
-    def setup_lpt(self, delta_k_ic, a0: float) -> None:
-        """2LPT initialization of the CDM species from the
-        z=0-normalized linear delta_k (complex64 on the lptpm mesh)."""
+    def setup_lpt(self, delta_k_ic, a0: float, species: str = CDM,
+                  growth_rate_func_k=None) -> None:
+        """2LPT initialization of a species from the z=0-normalized
+        linear delta_k (complex64 on the lptpm mesh). Only CDM takes its
+        M0 from Omega_cdm; with growth_rate_func_k (a FuncK of f(k)) the
+        velocities come from the dv1 readouts (ncdm)."""
         cfg = self.config
-        p = self.species[CDM]
-        p = p.replace(M0=self.cosmology.Omega_cdm * RHO_CRIT
-                      * (cfg.boxsize / cfg.nc) ** 3)
+        p = self.species[species]
+        if species == CDM:
+            p = p.replace(M0=self.cosmology.Omega_cdm * RHO_CRIT
+                          * (cfg.boxsize / cfg.nc) ** 3)
 
         self.event_handlers.emit(ev.EVENT_LPT, ev.STAGE_BEFORE,
                                  solver=self, pm=self.lptpm,
                                  delta_k=delta_k_ic, store=p)
         if delta_k_ic is not None:
-            # readout at the de-shifted particle positions (pm2lpt.c:27-34)
+            # readout at the de-shifted particle positions (pm2lpt.c:27-34;
+            # the de-shift uses the CDM-grid config shift)
             shift0 = 0.5 * cfg.boxsize / cfg.nc if cfg.use_shift else 0.0
-            dx1, dx2 = lpt_solve(self.lptpm, delta_k_ic.to(self.device),
-                                 p.x - _f32(shift0), cfg.kernel_type)
-            p = p.replace(dx1=dx1, dx2=dx2)
+            res = lpt_solve(self.lptpm, delta_k_ic.to(self.device),
+                            p.x - _f32(shift0), cfg.kernel_type,
+                            growth_rate_func_k)
+            p = p.replace(**dict(zip(("dx1", "dx2", "dv1"), res)))
         if cfg.use_dx1_only and p.dx2 is not None:
             p = p.replace(dx2=torch.zeros_like(p.dx2))
         p = lpt_evolve(self.cosmology, a0, p, za_only=False)
-        self.species[CDM] = p.replace(dx1=None, dx2=None)
+        self.species[species] = p.replace(dx1=None, dx2=None, dv1=None)
         self.event_handlers.emit(ev.EVENT_LPT, ev.STAGE_AFTER,
                                  solver=self, pm=self.lptpm,
                                  delta_k=delta_k_ic,
-                                 store=self.species[CDM])
+                                 store=self.species[species])
 
     # ---- factors (cached per step endpoints) ----
 
@@ -200,16 +213,26 @@ class Solver:
         self._settle_cv()
 
         # decompose analog: the periodic wrap (solver.c:571-592). The
-        # solver lets go of the old store so the cell sort's permuted
+        # solver lets go of the old stores so the cell sort's permuted
         # copy is the only one alive
-        p, delta_k = compute_force(pm, painter,
-                                   self.species.pop(CDM).wrap(pm.BoxSize),
-                                   cfg.kernel_type, cfg.softening_type)
-        self.species[CDM] = p
+        names = list(self.iter_species())
+        stores = [self.species.pop(n).wrap(pm.BoxSize) for n in names]
+        if carry_eligible(painter, stores):
+            p, delta_k = compute_force_carry(pm, painter, stores.pop(),
+                                             cfg.kernel_type,
+                                             cfg.softening_type)
+            stores = [p]
+        else:
+            stores, delta_k = compute_force(pm, painter, stores,
+                                            cfg.kernel_type,
+                                            cfg.softening_type)
+        self.species.update(zip(names, stores))
         if cfg.check_values:
             # stays on the device until the next force or snapshot
-            self._cv_pending = (~(torch.isfinite(torch.view_as_real(
-                delta_k)).all() & torch.isfinite(p.acc).all()), trans.a_f)
+            ok = torch.isfinite(torch.view_as_real(delta_k)).all()
+            for p in stores:
+                ok = ok & torch.isfinite(p.acc).all()
+            self._cv_pending = (~ok, trans.a_f)
 
         # compensate the CIC window so the event sees a de-aliased
         # spectrum (solver.c:466-471); skipped when nobody listens

@@ -6,9 +6,11 @@ Port of fastpm_tpu/store.py. Column semantics follow the reference:
 - v   (N,3) f32  internal velocity a^2 dx/dt / H0 (Mpc/h), timestamp a_v
 - acc (N,3) f32  acceleration from the last force step
 - dx1/dx2 (N,3) f32  LPT displacements
+- dv1 (N,3) f32  LPT velocity from a growth-rate table (ncdm)
 - id  (N,) i64  raveled Lagrangian lattice index; q is recomputable
   from it via the q_* metadata (store.c:664-692)
 - alive (N,) u8  liveness of padded rows (None = every row is a particle)
+- mass (N,) f32  per-particle mass (ncdm); None = every particle has M0
 
 Row order carries no meaning: the force step returns the store in
 cell-sorted order, and writers sort by id.
@@ -28,7 +30,7 @@ from .mesh import PM
 __all__ = ["Store", "lattice_store"]
 
 # the per-particle tensor columns, in declaration order
-COLUMNS = ("x", "v", "acc", "dx1", "dx2", "id", "alive")
+COLUMNS = ("x", "v", "acc", "dx1", "dx2", "dv1", "id", "alive", "mass")
 
 
 @dataclass
@@ -41,8 +43,10 @@ class Store:
     acc: Optional[torch.Tensor] = None
     dx1: Optional[torch.Tensor] = None
     dx2: Optional[torch.Tensor] = None
+    dv1: Optional[torch.Tensor] = None
     id: Optional[torch.Tensor] = None
     alive: Optional[torch.Tensor] = None
+    mass: Optional[torch.Tensor] = None
 
     a_x: float = 0.0
     a_v: float = 0.0

@@ -3,10 +3,11 @@
 On the CPU the port's wrappers take their plain versions; these are held
 against the Pallas from8 kernels in interpret mode (fed a
 make_prepare_fn(base_only=True) bundle, as the JAX force feeds them) and
-against the JAX scatter/gather Painter. The CUDA case holds the kernels
-against the plain versions on the card and skips without one; it needs
-no JAX, so on a GPU machine without it the file runs as
-`python -m pytest --noconftest tests/test_torch_cic.py -m cuda`.
+against the JAX scatter/gather Painter (K3 and K4's plain versions are
+held against their Pallas kernels in tests/test_torch_ncdm.py). The CUDA
+case holds K1-K4 against their plain versions on the card and skips
+without one; it needs no JAX, so on a GPU machine without it the file
+runs as `python -m pytest --noconftest tests/test_torch_cic.py -m cuda`.
 """
 
 import numpy as np
@@ -123,13 +124,20 @@ def test_kernels_match_plain_on_cuda():
     nmesh = (NC,) * 3
     inv = (NC / BOX,) * 3
     for kind in ("uniform", "clustered", "boundary"):
-        x = torch.from_numpy(_positions(kind)).to(dev)
-        x = x[cic.sort_by_cell(x, nmesh, inv)]
-        masses = torch.rand(x.shape[0], device=dev) + 0.5
+        # K3 and K4 take particles in store order, K1 and K2 sorted
+        unsorted = torch.from_numpy(_positions(kind)).to(dev)
+        unsorted = unsorted[torch.randperm(N, device=dev)]
+        x = unsorted[cic.sort_by_cell(unsorted, nmesh, inv)]
+        # f32 atomics in run-dependent order vs index_add_
+        torch.testing.assert_close(cic.cic_paint(x, nmesh, inv, 2.0),
+                                   cic.cic_paint_plain(x, nmesh, inv, 2.0),
+                                   rtol=1e-5, atol=2e-6)
+        masses = torch.rand(N, device=dev) + 0.5
+        got = torch.ones(nmesh, device=dev)
+        want = got.clone()
         for mass in (2.0, masses):
-            got = cic.cic_paint(x, nmesh, inv, mass)
-            want = cic.cic_paint_plain(x, nmesh, inv, mass)
-            # f32 atomics in run-dependent order vs index_add_
+            cic.cic_paint_into(got, unsorted, inv, mass)
+            cic.cic_paint_into_plain(want, unsorted, inv, mass)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
         fields = [torch.randn(nmesh, device=dev) for _ in range(3)]
         for k in (1, 3):
@@ -137,3 +145,7 @@ def test_kernels_match_plain_on_cuda():
                 cic.cic_readout(fields[:k], x, inv),
                 cic.cic_readout_plain(fields[:k], x, inv),
                 rtol=1e-5, atol=2e-6)
+        torch.testing.assert_close(
+            cic.cic_readout3(*fields, unsorted, inv),
+            cic.cic_readout_plain(fields, unsorted, inv),
+            rtol=1e-5, atol=2e-6)

@@ -20,7 +20,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "fastpm_tpu"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -29,8 +29,11 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    # every module of the package was imported (cli, solver, ops.cic, ...)
-    assert int(out.stdout.split()[-1]) >= 25
+    # every module of the package was imported, the ncdm split among them
+    names = out.stdout.split()
+    assert len(names) >= 26
+    for name in ("cli", "solver", "gravity", "ncdm", "ops.cic"):
+        assert "fastpm_torch." + name in names
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
