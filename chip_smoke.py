@@ -19,7 +19,7 @@ Phases, in order (any failure ends the script with a nonzero exit):
    K3 adds 16.8 M CDM particles (scalar mass) and 5.24 M ncdm particles
    (a mass column) into one 512^3 canvas, K4 reads the three 512^3
    force fields at both sets; against the plain versions, the total
-   mass, and the same timings; then the bounds of K5-K7, still to port;
+   mass, and the same timings; then the bound of K7, still to port;
 5. golden: tests/fixtures/nbodykit.lua through fastpm_torch.cli.main
    writes 1894 FOF objects at a = 0.6667 and 1668 at a = 1.0, and logs
    the input sigma8 0.815897;
@@ -38,6 +38,20 @@ Phases, in order (any failure ends the script with a nonzero exit):
    the ncdm mass sums to Omega_ncdm * RHO_CRIT * boxsize^3, one finite
    P(k) file per force step; the multi-species force step's time and
    profile;
+A. the homed kernels at the slab force's shapes: rank 0 of one with
+   H = 4, an extended slab of 521 x 512 x 512, 16.8 M cell-sorted
+   particles (a 256^3 lattice displaced up to 2 cells, and clustered):
+   homed K1 and K5 (scalar mass, and a mass column at 5.24 M
+   particles), homed K2 and K6, and K5 / K6 on the periodic 512^3 mesh,
+   each against its plain version, with the same timings (grid_sample
+   the yardstick of the readouts);
+B. the homed slab force (fastpm_torch.parallel) at full width on a
+   one-rank NCCL process group started on localhost: the main path's
+   z = 0 state (phase 7), H from required_halo_planes, the carry and the
+   multi-species body with the from8 (homed K1 / K2) and the from4 (K5 /
+   K6) kernels; the launch counters show each went through its kernels;
+   accelerations against the single-device compute_force_carry by id;
+   each variant's force-step time and peak memory;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -72,7 +86,18 @@ KERNELS = {
     # K4 launches K2's kernel with three fields, under its own counter
     "cic_readout3": ("fastpm_torch/csrc/cic_readout.cu",
                      "fastpm_tpu/ops/readout_pallas.py:48"),
+    # the homed factories of K1 and K2 (their pallas_call sites), K5, K6
+    "cic_paint_homed": ("fastpm_torch/csrc/cic_paint.cu",
+                        "fastpm_tpu/ops/paint_pallas.py:946"),
+    "cic_readout_homed": ("fastpm_torch/csrc/cic_readout.cu",
+                          "fastpm_tpu/ops/readout_pallas.py:764"),
+    "cic_paint4": ("fastpm_torch/csrc/cic_paint4.cu",
+                   "fastpm_tpu/ops/paint_pallas.py:689"),
+    "cic_readout4": ("fastpm_torch/csrc/cic_readout4.cu",
+                     "fastpm_tpu/ops/readout_pallas.py:371"),
 }
+HOMED = ("cic_paint_homed", "cic_readout_homed", "cic_paint4",
+         "cic_readout4")
 
 SMALL_LUA = """
 nc = %(nc)d
@@ -210,22 +235,21 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
     return rows
 
 
-def unported_bounds(nc=256, nmesh=512):
-    """Print the least times of the kernels still to port at the main
-    path's shapes: K5 and K6 do K1's and K2's work; one K7 merge pass
-    reads and writes N i32 keys with 6 f32 payloads (positions and
-    velocities, as make_prepare_carry_fn feeds it)."""
-    n, cells = nc ** 3, nmesh ** 3
-    for name, nbytes, nops in (
-            ("K5 _paint_kernel4", 12 * n + 4 * cells, 40 * n),
-            ("K6 _readout_kernel4", 24 * n + 12 * cells, 88 * n),
-            ("K7 _merge_kernel, one pass", 2 * 28 * n, 0)):
-        ms, by = bound_ms(nbytes, nops)
-        print("to port: %s bound_ms %.4f (%s)" % (name, ms, by))
+def unported_bounds(nc=256):
+    """Print the least time of the kernel still to port at the main
+    path's shapes: one K7 merge pass reads and writes N i32 keys with 6
+    f32 payloads (positions and velocities, as make_prepare_carry_fn
+    feeds it)."""
+    ms, by = bound_ms(2 * 28 * nc ** 3, 0)
+    print("to port: K7 _merge_kernel, one pass bound_ms %.4f (%s)"
+          % (ms, by))
 
 
 def print_rows(rows):
     for name, r in rows.items():
+        if "ms_periodic" in r:
+            print("%s periodic mesh: kernel_ms %.4f plain_ms %.4f"
+                  % (name, r["ms_periodic"], r["plain_ms_periodic"]))
         print("%s: kernel_ms %.4f plain_ms %.4f library_ms %s bound_ms "
               "%.4f (%s) | clustered kernel_ms %.4f plain_ms %.4f"
               % (name, r["ms"], r["plain_ms"],
@@ -331,21 +355,32 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
     return rows
 
 
-def grid_sample_ms(fields, xs, inv, nmesh, reps):
-    """A PyTorch yardstick for K2 and K4, never used by the port:
+def grid_sample_ms(fields, xs, inv, nmesh, reps, slab=None):
+    """A PyTorch yardstick for K2, K4 and K6, never used by the port:
     trilinear grid_sample (align_corners=True) of the three fields,
-    wrap-padded by one plane per axis, at each set of particles in xs
-    (one call per set, timed together)."""
+    wrap-padded by one plane per periodic axis, at each set of particles
+    in xs (one call per set, timed together). With a slab the fields are
+    extended slabs, open in x: the x coordinate is the plane relx plus
+    the fraction."""
     import torch
     import torch.nn.functional as F
     from fastpm_torch.ops import cic
     padded = torch.stack(fields)
-    padded = torch.cat([padded, padded[:, :1]], dim=1)
+    if slab is None:
+        padded = torch.cat([padded, padded[:, :1]], dim=1)
     padded = torch.cat([padded, padded[:, :, :1]], dim=2)
     padded = torch.cat([padded, padded[:, :, :, :1]], dim=3)[None]
-    # grid (x, y, z) indexes (W, H, D) = (iz, iy, ix); padded size n + 1
-    grids = [((x * torch.tensor(inv, device=x.device)).flip(-1)
-              * (2.0 / nmesh) - 1.0).reshape(1, -1, 1, 1, 3) for x in xs]
+    size = torch.tensor(padded.shape[2:], device=xs[0].device)
+    grids = []
+    for x in xs:
+        g = x * torch.tensor(inv, device=x.device)
+        if slab is not None:
+            base, frac, _ = cic.slab_cell(x, tuple(fields[0].shape), inv,
+                                          slab)
+            g = torch.cat([base[:, :1] + frac[:, :1], g[:, 1:]], dim=1)
+        # grid (x, y, z) indexes (W, H, D) = (iz, iy, ix)
+        grids.append((g * (2.0 / (size - 1)) - 1.0).flip(-1)
+                     .reshape(1, -1, 1, 1, 3).float())
 
     def call():
         return [F.grid_sample(padded, grid, mode="bilinear",
@@ -353,10 +388,157 @@ def grid_sample_ms(fields, xs, inv, nmesh, reps):
                 for grid in grids]
 
     err = max(float((out[0, :, :, 0, 0].T
-                     - cic.cic_readout_plain(fields, x, inv)).abs().max())
+                     - cic.cic_readout_plain(fields, x, inv, slab)).abs()
+                     .max())
               for out, x in zip(call(), xs))
-    print("grid_sample yardstick: max_abs_err vs plain readout %.3g" % err)
+    print("grid_sample yardstick%s: max_abs_err vs plain readout %.3g"
+          % (" (extended slab)" if slab else "", err))
     return time_ms(call, reps)
+
+
+def jittered_lattice(nc, box, jitter_cells, nmesh, dev, seed):
+    """nc^3 particles at their lattice sites, x-major, each displaced by
+    up to jitter_cells cells of an nmesh^3 mesh along each axis,
+    wrapped."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i = torch.arange(nc, device=dev, dtype=torch.float32) * (box / nc)
+    x = torch.stack(torch.meshgrid(i, i, i, indexing="ij"),
+                    dim=-1).reshape(-1, 3)
+    x += ((torch.rand(x.shape, generator=g, device=dev) * 2 - 1)
+          * (jitter_cells * box / nmesh))
+    return x - torch.floor(x / box) * box
+
+
+def slab_order(x, ext, inv, slab):
+    """The permutation that sorts particles by extended-slab cell, as
+    the homed carry does."""
+    import torch
+    from fastpm_torch.ops import cic
+    base, _, _ = cic.slab_cell(x, ext, inv, slab)
+    key = (base[:, 0] * ext[1] + base[:, 1]) * ext[2] + base[:, 2]
+    return torch.sort(key, stable=True).indices
+
+
+def check_kernels_homed(dev, nc=256, nmesh=512, box=768.0, H=4, every=4,
+                        nsplit=20, reps=10):
+    """Phase A: homed K1 and K2, K5 and K6 at the slab force's shapes
+    (rank 0 of one, halo H: a canvas of nmesh + 2H + 1 planes), and K5
+    and K6 on the periodic mesh."""
+    import torch
+    from fastpm_torch.ops import cic
+
+    slab = cic.Slab(nmesh, 0, H)
+    ext = (nmesh + 2 * H + 1, nmesh, nmesh)
+    mesh = (nmesh,) * 3
+    inv = (nmesh / box,) * 3
+    n, n_col = nc ** 3, (nc // every) ** 3 * nsplit
+    cells = ext[0] * ext[1] * ext[2]
+    rows = {name: dict(err=0.0) for name in HOMED}
+    g = torch.Generator(device=dev).manual_seed(31)
+    fields = [torch.randn(ext, generator=g, device=dev) for _ in range(3)]
+    periodic = [f[:nmesh] for f in fields]
+    masses = 0.5 + torch.rand(n_col, generator=g, device=dev)
+    canvas = torch.zeros(ext, device=dev)
+    paints = {
+        "cic_paint_homed": (
+            lambda c, x, m, s: cic.cic_paint_homed(c, x, inv, s, m),
+            lambda c, x, m, s: cic.cic_paint_homed_plain(c, x, inv, s, m)),
+        "cic_paint4": (
+            lambda c, x, m, s: cic.cic_paint4(c, x, inv, m, s),
+            lambda c, x, m, s: cic.cic_paint4_plain(c, x, inv, m, s))}
+    reads = {
+        "cic_readout_homed": (
+            lambda fs, x, s: cic.cic_readout_homed(fs, x, inv, s),
+            lambda fs, x, s: cic.cic_readout_plain(fs, x, inv, s)),
+        "cic_readout4": (
+            lambda fs, x, s: cic.cic_readout4(*fs, x, inv, s),
+            lambda fs, x, s: cic.cic_readout4_plain(*fs, x, inv, s))}
+    for kind in ("uniform", "clustered"):
+        x = (jittered_lattice(nc, box, 2.0, nmesh, dev, 13)
+             if kind == "uniform" else make_particles(kind, n, box, dev, 11))
+        x = x[slab_order(x, ext, inv, slab)].contiguous()
+        # the mass-column species: a random subset, still cell-sorted
+        x_col = x[torch.randperm(n, generator=g, device=dev)[:n_col]
+                  .sort().values].contiguous()
+        key = "" if kind == "uniform" else "_" + kind
+
+        def paint(fn, c, x, m, s):
+            c.zero_()
+            return fn(c, x, m, s)
+
+        for name, (fn, plain) in paints.items():
+            for xx, m, label in ((x, 1.0, "scalar mass"),
+                                 (x_col, masses, "mass column")):
+                bad = paint(fn, canvas, xx, m, slab)
+                want = torch.zeros(ext, device=dev)
+                bad_plain = plain(want, xx, m, slab)
+                err = check_close("%s %s, %s, %d particles, %dx%dx%d"
+                                  % (name, kind, label, len(xx), *ext),
+                                  canvas, want)
+                total = (float(m.double().sum()) if torch.is_tensor(m)
+                         else m * len(xx))
+                if (int(bad) != 0 or int(bad_plain) != 0 or abs(
+                        float(canvas.double().sum()) - total) > 1e-4 * total):
+                    raise SystemExit("%s: overflow or mass not conserved"
+                                     % name)
+                rows[name]["err"] = max(rows[name]["err"], err)
+            del want
+            rows[name]["ms" + key] = time_ms(
+                lambda: paint(fn, canvas, x, 1.0, slab), reps)
+            rows[name]["plain_ms" + key] = time_ms(
+                lambda: paint(plain, canvas, x, 1.0, slab), reps)
+        # K5 on the periodic mesh
+        pcanvas, want = (torch.zeros(mesh, device=dev) for _ in range(2))
+        fn, plain = paints["cic_paint4"]
+        paint(fn, pcanvas, x, 1.0, None)
+        plain(want, x, 1.0, None)
+        err = check_close("cic_paint4 %s, periodic %d^3" % (kind, nmesh),
+                          pcanvas, want)
+        del want
+        rows["cic_paint4"]["err"] = max(rows["cic_paint4"]["err"], err)
+        if kind == "uniform":
+            rows["cic_paint4"]["ms_periodic"] = time_ms(
+                lambda: paint(fn, pcanvas, x, 1.0, None), reps)
+            rows["cic_paint4"]["plain_ms_periodic"] = time_ms(
+                lambda: paint(plain, pcanvas, x, 1.0, None), reps)
+        del pcanvas
+
+        for name, (fn, plain) in reads.items():
+            for fs, s, label in ((fields, slab, "%dx%dx%d" % ext),
+                                 (periodic, None, "periodic %d^3" % nmesh)):
+                if s is None and name == "cic_readout_homed":
+                    continue
+                err = check_close("%s %s, 3 fields %s" % (name, kind, label),
+                                  fn(fs, x, s), plain(fs, x, s))
+                rows[name]["err"] = max(rows[name]["err"], err)
+            rows[name]["ms" + key] = time_ms(lambda: fn(fields, x, slab),
+                                             reps)
+            rows[name]["plain_ms" + key] = time_ms(
+                lambda: plain(fields, x, slab), reps)
+            if kind == "uniform":
+                rows[name]["library_ms"] = grid_sample_ms(
+                    fields, [x], inv, nmesh, reps, slab)
+        if kind == "uniform":
+            fn, plain = reads["cic_readout4"]
+            rows["cic_readout4"]["ms_periodic"] = time_ms(
+                lambda: fn(periodic, x, None), reps)
+            rows["cic_readout4"]["plain_ms_periodic"] = time_ms(
+                lambda: plain(periodic, x, None), reps)
+            rows["cic_readout4"]["library_ms_periodic"] = grid_sample_ms(
+                periodic, [x], inv, nmesh, reps)
+    torch.cuda.synchronize()
+
+    # as K1 and K2 (check_kernels) on the extended slab: positions read
+    # once, the canvas written once or the three fields read once, the
+    # values written once
+    for name in ("cic_paint_homed", "cic_paint4"):
+        rows[name]["bound"] = bound_ms(12 * n + 4 * cells, 40 * n)
+    for name in ("cic_readout_homed", "cic_readout4"):
+        rows[name]["bound"] = bound_ms(12 * n + 3 * 4 * cells + 12 * n,
+                                       (40 + 48) * n)
+    print_rows(rows)
+    return rows
 
 
 def write_lua(path, text):
@@ -512,8 +694,9 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
                         launches["cic_readout3"]))
     print("main path: max_memory_allocated %.3f GB"
           % (peak / 1e9))
-    if launches != {"cic_paint": nforce, "cic_readout": nforce + 6,
-                    "cic_paint_into": 0, "cic_readout3": 0}:
+    if launches != dict({"cic_paint": nforce, "cic_readout": nforce + 6,
+                         "cic_paint_into": 0, "cic_readout3": 0},
+                        **{k: 0 for k in HOMED}):
         raise SystemExit("main path did not run through K1 / K2 alone: %s"
                          % launches)
 
@@ -541,7 +724,7 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
           "%.4g particle-steps/s" % (force_ms, nc ** 3 / force_ms * 1e3))
     profile_force(lambda: gravity.compute_force_carry(
         pm, painter, store.wrap(pm.BoxSize)))
-    return launches
+    return launches, store, pm
 
 
 def ncdm_path(dev, tmp, nc=256, box=768.0):
@@ -574,8 +757,9 @@ def ncdm_path(dev, tmp, nc=256, box=768.0):
           "force steps, wall %.2f s (ICs and 2LPT of both species, steps, "
           "P(k), snapshot)" % (cdm.np_local, nu.np_local, 2 * nc, nforce,
                                wall))
-    want = {"cic_paint": 0, "cic_readout": 6 + 9,
-            "cic_paint_into": 2 * nforce, "cic_readout3": 2 * nforce}
+    want = dict({"cic_paint": 0, "cic_readout": 6 + 9,
+                 "cic_paint_into": 2 * nforce, "cic_readout3": 2 * nforce},
+                **{k: 0 for k in HOMED})
     print("ncdm path: launches %s (want %s: K3 and K4 twice per force "
           "step, K2 = 6 CDM + 9 ncdm 2LPT readouts)" % (launches, want))
     print("ncdm path: max_memory_allocated %.3f GB" % (peak / 1e9))
@@ -618,6 +802,95 @@ def ncdm_path(dev, tmp, nc=256, box=768.0):
           "%.4g particle-steps/s (N = %.1f M)"
           % (force_ms, n / force_ms * 1e3, n / 1e6))
     profile_force(step)
+    return launches
+
+
+def homed_force(dev, store, pm, reps=5):
+    """Phase B: the homed slab force at full width on a one-rank NCCL
+    group, from the main path's z = 0 state. Returns the launch counts
+    of the four force runs (from8 / from4, carry / multi)."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from fastpm_torch import gravity
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.parallel.comm import Ring
+    from fastpm_torch.parallel.pfft import SlabPM
+    from fastpm_torch.parallel import psolver
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d" % port,
+                            rank=0, world_size=1)
+    try:
+        ones = torch.ones(1, device=dev)
+        dist.all_reduce(ones)
+        ring = Ring(dist.group.WORLD)
+        spm = SlabPM(pm, ring)
+        store = store.wrap(pm.BoxSize)
+        # the measurement (0 on one rank: every particle is in its
+        # slab) and one plane of slack over at least 1, as pick_halo
+        H = max(1, psolver.required_halo_planes(pm, ring, store.x)) + 1
+        m0 = float(np.float32(store.M0))
+        n = store.np_local
+        print("homed force: one-rank NCCL group (all_reduce %g), %d "
+              "particles, %d^3 mesh, H = %d, extended slab %d planes"
+              % (float(ones), n, pm.Nmesh[0], H, pm.Nmesh[0] + 2 * H + 1))
+
+        def carry(hk):
+            p, bad, _dk = psolver._force_local_homed_carry(
+                spm, store, "1_4", H, homed_kernel=hk)
+            return p.id, p.acc, bad
+
+        def multi(hk):
+            (acc,), bad, _dk = psolver._force_local_homed_multi(
+                spm, (store.x,), (m0,), "1_4", H, homed_kernel=hk)
+            return store.id, acc, bad
+
+        ref, _dk = gravity.compute_force_carry(pm, Painter(pm, "cic"), store)
+        want = ref.acc[torch.argsort(ref.id)]
+        scale = float(want.abs().max())
+        torch.cuda.synchronize()
+        reset_launches()
+        results = {}
+        for hk in ("from8", "from4"):
+            for body, fn in (("carry", carry), ("multi", multi)):
+                ids, acc, bad = fn(hk)
+                results[hk, body] = (ids, acc, bad)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        print("homed force: launches %s" % {k: launches[k] for k in HOMED})
+        if not all(launches[k] == 2 for k in HOMED):
+            raise SystemExit("homed force did not run through the homed "
+                             "kernels")
+        for (hk, body), (ids, acc, bad) in results.items():
+            err = float((acc[torch.argsort(ids)] - want).abs().max())
+            print("homed force %s %s: bad %d, max |dacc| %.3g = %.3g of "
+                  "max |acc| %.4g (bound 1e-5)"
+                  % (hk, body, int(bad), err, err / scale, scale))
+            if int(bad) != 0 or not err <= 1e-5 * scale:
+                raise SystemExit("homed force %s %s disagrees with the "
+                                 "single-device force" % (hk, body))
+        del results, ref
+        for label, step in (
+                ("single-device compute_force_carry",
+                 lambda: gravity.compute_force_carry(
+                     pm, Painter(pm, "cic"), store)),
+                ("homed from8 carry", lambda: carry("from8")),
+                ("homed from8 multi", lambda: multi("from8")),
+                ("homed from4 carry", lambda: carry("from4")),
+                ("homed from4 multi", lambda: multi("from4"))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(step, reps)
+            print("homed force: %s %.2f ms = %.4g particle-steps/s, peak "
+                  "%.3f GB" % (label, ms, n / ms * 1e3,
+                               torch.cuda.max_memory_allocated() / 1e9))
+        profile_force(lambda: carry("from8"))
+    finally:
+        dist.destroy_process_group()
     return launches
 
 
@@ -669,16 +942,21 @@ def main():
 
     rows = check_kernels(dev)
     rows.update(check_kernels_ncdm(dev))
+    rows.update(check_kernels_homed(dev))
     unported_bounds()
     with tempfile.TemporaryDirectory() as tmp:
         golden(dev, tmp)
         device_agreement(dev, tmp)
         ncdm_agreement(dev, tmp)
         # each path's launches are read from its own run
-        launches = main_path(dev, tmp)
+        launches, store, pm = main_path(dev, tmp)
         ncdm_launches = ncdm_path(dev, tmp)
+    homed_launches = homed_force(dev, store, pm)
+    del store
     for name in ("cic_paint_into", "cic_readout3"):
         launches[name] = ncdm_launches[name]
+    for name in HOMED:
+        launches[name] = homed_launches[name]
 
     kernels = []
     for name, r in rows.items():
@@ -695,11 +973,16 @@ def main():
             "library_ms": r.get("library_ms"),
             "ms_clustered": r["ms_clustered"],
             "plain_ms_clustered": r["plain_ms_clustered"]})
+        for key in ("ms_periodic", "plain_ms_periodic",
+                    "library_ms_periodic"):
+            if key in r:
+                kernels[-1][key] = r[key]
     print(json.dumps({"kernels": kernels}))
     print(card)
+    # the run used one device, whatever else the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,7 +1,8 @@
 """fastpm_torch: the PyTorch/CUDA port of fastpm_tpu.
 
-A FastPM particle-mesh N-body framework for one NVIDIA GPU: plain torch
-for the array work, cuFFT through torch.fft, and hand-written CUDA
+A FastPM particle-mesh N-body framework for one NVIDIA GPU, or several
+ranks of torch.distributed in x-slabs (fastpm_torch/parallel/): plain
+torch for the array work, cuFFT through torch.fft, and hand-written CUDA
 kernels (fastpm_torch/csrc/) for the CIC paint and readout. It imports
 neither jax nor fastpm_tpu; the JAX package stays the reference its
 tests hold it against.

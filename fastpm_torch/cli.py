@@ -1,17 +1,27 @@
 """The port's command-line driver (reference: src/fastpm.c), run as
-`python -m fastpm_torch.cli <file.lua>`.
+`python -m fastpm_torch.cli <file.lua>` on one GPU, or as
+`torchrun --nproc-per-node P -m fastpm_torch.cli <file.lua>` on P.
 
-Port of fastpm_tpu/cli.py for one device: Lua parameter file -> IC
-pipeline -> 2LPT (CDM, and the Fermi-Dirac split ncdm species when
-m_ncdm is set) -> evolution with event handlers for the per-step power
-spectrum, interpolated bigfile snapshots and host FOF catalogs.
-A parameter this slice does not serve stops the run with SystemExit
-naming it (see ROADMAP.md).
+Port of fastpm_tpu/cli.py: Lua parameter file -> IC pipeline -> 2LPT
+(CDM, and the Fermi-Dirac split ncdm species when m_ncdm is set) ->
+evolution with event handlers for the per-step power spectrum,
+interpolated bigfile snapshots and host FOF catalogs. A parameter this
+slice does not serve stops the run with SystemExit naming it (see
+ROADMAP.md).
+
+Under torchrun (WORLD_SIZE > 1) main starts the process group, as the
+JAX CLI builds its device mesh (cli.py:817-846): NCCL with one GPU per
+rank (cuda:LOCAL_RANK), or gloo when the caller asks for the CPU. The
+ranks split the particles in x-slabs (solver.py); every rank builds the
+whole linear field and the 2LPT displacements of its own rows, rank 0
+gathers the rows for the snapshots and runs FOF on them, and writes the
+files a one-rank run writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -247,9 +257,12 @@ class SnapshotChecker:
     def write_one(self, aout, event):
         p, log, s = self.p, self.log, self.solver
         gi = s.cosmology.growth_info(aout)
+        # on several ranks, rank 0 gathers every rank's rows and writes
         species = {name: s.set_snapshot(s.species[name], event.drift,
-                                        event.kick, aout)
+                                        event.kick, aout).gather(s.ring)
                    for name in s.iter_species()}
+        if s.ring.rank != 0:
+            return
         cdm = species["cdm"]
         log.info("Snapshot a_x = %6.4f, a_v = %6.4f", cdm.a_x, cdm.a_v)
         log.info("Growth factor of snapshot %6.4f (a=%0.4f)", gi.D1, aout)
@@ -283,14 +296,16 @@ class SnapshotChecker:
 
 
 def run_fastpm(p: Params, log=None, n_writers: int = 0,
-               device=None) -> Solver:
+               device=None, group=None) -> Solver:
     """The full run (src/fastpm.c:run_fastpm) on `device` (default: the
-    first CUDA device; raises when there is none)."""
+    first CUDA device; raises when there is none), over the ranks of
+    the process group `group` when one is given."""
     device = resolve_device(device)
     check_served(p)
     if log is None:
         log = Log()
-    solver = Solver(build_config(p), build_cosmology(p), device=device)
+    solver = Solver(build_config(p), build_cosmology(p), device=device,
+                    group=group)
     attach_standard_handlers(solver, log,
                              write_powerspectrum=p.write_powerspectrum,
                              enforce_broadband_kmax=p.enforce_broadband_kmax)
@@ -320,14 +335,38 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     return solver
 
 
+def start_ranks(device=None):
+    """(device, process group) of this process. Under torchrun
+    (WORLD_SIZE > 1 in the environment, with RANK, LOCAL_RANK,
+    MASTER_ADDR and MASTER_PORT) this starts the default process group:
+    NCCL on cuda:LOCAL_RANK, or gloo when device is "cpu". Otherwise
+    (device, None): one rank."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return resolve_device(device), None
+    import torch
+    import torch.distributed as dist
+    if device is not None and torch.device(device).type == "cpu":
+        backend, device = "gloo", torch.device("cpu")
+    else:
+        resolve_device(device)          # raises when there is no GPU
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    dist.init_process_group(backend)
+    return device, dist.group.WORLD
+
+
 def main(argv=None, device=None):
     ap = argparse.ArgumentParser(
         prog="python -m fastpm_torch.cli",
-        description="FastPM cosmological N-body solver on one GPU "
-                    "(PyTorch/CUDA port)")
+        description="FastPM cosmological N-body solver on one GPU, or on "
+                    "several under torchrun (PyTorch/CUDA port)")
     ap.add_argument("-W", type=int, default=0, help="number of IO writers")
     ap.add_argument("-r", dest="restart", default=None,
                     help="restart from snapshot path (not in this slice)")
+    ap.add_argument("-y", dest="nprocy", type=int, default=1,
+                    help="ranks along y of a 2D (pencil) decomposition "
+                    "(not in this slice: only 1)")
     ap.add_argument("params", help="Lua parameter file")
     ap.add_argument("args", nargs="*", help="extra arguments exposed as "
                     "`args` in the parameter file")
@@ -335,8 +374,23 @@ def main(argv=None, device=None):
     if ns.restart:
         raise SystemExit("fastpm_torch: restart (-r) is not served by this "
                          "slice of the port (see ROADMAP.md)")
+    if ns.nprocy > 1:
+        raise SystemExit("fastpm_torch: -y NprocY > 1 (the pencil "
+                         "decomposition) is not served by this slice of "
+                         "the port (see ROADMAP.md)")
     p = load_params(ns.params, ns.args)
-    run_fastpm(p, n_writers=ns.W, device=device)
+    device, group = start_ranks(device)
+    if group is None:
+        run_fastpm(p, n_writers=ns.W, device=device)
+        return 0
+    import torch.distributed as dist
+    try:
+        run_fastpm(p, log=Log(echo=dist.get_rank() == 0), n_writers=ns.W,
+                   device=device, group=group)
+        # the ranks end together: rank 0 is done writing when any exits
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
     return 0
 
 

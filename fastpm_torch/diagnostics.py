@@ -2,7 +2,9 @@
 (src/fastpm.c: report_lpt, report_domain, write_powerspectrum).
 
 These produce the golden-log lines the reference's regression suite pins
-(dx1/dx2 std, broadband growth check, per-step P(k) files).
+(dx1/dx2 std, broadband growth check, per-step P(k) files). On several
+ranks every summary and spectrum is over all of them (solver.ring), so
+every rank logs the same lines, and rank 0 writes the P(k) file.
 """
 
 from __future__ import annotations
@@ -68,8 +70,9 @@ def attach_standard_handlers(solver, log: Optional[Log] = None,
         p = event.store
         if p.dx1 is None:
             return
-        _, std1, _, _ = p.summary("dx1")
-        _, std2, _, _ = p.summary("dx2")
+        ring = event.solver.ring
+        _, std1, _, _ = p.summary("dx1", ring)
+        _, std2, _, _ = p.summary("dx2", ring)
         log.info("dx1  : %g %g %g %g", std1[0], std1[1], std1[2],
                  np.mean(std1))
         log.info("dx2  : %g %g %g %g", std2[0], std2[1], std2[2],
@@ -79,11 +82,11 @@ def attach_standard_handlers(solver, log: Optional[Log] = None,
         s = event.solver
         for name in s.iter_species():
             p = s.species[name]
-            mn, _, _, mx = p.summary("x")
+            mn, _, _, mx = p.summary("x", s.ring)
             log.info("Position range (a = %06.4f): min = %g %g %g "
                      "max = %g %g %g", p.a_x, *mn, *mx)
             if p.v is not None:
-                _, vstd, _, _ = p.summary("v")
+                _, vstd, _, _ = p.summary("v", s.ring)
                 log.info("Velocity dispersion (a = %06.4f): "
                          "std = %g %g %g", p.a_v, *vstd)
 
@@ -92,9 +95,9 @@ def attach_standard_handlers(solver, log: Optional[Log] = None,
         pm = event.pm
         p = s.species["cdm"]
         if p.acc is not None:
-            _, fstd, _, _ = p.summary("acc")
+            _, fstd, _, _ = p.summary("acc", s.ring)
             log.info("Force dispersion: std = %g %g %g", *fstd)
-        ps = measure_power(pm, event.delta_k)
+        ps = measure_power(pm, event.delta_k, ring=s.ring)
         plin = ps.large_scale(enforce_broadband_kmax)
         sigma8 = sigma_tophat(ps.as_funck(), 8.0)
         D1 = s.cosmology.growth_info(event.a_f).D1
@@ -105,8 +108,9 @@ def attach_standard_handlers(solver, log: Optional[Log] = None,
                  plin, sigma8)
         if write_powerspectrum:
             path = "%s_%0.04f.txt" % (write_powerspectrum, event.a_f)
-            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-            ps.write(path, event.N, pm.BoxSize)
+            if s.ring.rank == 0:
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                ps.write(path, event.N, pm.BoxSize)
             log.info("writing power spectrum to %s", path)
 
     solver.event_handlers.on(ev.EVENT_LPT, ev.STAGE_AFTER, report_lpt)

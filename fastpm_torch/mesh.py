@@ -98,11 +98,18 @@ class PM:
         return dict(k=k, k_finite=k_finite, kk=kk,
                     kk_finite=kk_finite, kk_finite2=kk_finite2)
 
+    def k_index(self, d: int) -> np.ndarray:
+        """The indices along dimension d of the k grid that this PM's
+        k-space arrays hold: every plane in x and y, the hermitian half
+        in z. A rank's k shard holds a slice in y
+        (parallel.pfft.KShard)."""
+        n = self.Nmesh[d]
+        return np.arange(n // 2 + 1 if d == 2 else n)
+
     def table(self, name: str, d: int) -> np.ndarray:
-        """1D table `name` along dimension d; axis 2 is sliced to the
-        hermitian half-length."""
-        t = self._tables[name][d]
-        return t[: self.Nmesh[2] // 2 + 1] if d == 2 else t
+        """1D table `name` along dimension d at the k grid's indices
+        (axis 2 is the hermitian half-length)."""
+        return self._tables[name][d][self.k_index(d)]
 
     def _const(self, key, make):
         """Device copy of a small host constant, made once per PM."""
@@ -134,7 +141,7 @@ class PM:
         out = []
         for d in range(3):
             n = self.Nmesh[d]
-            i = np.arange(n if d < 2 else n // 2 + 1)
+            i = self.k_index(d)
             out.append(i == (n - i) % n)
         return tuple(out)
 
@@ -164,7 +171,7 @@ class PM:
         out = 0
         for d in range(3):
             n = self.Nmesh[d]
-            i = np.arange(n if d < 2 else n // 2 + 1)
+            i = self.k_index(d)
             ii = np.where(i > n // 2, i - n, i).astype(np.int64)
             shape = [1, 1, 1]
             shape[d] = len(i)

@@ -87,12 +87,17 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    # (x, n, nx, ny, nz, icx, icy, icz, ...)
+    # (x, n, nx, ny, nz, icx, icy, icz, ...); the homed and two-pass
+    # entries then take the x axis (n0, shift) and end with the stream
     head = [P, L, I, I, I, F, F, F]
     for name, tail in (
             ("fastpm_cic_paint", [F, P, P]),
             ("fastpm_cic_paint_into", [F, P, P, P]),
-            ("fastpm_cic_readout", [P, P, P, I, P, P])):
+            ("fastpm_cic_readout", [P, P, P, I, P, P]),
+            ("fastpm_cic_paint_homed", [I, I, F, P, P, P, P]),
+            ("fastpm_cic_readout_homed", [I, I, P, P, P, I, P, P]),
+            ("fastpm_cic_paint4", [I, I, F, P, P, P, P]),
+            ("fastpm_cic_readout4", [I, I, P, P, P, P, P])):
         fn = getattr(lib, name)
         fn.restype = I
         fn.argtypes = head + tail

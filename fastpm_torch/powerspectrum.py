@@ -161,10 +161,11 @@ class PowerSpectrum:
 
 
 def _shell_bins(pm: PM):
-    """Delta-independent shell binning of one PM, cached on it: flat bin
-    index per mode (overflow bin = nbins), the hermitian weights with DC
-    and out-of-range modes zeroed, and the per-bin mode counts and k
-    sums."""
+    """Delta-independent shell binning of one PM (or one rank's k shard,
+    parallel.pfft.KShard), cached on it: flat bin index per mode
+    (overflow bin = nbins), the hermitian weights with DC and
+    out-of-range modes zeroed, and the per-bin mode counts and k sums
+    ((2, nbins) float64 on the device)."""
     def make():
         nbins = pm.Nmesh[0] // 2
         k0 = 2 * math.pi / pm.BoxSize[0]
@@ -175,9 +176,9 @@ def _shell_bins(pm: PM):
         b = torch.where((b + 1) * (b + 1) <= kk, b + 1, b)
         b = torch.where(b * b > kk, b - 1, b)
         b = b.expand(pm.kshape).reshape(-1)
-        w = pm.hermitian_weights().expand(pm.kshape).reshape(-1).clone()
-        w[0] = 0.0                            # exclude the DC mode
-        in_range = b < nbins
+        w = pm.hermitian_weights().expand(pm.kshape).reshape(-1)
+        # the DC mode (kk = 0) is excluded
+        in_range = (b < nbins) & (kk.expand(pm.kshape).reshape(-1) > 0)
         b = torch.where(in_range, b, torch.full_like(b, nbins))
         w = torch.where(in_range, w, torch.zeros_like(w))
         kmode = (torch.sqrt(kk.to(torch.float64)) * k0).expand(
@@ -188,30 +189,36 @@ def _shell_bins(pm: PM):
         ksum = zeros.clone().index_add_(0, b, w * kmode)[:nbins]
         # int32 bins and float32 weights (0, 1, 2: exact) halve the
         # cached bytes
-        return (b.to(torch.int32), w, Nmodes.cpu().numpy(),
-                ksum.cpu().numpy())
+        return b.to(torch.int32), w, torch.stack([Nmodes, ksum])
     return pm._const("shell_bins", make)
 
 
-def measure_power(pm: PM, delta1_k, delta2_k=None) -> PowerSpectrum:
+def measure_power(pm: PM, delta1_k, delta2_k=None, ring=None) -> PowerSpectrum:
     """P(k) of one or two overdensity fields (powerspectrum.c:34-124).
 
     Shell binning: bin index is the integer part of |ik| (isqrt of the
     integer |ik|^2), bins of width k0 = 2 pi / L, hermitian weight 2 except
     on the kz = 0 / Nyquist planes, DC excluded.
+
+    With a ring (parallel.comm.Ring), pm is the rank's k shard and the
+    fields are its shards: the bin sums are all-reduced, so every rank
+    gets the same spectrum.
     """
     if delta2_k is None:
         delta2_k = delta1_k
     nbins = pm.Nmesh[0] // 2
     k0 = 2 * math.pi / pm.BoxSize[0]
-    b, w, Nmodes, ksum = _shell_bins(pm)
+    b, w, counts = _shell_bins(pm)
     # per-mode products in float32 (as the reference), sums in float64
     value = (delta1_k.real * delta2_k.real
              + delta1_k.imag * delta2_k.imag).reshape(-1)
     psum = torch.zeros(nbins + 1, dtype=torch.float64,
                        device=value.device).index_add_(
                            0, b, (w * value).double())
-    psum = psum[:nbins].cpu().numpy()
+    sums = torch.cat([psum[None, :nbins], counts])
+    if ring is not None:
+        sums = ring.psum(sums)
+    psum, Nmodes, ksum = sums.cpu().numpy()
 
     good = Nmodes > 0
     kmean = np.where(good, ksum / np.where(good, Nmodes, 1), 0.0)

@@ -1,21 +1,31 @@
 """The FastPM solver: species, time evolution, events
 (reference: libfastpm/solver.c, vpm.c).
 
-Port of the single-device subset of fastpm_tpu/solver.py: the CDM and
-ncdm species, force modes fastpm and pm, the variable-resolution force
-mesh (VPM) table, and the reference's event architecture (events fire
-between the kick / drift / force actions). The force step is
-gravity.compute_force_carry for one scalar-mass species and
-gravity.compute_force (every species into one canvas) otherwise, on the
-solver's device.
+Port of fastpm_tpu/solver.py: the CDM and ncdm species, force modes
+fastpm and pm, the variable-resolution force mesh (VPM) table, and the
+reference's event architecture (events fire between the kick / drift /
+force actions), on one device or on the slab decomposition over the
+ranks of a torch.distributed process group.
+
+On one rank the force step is gravity.compute_force_carry for one
+scalar-mass species and gravity.compute_force (every species into one
+canvas) otherwise. On several, each rank holds a contiguous block of
+every species' rows (Store.shard) and the force is the homed slab force
+of parallel/psolver.py: the order-free carry for one scalar-mass species
+with the CIC painter, the multi-species body otherwise, and the v1
+full-canvas force when no halo width fits (solver.py:589-876). The halo
+width is measured, kept while it holds, and measured again when a force
+finds a particle beyond it; that force is then run again, so no result
+with a particle beyond the halo is ever used (solver.py:1332-1368).
 
 Not in this slice (NotImplementedError; see ROADMAP.md): force modes
 cola, za and 2lpt, stale stepping, rehome, PGD, the neutrino linear
-response, baryons, and running across devices.
+response, baryons, and the pencil (2D) decomposition.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -33,6 +43,9 @@ from .painter import Painter
 from .store import Store, lattice_store
 from .gravity import compute_force, compute_force_carry, carry_eligible
 from .lpt import lpt_solve, lpt_evolve
+from .parallel.comm import Ring
+from .parallel.pfft import SlabPM
+from .parallel import psolver
 from . import transfers, events as ev
 from .units import RHO_CRIT, HUBBLE_CONSTANT
 
@@ -107,11 +120,17 @@ class SolverConfig:
 class Solver:
     """Holds the species stores, the PM hierarchy, cosmology, and events
     (FastPMSolver, solver.c:24-152) on one device: `device` when given,
-    else the first CUDA device (raises when there is none)."""
+    else the first CUDA device (raises when there is none).
+
+    group: a torch.distributed process group over which the particles
+    and the force are decomposed in x-slabs (one rank per device); None
+    runs on one device alone. Every rank builds the same Solver."""
 
     def __init__(self, config: SolverConfig,
-                 cosmology: Optional[Cosmology] = None, device=None):
+                 cosmology: Optional[Cosmology] = None, device=None,
+                 group=None):
         self.device = resolve_device(device)
+        self.ring = Ring(group)
         self.config = config
         self.cosmology = cosmology if cosmology is not None else FIDUCIAL
         if self.cosmology.ncdm_linearresponse:
@@ -130,14 +149,29 @@ class Solver:
         shift = 0.5 * box / nc if config.use_shift else 0.0
         self.species: Dict[str, Store] = {CDM: lattice_store(
             self.basepm, Nc=nc, shift=shift, columns=("v", "acc", "id"),
-            name="cdm")}
+            name="cdm").shard(self.ring)}
         # deferred check_values flag of the last force (_settle_cv)
         self._cv_pending = None
+        # the slab engines and measured halo widths, per force mesh
+        self._slab_pms = {}
+        self._halo = {}
+        # force steps by the path they took
+        self.force_paths = Counter()
+
+    @property
+    def sharded(self) -> bool:
+        return self.ring.nproc > 1
 
     def add_species(self, name: str, store: Store) -> None:
+        """Add a species from every rank's full store; a rank keeps its
+        block of the rows."""
         if name not in (CDM, NCDM):
             raise NotImplementedError(f"species {name!r} {_LATER}")
-        self.species[name] = store
+        self.species[name] = store.shard(self.ring)
+
+    def global_count(self, name: str) -> int:
+        """The number of particles of a species over every rank."""
+        return int(self.ring.psum(self.species[name].np_local))
 
     def iter_species(self):
         for name in SPECIES_ORDER:
@@ -204,7 +238,7 @@ class Solver:
         cfg = self.config
         pm = self.find_pm(trans.a_f)
         painter = Painter(pm, cfg.painter_type, cfg.painter_support)
-        N = sum(self.species[n].np_local for n in self.iter_species())
+        N = sum(self.global_count(n) for n in self.iter_species())
         a_n = states.find_next_force_time(iend)
         self.event_handlers.emit(
             ev.EVENT_FORCE, ev.STAGE_BEFORE, solver=self, pm=pm,
@@ -217,32 +251,95 @@ class Solver:
         # copy is the only one alive
         names = list(self.iter_species())
         stores = [self.species.pop(n).wrap(pm.BoxSize) for n in names]
-        if carry_eligible(painter, stores):
+        kpm = pm
+        if self.sharded:
+            stores, delta_k = self._sharded_force(pm, painter, stores)
+            kpm = self._slab_pm(pm).kpm
+        elif carry_eligible(painter, stores):
             p, delta_k = compute_force_carry(pm, painter, stores.pop(),
                                              cfg.kernel_type,
                                              cfg.softening_type)
             stores = [p]
+            self.force_paths["carry"] += 1
         else:
             stores, delta_k = compute_force(pm, painter, stores,
                                             cfg.kernel_type,
                                             cfg.softening_type)
+            self.force_paths["multi"] += 1
         self.species.update(zip(names, stores))
         if cfg.check_values:
             # stays on the device until the next force or snapshot
             ok = torch.isfinite(torch.view_as_real(delta_k)).all()
             for p in stores:
                 ok = ok & torch.isfinite(p.acc).all()
-            self._cv_pending = (~ok, trans.a_f)
+            self._cv_pending = (self.ring.psum((~ok).to(torch.int32)),
+                                trans.a_f)
 
         # compensate the CIC window so the event sees a de-aliased
-        # spectrum (solver.c:466-471); skipped when nobody listens
+        # spectrum (solver.c:466-471); skipped when nobody listens. On
+        # several ranks the event sees the rank's k shard and its PM
         delta_k_decic = None
         if self.event_handlers.has(ev.EVENT_FORCE, ev.STAGE_AFTER):
-            delta_k_decic = transfers.apply_decic(pm, delta_k)
+            delta_k_decic = transfers.apply_decic(kpm, delta_k)
         del delta_k
         self.event_handlers.emit(
-            ev.EVENT_FORCE, ev.STAGE_AFTER, solver=self, pm=pm,
+            ev.EVENT_FORCE, ev.STAGE_AFTER, solver=self, pm=kpm,
             a_f=trans.a_f, a_n=a_n, N=N, delta_k=delta_k_decic)
+
+    # ---- the slab force over the ranks (parallel/psolver.py) ----
+
+    def _slab_pm(self, pm: PM) -> SlabPM:
+        spm = self._slab_pms.get(pm.Nmesh)
+        if spm is None:
+            spm = self._slab_pms[pm.Nmesh] = SlabPM(pm, self.ring)
+        return spm
+
+    def _pick_halo(self, pm: PM, painter: Painter, stores):
+        """The homed force's halo width for this force mesh (None: the v1
+        force): measured once, with one plane of slack
+        (psolver.pick_halo), and kept until a force overflows it. The
+        homed paint is CIC only."""
+        if pm.Nmesh not in self._halo:
+            self._halo[pm.Nmesh] = (
+                psolver.pick_halo(pm, self.ring, [p.x for p in stores])
+                if painter.type == "cic" and painter.diffdir < 0 else None)
+        return self._halo[pm.Nmesh]
+
+    def _sharded_force(self, pm: PM, painter: Painter, stores):
+        """The force over the ranks; returns (stores with acc filled,
+        this rank's delta_k shard). A homed force that finds a particle
+        beyond its halo is discarded: the halo is measured again from
+        the same positions and the force run again."""
+        cfg = self.config
+        spm = self._slab_pm(pm)
+        xs = [p.x for p in stores]
+        masses = [p.mass if p.mass is not None else float(np.float32(p.M0))
+                  for p in stores]
+        while True:
+            H = self._pick_halo(pm, painter, stores)
+            if H is None:
+                accs, delta_k = psolver._force_local_multi(
+                    spm, painter, xs, masses, cfg.kernel_type,
+                    cfg.softening_type)
+                self.force_paths["v1"] += 1
+                return ([p.replace(acc=a) for p, a in zip(stores, accs)],
+                        delta_k)
+            if carry_eligible(painter, stores):
+                p, bad, delta_k = psolver._force_local_homed_carry(
+                    spm, stores[0], cfg.kernel_type, H, cfg.softening_type)
+                out, path = [p], "homed-carry"
+            else:
+                accs, bad, delta_k = psolver._force_local_homed_multi(
+                    spm, xs, masses, cfg.kernel_type, H,
+                    cfg.softening_type)
+                out = [p.replace(acc=a) for p, a in zip(stores, accs)]
+                path = "homed-multi"
+            if int(bad) == 0:
+                self.force_paths[path] += 1
+                return out, delta_k
+            # the overflow contract (store.c:507-509): measure again
+            self.force_paths["overflow"] += 1
+            del self._halo[pm.Nmesh]
 
     def kick_one(self, p: Store, kick: KickFactor, af: float) -> Store:
         """Apply a kick to a store (fastpm_kick_store, factors.c:147-197)."""

@@ -104,20 +104,46 @@ class Store:
         keep = torch.nonzero(self.alive > 0).reshape(-1)
         return self.take(keep).replace(alive=None)
 
-    def summary(self, column: str):
+    def summary(self, column: str, ring=None):
         """Per-component (min, std, mean, max) as float64 numpy arrays
         (fastpm_store_summary, store.c:808+). Reduced on the store's
-        device in float64; only the 4 x ncomp results are fetched."""
+        device in float64; only the 4 x ncomp results are fetched. With
+        a ring (parallel.comm.Ring) the store is this rank's rows and
+        the summary is over every rank's."""
         a = getattr(self, column).double()
         if a.ndim == 1:
             a = a[:, None]
         if self.alive is not None:
             a = a[self.alive > 0]
-        mean = a.mean(dim=0)
-        std = torch.sqrt((a * a).mean(dim=0) - mean * mean)
-        out = torch.stack([a.min(dim=0).values, std, mean,
-                           a.max(dim=0).values]).cpu().numpy()
+        sums = torch.cat([a.sum(dim=0), (a * a).sum(dim=0),
+                          a.new_full((1,), a.shape[0])])
+        lo, hi = a.min(dim=0).values, a.max(dim=0).values
+        if ring is not None:
+            sums = ring.psum(sums)
+            lo, hi = -ring.pmax(-lo), ring.pmax(hi)
+        k = a.shape[1]
+        mean = sums[:k] / sums[-1]
+        std = torch.sqrt(sums[k:2 * k] / sums[-1] - mean * mean)
+        out = torch.stack([lo, std, mean, hi]).cpu().numpy()
         return out[0], out[1], out[2], out[3]
+
+    def shard(self, ring) -> "Store":
+        """This rank's contiguous block of the rows (rank r of P keeps
+        rows [N r / P, N (r + 1) / P)). A lattice store is filled in
+        x-major id order, so rank r keeps the particles of x-slab r
+        (solver.py:_shard_store)."""
+        if ring.nproc == 1:
+            return self
+        n = self.np_local
+        lo, hi = n * ring.rank // ring.nproc, n * (ring.rank + 1) // ring.nproc
+        return self.replace(**{c: t[lo:hi].clone() for c, t in self.columns()})
+
+    def gather(self, ring) -> Optional["Store"]:
+        """Every rank's rows, in rank order, on rank 0 (None elsewhere)."""
+        if ring.nproc == 1:
+            return self
+        cols = {c: ring.gather_rows(t) for c, t in self.columns()}
+        return self.replace(**cols) if ring.rank == 0 else None
 
 
 def lattice_store(pm: PM, Nc=None, shift=0.0, columns=("v", "acc", "id"),

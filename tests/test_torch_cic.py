@@ -4,8 +4,9 @@ On the CPU the port's wrappers take their plain versions; these are held
 against the Pallas from8 kernels in interpret mode (fed a
 make_prepare_fn(base_only=True) bundle, as the JAX force feeds them) and
 against the JAX scatter/gather Painter (K3 and K4's plain versions are
-held against their Pallas kernels in tests/test_torch_ncdm.py). The CUDA
-case holds K1-K4 against their plain versions on the card and skips
+held against their Pallas kernels in tests/test_torch_ncdm.py, the
+homed kernels' and K5 / K6's in tests/test_torch_parallel.py). The CUDA
+case holds K1-K6 against their plain versions on the card and skips
 without one; it needs no JAX, so on a GPU machine without it the file
 runs as `python -m pytest --noconftest tests/test_torch_cic.py -m cuda`.
 """
@@ -149,3 +150,33 @@ def test_kernels_match_plain_on_cuda():
             cic.cic_readout3(*fields, unsorted, inv),
             cic.cic_readout_plain(fields, unsorted, inv),
             rtol=1e-5, atol=2e-6)
+        # the homed kernels on rank 1 of 4 with H = 2 (most particles
+        # are beyond the slab and counted), and K5 periodic
+        slab = cic.Slab(NC, NC // 4, 2)
+        ext = (NC // 4 + 5, NC, NC)
+        efields = [torch.randn(ext, device=dev) for _ in range(3)]
+        for mass in (2.0, masses):
+            for shape, s in ((ext, slab), (nmesh, None)):
+                got, want = (torch.zeros(shape, device=dev)
+                             for _ in range(2))
+                if s is not None:
+                    bad = cic.cic_paint_homed(got, x, inv, s, mass)
+                    assert int(bad) == int(cic.cic_paint_homed_plain(
+                        want, x, inv, s, mass)) > 0
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=2e-6)
+                    got.zero_()
+                    want.zero_()
+                bad = cic.cic_paint4(got, x, inv, mass, s)
+                assert int(bad) == int(cic.cic_paint4_plain(want, x, inv,
+                                                            mass, s))
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+        torch.testing.assert_close(
+            cic.cic_readout_homed(efields, x, inv, slab),
+            cic.cic_readout_plain(efields, x, inv, slab),
+            rtol=1e-5, atol=2e-6)
+        for fs, s in ((efields, slab), (fields, None)):
+            torch.testing.assert_close(
+                cic.cic_readout4(*fs, unsorted, inv, s),
+                cic.cic_readout4_plain(*fs, unsorted, inv, s),
+                rtol=1e-5, atol=2e-6)

@@ -29,10 +29,12 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    # every module of the package was imported, the ncdm split among them
+    # every module of the package was imported, the ncdm split and the
+    # multi-rank force among them
     names = out.stdout.split()
-    assert len(names) >= 26
-    for name in ("cli", "solver", "gravity", "ncdm", "ops.cic"):
+    assert len(names) >= 30
+    for name in ("cli", "solver", "gravity", "ncdm", "ops.cic",
+                 "parallel.comm", "parallel.pfft", "parallel.psolver"):
         assert "fastpm_torch." + name in names
 
 
@@ -66,3 +68,5 @@ def test_unserved_parameter_stops_the_cli(tmp_path):
         main([str(conf)], device="cpu")
     with pytest.raises(SystemExit, match="restart"):
         main(["-r", str(tmp_path / "snapshot"), str(conf)], device="cpu")
+    with pytest.raises(SystemExit, match="NprocY"):
+        main(["-y", "2", str(conf)], device="cpu")
