@@ -19,7 +19,7 @@ Phases, in order (any failure ends the script with a nonzero exit):
    K3 adds 16.8 M CDM particles (scalar mass) and 5.24 M ncdm particles
    (a mass column) into one 512^3 canvas, K4 reads the three 512^3
    force fields at both sets; against the plain versions, the total
-   mass, and the same timings; then the bound of K7, still to port;
+   mass, and the same timings;
 5. golden: tests/fixtures/nbodykit.lua through fastpm_torch.cli.main
    writes 1894 FOF objects at a = 0.6667 and 1668 at a = 1.0, and logs
    the input sigma8 0.815897;
@@ -52,6 +52,24 @@ B. the homed slab force (fastpm_torch.parallel) at full width on a
    K6) kernels; the launch counters show each went through its kernels;
    accelerations against the single-device compute_force_carry by id;
    each variant's force-step time and peak memory;
+C. K7 at the carry sort's shapes: the cell keys of 2^24 particles
+   (fastpm_torch.benchlib.example_particles(256, 256.0), a 512^3 mesh)
+   one step after a fresh carry sort, with 6 payloads (x, v), block
+   sorted with B = 32768: K7 against its plain version with
+   torch.equal; sort_ksorted on k-sorted unique keys and
+   sort_maybe_ksorted on the step's keys against torch.sort (keys equal,
+   rows permuted: an index column rides as float32); the times of a
+   merge pass, of torch.sort over the merge's rows with the payload
+   gathers, and of the full sort with gathers the fresh carry pays;
+D. the benchlib step at full width (256^3 particles, a 512^3 mesh, box
+   256), 5 steps each of base, sb32768 (K7; the full sorts the exact
+   flag forced are counted), paint4 (K5) and stale3 (a fresh sort every
+   3rd step): launch counters, step time, particle-steps/s and peak
+   memory per variant; each variant's sorted cell keys against base's,
+   and one step of each from base's final state against base's (acc row
+   by row, or per cell where rows of a cell come in another order); then
+   the stale force against the carry force on the main path's z = 0
+   state moved by one more drift: by id, times and profiles;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -74,8 +92,8 @@ F32_FLOPS = 67e12              # H100 SXM float32 peak outside tensor cores
 # (atomics in run-dependent order), so elementwise atol 2e-6 + rtol 1e-5
 ATOL, RTOL = 2e-6, 1e-5
 
-# wrapper name in fastpm_torch.ops.cic -> (source, the TPU kernel it
-# replaces)
+# wrapper name in fastpm_torch.ops.cic (merge_pairs: ops.sort) ->
+# (source, the TPU kernel it replaces)
 KERNELS = {
     "cic_paint": ("fastpm_torch/csrc/cic_paint.cu",
                   "fastpm_tpu/ops/paint_pallas.py:1012"),
@@ -95,6 +113,8 @@ KERNELS = {
                    "fastpm_tpu/ops/paint_pallas.py:689"),
     "cic_readout4": ("fastpm_torch/csrc/cic_readout4.cu",
                      "fastpm_tpu/ops/readout_pallas.py:371"),
+    "merge_pairs": ("fastpm_torch/csrc/bitonic_merge.cu",
+                    "fastpm_tpu/ops/sort_pallas.py:92"),
 }
 HOMED = ("cic_paint_homed", "cic_readout_homed", "cic_paint4",
          "cic_readout4")
@@ -149,16 +169,24 @@ def bound_ms(nbytes, nops):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def wrapper(name):
+    """The wrapper of a kernel of KERNELS."""
+    from fastpm_torch.ops import cic, sort
+    return getattr(sort if name == "merge_pairs" else cic, name)
+
+
 def reset_launches():
-    """Set every kernel's launch count to 0."""
-    from fastpm_torch.ops import cic
+    """Set every kernel's launch count, and the carry sort's call and
+    fallback counts, to 0."""
+    from fastpm_torch.ops import sort
     for name in KERNELS:
-        getattr(cic, name).launches = 0
+        wrapper(name).launches = 0
+    sort.carry_sort.calls = 0
+    sort.sort_maybe_ksorted.fallbacks = 0
 
 
 def read_launches():
-    from fastpm_torch.ops import cic
-    return {name: getattr(cic, name).launches for name in KERNELS}
+    return {name: wrapper(name).launches for name in KERNELS}
 
 
 def make_particles(kind, n, box, dev, seed):
@@ -233,16 +261,6 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
                                             + 12 * n, (40 + 48) * n)
     print_rows(rows)
     return rows
-
-
-def unported_bounds(nc=256):
-    """Print the least time of the kernel still to port at the main
-    path's shapes: one K7 merge pass reads and writes N i32 keys with 6
-    f32 payloads (positions and velocities, as make_prepare_carry_fn
-    feeds it)."""
-    ms, by = bound_ms(2 * 28 * nc ** 3, 0)
-    print("to port: K7 _merge_kernel, one pass bound_ms %.4f (%s)"
-          % (ms, by))
 
 
 def print_rows(rows):
@@ -658,7 +676,7 @@ def ncdm_agreement(dev, tmp, nc=16, box=128.0):
 
 def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
     """Phase 7: the main path at full size through run_fastpm; returns
-    the launch counts of the run."""
+    the launch counts of the run, the solver and its force mesh."""
     import numpy as np
     import torch
     from fastpm_torch import cli, gravity
@@ -695,8 +713,8 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
     print("main path: max_memory_allocated %.3f GB"
           % (peak / 1e9))
     if launches != dict({"cic_paint": nforce, "cic_readout": nforce + 6,
-                         "cic_paint_into": 0, "cic_readout3": 0},
-                        **{k: 0 for k in HOMED}):
+                         "cic_paint_into": 0, "cic_readout3": 0,
+                         "merge_pairs": 0}, **{k: 0 for k in HOMED}):
         raise SystemExit("main path did not run through K1 / K2 alone: %s"
                          % launches)
 
@@ -724,7 +742,7 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
           "%.4g particle-steps/s" % (force_ms, nc ** 3 / force_ms * 1e3))
     profile_force(lambda: gravity.compute_force_carry(
         pm, painter, store.wrap(pm.BoxSize)))
-    return launches, store, pm
+    return launches, solver, pm
 
 
 def ncdm_path(dev, tmp, nc=256, box=768.0):
@@ -758,8 +776,8 @@ def ncdm_path(dev, tmp, nc=256, box=768.0):
           "P(k), snapshot)" % (cdm.np_local, nu.np_local, 2 * nc, nforce,
                                wall))
     want = dict({"cic_paint": 0, "cic_readout": 6 + 9,
-                 "cic_paint_into": 2 * nforce, "cic_readout3": 2 * nforce},
-                **{k: 0 for k in HOMED})
+                 "cic_paint_into": 2 * nforce, "cic_readout3": 2 * nforce,
+                 "merge_pairs": 0}, **{k: 0 for k in HOMED})
     print("ncdm path: launches %s (want %s: K3 and K4 twice per force "
           "step, K2 = 6 CDM + 9 ncdm 2LPT readouts)" % (launches, want))
     print("ncdm path: max_memory_allocated %.3f GB" % (peak / 1e9))
@@ -894,6 +912,233 @@ def homed_force(dev, store, pm, reps=5):
     return launches
 
 
+def check_merge(dev, x0, v0, pm, B=32768, reps=10):
+    """Phase C: K7 at the carry sort's shapes. x0, v0: the benchlib
+    particles; pm their force mesh. Returns K7's row for the JSON line
+    (its launch count is filled in after phase D)."""
+    import torch
+    from fastpm_torch import benchlib
+    from fastpm_torch.ops import cic, sort
+
+    # one order-free step: its rows come in the cell order of its input
+    x, v, _ = benchlib.make_step_fn(pm, device=dev)(x0, v0, (0.05, 0.02))
+    key = cic.cell_key(x, pm.Nmesh, pm.InvCellSize)
+    n = key.shape[0]
+    pays = [c.contiguous() for c in list(x.unbind(1)) + list(v.unbind(1))]
+    cols = sort.block_sort([key] + pays, B)
+    torch.cuda.synchronize()
+    got = sort.merge_pairs(*cols, B=B)
+    want = sort.merge_pairs_plain(*cols, B=B)
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    sorted2b = bool((got[0].view(-1, 2 * B).diff(dim=1) >= 0).all())
+    print("K7 merge_pairs: %d rows, B = %d, 6 payloads: equal to the plain "
+          "version %s (max_abs_err %.3g), every 2B-run ascending %s"
+          % (n, B, same, err, sorted2b))
+    if not (same and sorted2b):
+        raise SystemExit("K7 disagrees with its plain version")
+    del got, want
+
+    # the fast path on k-sorted unique keys (rows displaced < B / 3), and
+    # the guarded sort on the step's keys, against torch.sort: an index
+    # column (float32, exact below 2^24 rows) shows the rows permuted
+    g = torch.Generator(device=dev).manual_seed(41)
+    vals = torch.arange(n, device=dev) * 7 + torch.randint(
+        -7 * (B // 3), 7 * (B // 3), (n,), generator=g, device=dev)
+    ranks = torch.empty(n, dtype=torch.int32, device=dev)
+    ranks[torch.sort(vals, stable=True).indices] = torch.arange(
+        n, dtype=torch.int32, device=dev)
+    idx = torch.arange(n, dtype=torch.float32, device=dev)
+    (k, *ps, i), ok = sort.sort_ksorted([ranks] + pays + [idx], B)
+    i = i.long()
+    fast_ok = (bool(ok) and torch.equal(k, torch.sort(ranks).values)
+               and torch.equal(ranks[i], k)
+               and all(torch.equal(p[i], q) for p, q in zip(pays, ps)))
+    _, step_ok = sort.sort_ksorted([key] + pays, B)
+    (k, *ps, i) = sort.sort_maybe_ksorted([key] + pays + [idx], B)
+    i = i.long()
+    guarded_ok = (torch.equal(k, torch.sort(key).values)
+                  and torch.equal(torch.sort(i).values,
+                                  torch.arange(n, device=dev))
+                  and torch.equal(key[i], k)
+                  and all(torch.equal(p[i], q) for p, q in zip(pays, ps)))
+    print("sort_ksorted on k-sorted unique keys: flag %s, equal to "
+          "torch.sort with the rows permuted %s; on the step's cell keys: "
+          "flag %s, sort_maybe_ksorted equal to torch.sort %s"
+          % (bool(ok), fast_ok, bool(step_ok), guarded_ok))
+    if not (fast_ok and guarded_ok):
+        raise SystemExit("the k-sorted sort disagrees with torch.sort")
+    del k, ps, i, ranks, vals
+
+    def rows_sort():
+        # one PyTorch call per column for a merge pass's function: sort
+        # the 2B-runs, gather the payloads
+        kr, o = torch.sort(cols[0].view(-1, 2 * B), dim=1)
+        return [kr] + [p.view(-1, 2 * B).gather(1, o) for p in cols[1:]]
+
+    def full_sort():
+        kf, o = torch.sort(key, stable=True)
+        return [kf] + [p[o] for p in pays]
+
+    row = dict(err=err)
+    row["ms"] = time_ms(lambda: sort.merge_pairs(*cols, B=B), reps)
+    row["plain_ms"] = time_ms(lambda: sort.merge_pairs_plain(*cols, B=B), 3)
+    row["library_ms"] = time_ms(rows_sort, reps)
+    row["library_ms_full_sort"] = time_ms(full_sort, reps)
+    ksorted_ms = time_ms(lambda: sort.sort_maybe_ksorted([key] + pays, B),
+                         reps)
+    carry = {b: time_ms(lambda: sort.carry_sort(x, v, pm.Nmesh,
+                                                pm.InvCellSize, b), reps)
+             for b in (B, None)}
+    # a pass reads and writes the key and 6 payloads once
+    row["bound"] = bound_ms(2 * 28 * n, 0)
+    print("merge_pairs: kernel_ms %.4f plain_ms %.4f library_ms %.4f "
+          "(torch.sort of the 2B-runs + 6 gathers) full sort + 6 gathers "
+          "%.4f ms bound_ms %.4f (%s)"
+          % (row["ms"], row["plain_ms"], row["library_ms"],
+             row["library_ms_full_sort"], *row["bound"]))
+    print("k-sorted sort on the step's keys (block sort, 2 merges, flag%s) "
+          "%.4f ms; carry_sort with sort_block %d %.4f ms, full %.4f ms"
+          % (", full sort" if not bool(step_ok) else "", ksorted_ms, B,
+             carry[B], carry[None]))
+    return {"merge_pairs": row}
+
+
+def benchlib_path(dev, x0, v0, pm, nstep=5, B=32768, every=3):
+    """Phase D: the benchlib step at full width, 5 steps of each variant
+    from (x0, v0). Returns the launch counts of each variant's run."""
+    import torch
+    from fastpm_torch import benchlib
+    from fastpm_torch.ops import cic, sort
+
+    coeffs = torch.tensor([0.05, 0.02], device=dev)
+    n = x0.shape[0]
+    fresh, stale = benchlib.make_stale_step_fns(pm, device=dev)
+    steps = {"base": benchlib.make_step_fn(pm, device=dev),
+             "sb%d" % B: benchlib.make_step_fn(pm, sort_block=B,
+                                               device=dev),
+             "paint4": benchlib.make_step_fn(pm, paint8=False, device=dev)}
+    runs = {name: [fn] * nstep for name, fn in steps.items()}
+    runs["stale%d" % every] = [fresh if i % every == 0 else stale
+                               for i in range(nstep)]
+    zero = {k: 0 for k in KERNELS}
+    nfresh = len(range(0, nstep, every))
+    want = {"base": dict(zero, cic_paint=nstep, cic_readout=nstep),
+            "sb%d" % B: dict(zero, cic_paint=nstep, cic_readout=nstep,
+                             merge_pairs=2 * nstep),
+            "paint4": dict(zero, cic_paint4=nstep, cic_readout=nstep),
+            "stale%d" % every: dict(zero, cic_paint=nstep,
+                                    cic_readout=nstep)}
+    sorts = dict.fromkeys(runs, nstep)
+    sorts["stale%d" % every] = nfresh
+    finals, launches = {}, {}
+    for name, run in runs.items():
+        run[0](x0, v0, coeffs)               # warm-up (cuFFT plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        x, v = x0, v0
+        for step in run:
+            x, v, acc = step(x, v, coeffs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / nstep
+        launches[name] = read_launches()
+        print("benchlib %s: %d steps, %.2f ms a step = %.4g particle-steps/s, "
+              "peak %.3f GB; carry sorts %d (want %d), full sorts forced by "
+              "the k-sorted flag %d; launches %s"
+              % (name, nstep, ms, n / ms * 1e3,
+                 torch.cuda.max_memory_allocated() / 1e9,
+                 sort.carry_sort.calls, sorts[name],
+                 sort.sort_maybe_ksorted.fallbacks,
+                 {k: c for k, c in launches[name].items() if c}))
+        if (launches[name] != want[name]
+                or sort.carry_sort.calls != sorts[name]):
+            raise SystemExit("benchlib %s did not run through its kernels: "
+                             "%s" % (name, launches[name]))
+        finals[name] = (x, v)
+
+    # 1. the trajectories: each variant's cells against base's. A
+    # particle within an ulp of a cell face may land on either side of
+    # it (f32 atomics in the paint), so a few may differ; counted
+    def hist(x):
+        return torch.bincount(cic.cell_key(x, pm.Nmesh, pm.InvCellSize),
+                              minlength=int(pm.Norm))
+    hb = hist(finals["base"][0])
+    for name in runs:
+        if name == "base":
+            continue
+        moved = int((hist(finals[name][0]) - hb).abs().sum()) // 2
+        print("benchlib %s after %d steps: %d of %d particles in another "
+              "cell than base's (bound 16)" % (name, nstep, moved, n))
+        if moved > 16:
+            raise SystemExit("benchlib %s disagrees with base" % name)
+    del hb
+
+    # 2. one step of each variant from base's final state: acc row by row
+    # in base's (stable) sort order, or per cell for the k-sorted sort,
+    # whose rows of one cell come in another order
+    xb, vb = finals["base"]
+    del finals
+    key = cic.cell_key(xb, pm.Nmesh, pm.InvCellSize)
+    ks, order = torch.sort(key, stable=True)
+    seg = torch.cat([ks.new_zeros(1),
+                     torch.cumsum((ks[1:] != ks[:-1]).int(), 0)]).long()
+
+    def per_cell(acc):
+        return torch.zeros((int(seg[-1]) + 1, 3), device=dev).index_add_(
+            0, seg, acc)
+
+    _, _, want_acc = steps["base"](xb, vb, coeffs)
+    scale = float(want_acc.abs().max())
+    for name, got, ref in (
+            ("sb%d" % B, per_cell(steps["sb%d" % B](xb, vb, coeffs)[2]),
+             per_cell(want_acc)),
+            ("paint4", steps["paint4"](xb, vb, coeffs)[2], want_acc),
+            ("stale%d" % every, stale(xb, vb, coeffs)[2][order], want_acc)):
+        err = float((got - ref).abs().max())
+        print("benchlib %s, one step from base's state: max |dacc| %.3g = "
+              "%.3g of max |acc| %.4g (bound 1e-5)"
+              % (name, err, err / scale, scale))
+        if not err <= 1e-5 * scale:
+            raise SystemExit("benchlib %s disagrees with base" % name)
+    return launches
+
+
+def stale_force(solver, pm, reps=5):
+    """Phase D, last part: the stale force against the carry force on the
+    main path's z = 0 state (in its carried order) moved by one more
+    drift of the path's step size."""
+    import torch
+    from fastpm_torch import gravity
+    from fastpm_torch.kdk import DriftFactor
+    from fastpm_torch.painter import Painter
+
+    painter = Painter(pm, "cic")
+    store = solver.species["cdm"].wrap(pm.BoxSize)
+    drift = DriftFactor(solver.cosmology, solver.config.force_mode, 1.0,
+                        1.1125, 1.225)
+    store = solver.drift_one(store, drift, 1.225).wrap(pm.BoxSize)
+    carried, _ = gravity.compute_force_carry(pm, painter, store)
+    stale, _ = gravity.compute_force_stale(pm, painter, store)
+    want = carried.acc[torch.argsort(carried.id)]
+    err = float((stale.acc[torch.argsort(stale.id)] - want).abs().max())
+    scale = float(want.abs().max())
+    print("stale force on the drifted z = 0 state: max |dacc| against the "
+          "carry force %.3g = %.3g of max |acc| %.4g (bound 1e-5)"
+          % (err, err / scale, scale))
+    if not err <= 1e-5 * scale:
+        raise SystemExit("the stale force disagrees with the carry force")
+    del carried, stale, want
+    n = store.np_local
+    for label, fn in (("carry", gravity.compute_force_carry),
+                      ("stale", gravity.compute_force_stale)):
+        ms = time_ms(lambda: fn(pm, painter, store), reps)
+        print("%s force step on the drifted z = 0 state: %.2f ms = %.4g "
+              "particle-steps/s" % (label, ms, n / ms * 1e3))
+        profile_force(lambda: fn(pm, painter, store))
+
+
 def profile_force(step, top=12):
     """Where the force step's device time goes: torch.profiler over two
     steps, device time by kernel name and the device's busy share of
@@ -934,7 +1179,7 @@ def main():
     print("card: " + card)
     dev = "cuda"
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     cudalib.get_lib(verbose=True)
     print("build: %.1f s for %s" % (time.perf_counter() - t0,
                                     [os.path.relpath(s, ROOT)
@@ -943,20 +1188,32 @@ def main():
     rows = check_kernels(dev)
     rows.update(check_kernels_ncdm(dev))
     rows.update(check_kernels_homed(dev))
-    unported_bounds()
+    # the benchlib particles and mesh of phases C and D
+    from fastpm_torch import benchlib
+    from fastpm_torch.mesh import PM
+    nc = 256
+    bpm = PM(2 * nc, float(nc), device=dev)
+    x0, v0 = benchlib.example_particles(nc, float(nc), device=dev)
+    rows.update(check_merge(dev, x0, v0, bpm))
     with tempfile.TemporaryDirectory() as tmp:
         golden(dev, tmp)
         device_agreement(dev, tmp)
         ncdm_agreement(dev, tmp)
         # each path's launches are read from its own run
-        launches, store, pm = main_path(dev, tmp)
+        launches, solver, pm = main_path(dev, tmp)
         ncdm_launches = ncdm_path(dev, tmp)
-    homed_launches = homed_force(dev, store, pm)
-    del store
+    homed_launches = homed_force(dev, solver.species["cdm"], pm)
+    bench_launches = benchlib_path(dev, x0, v0, bpm)
+    del x0, v0
+    stale_force(solver, pm)
+    del solver
     for name in ("cic_paint_into", "cic_readout3"):
         launches[name] = ncdm_launches[name]
     for name in HOMED:
         launches[name] = homed_launches[name]
+    launches["merge_pairs"] = bench_launches["sb32768"]["merge_pairs"]
+    rows["cic_paint4"]["launches_periodic"] = (
+        bench_launches["paint4"]["cic_paint4"])
 
     kernels = []
     for name, r in rows.items():
@@ -970,13 +1227,16 @@ def main():
             # K1 and K3: no single PyTorch call deposits with CIC
             # weights (index_add_ needs the corners and weights first,
             # which is the plain version)
-            "library_ms": r.get("library_ms"),
-            "ms_clustered": r["ms_clustered"],
-            "plain_ms_clustered": r["plain_ms_clustered"]})
-        for key in ("ms_periodic", "plain_ms_periodic",
-                    "library_ms_periodic"):
+            "library_ms": r.get("library_ms")})
+        # K7 has no clustered case: a sorting network does not depend
+        # on the data
+        for key in ("ms_clustered", "plain_ms_clustered", "ms_periodic",
+                    "plain_ms_periodic", "library_ms_periodic",
+                    "launches_periodic", "library_ms_full_sort"):
             if key in r:
                 kernels[-1][key] = r[key]
+    print("chip_smoke: every phase, the build included, in %.1f s"
+          % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(card)
     # the run used one device, whatever else the machine holds

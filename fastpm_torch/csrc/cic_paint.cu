@@ -1,6 +1,8 @@
-// K1: CIC paint (mass deposit) of cell-sorted particles, for the
+// K1: CIC paint (mass deposit) of particles in cell order, for the
 // single-species order-free force: onto a periodic mesh, or, homed, into
-// one rank's extended x-slab.
+// one rank's extended x-slab. The result is right in any order; cell
+// order only buys locality (the stale force paints in the order of an
+// earlier sort, which the particles have drifted from).
 //
 // Replaces the TPU kernel fastpm_tpu/ops/paint_pallas.py:_paint_kernel8,
 // the one-pass deposit of cell-sorted particles into two dx streams with

@@ -21,8 +21,9 @@
 // back in the caller's order with no sort and no unsort.
 //
 // What bounds it on an H100: device-memory bytes when the particles are
-// sorted by cell (the carry force sorts them; the 2LPT readouts come in
-// lattice order), as the 8 corner loads of neighbouring threads share
+// sorted by cell (the carry force sorts them, the stale force reads out
+// in the order of an earlier sort, the 2LPT readouts come in lattice
+// order), as the 8 corner loads of neighbouring threads share
 // cache lines in L1/L2; the latency of scattered loads when they are not
 // (a random store order misses L2 on most of its 24 loads per particle).
 // One thread per particle computes the 8 indices and weights once and

@@ -8,6 +8,9 @@ JAX names:
   softening, the potential transfer, three gradient c2r, and read out
   (K2). The store comes back in cell order: particle order is not
   physical, and writers sort by id.
+- compute_force_stale (gravity.py:378-416): the carry force without
+  its sort, for a store still in the order of an earlier carry force
+  (stale-order stepping, SolverConfig.stale_every).
 - compute_force (gravity.py:65-158): every other case, such as CDM plus
   ncdm with its mass column. All species are painted into one canvas
   (paint_delta_k; K3 for CIC) and the force is read out per species
@@ -30,7 +33,7 @@ from .ops import cic
 from . import kernels
 
 __all__ = ["paint_delta_k", "compute_force", "carry_eligible",
-           "compute_force_carry"]
+           "compute_force_carry", "compute_force_stale"]
 
 
 def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str):
@@ -97,6 +100,32 @@ def compute_force_carry(pm: PM, painter: Painter, store: Store,
     # every column but acc (overwritten below) rides the sort
     store = store.replace(acc=None).take(
         cic.sort_by_cell(store.x, pm.Nmesh, pm.InvCellSize))
+    return _force_in_order(pm, store, kernel_type, softening_type)
+
+
+def compute_force_stale(pm: PM, painter: Painter, store: Store,
+                        kernel_type: str = "1_4",
+                        softening_type: str = "none"):
+    """The stale-order force (compute_force_stale, gravity.py:378-416):
+    for a store already in the cell order of an earlier
+    compute_force_carry, the carry force without the sort. K1 and K2 run
+    on the carried order, from which the particles have drifted.
+
+    Returns (store in its given order with acc filled, delta_k), as
+    compute_force_carry. The JAX stale force needs a window map, a range
+    table, a side bundle of movers with a cap (maxm) and an overflow
+    count (nbad), because its TPU kernels read DMA'd windows of C cells
+    (ops/stale.py). K1 and K2 take particles in any order, so here there
+    are no movers and no overflow, and the result is exact whatever the
+    drift; only the kernels' locality decays with it."""
+    return _force_in_order(pm, store.replace(acc=None), kernel_type,
+                           softening_type)
+
+
+def _force_in_order(pm: PM, store: Store, kernel_type: str,
+                    softening_type: str):
+    """The body of the carry and stale forces: K1, the force fields and
+    K2 on the store's rows in their order."""
     canvas = cic.cic_paint(store.x, pm.Nmesh, pm.InvCellSize,
                            float(np.float32(store.M0)))
     mean_mass_per_cell = store.M0 * store.np_local / pm.Norm

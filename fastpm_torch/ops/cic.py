@@ -1,13 +1,15 @@
 """CIC paint and readout: the hand-written CUDA kernels, their plain
 PyTorch versions, and the cell sort that prepares the order-free force.
 
-- K1 cic_paint: cell-sorted particles, scalar mass, a new canvas
+- K1 cic_paint: particles in cell order (any order is right; cell
+  order buys locality), scalar mass, a new canvas
   (replaces fastpm_tpu/ops/paint_pallas.py:_paint_kernel8); its homed
   form cic_paint_homed adds a scalar mass or a mass column into one
   rank's extended x-slab (make_paint_from8_homed_fn);
-- K2 cic_readout: 1-3 fields at cell-sorted particles and at the 2LPT
-  lattice (replaces fastpm_tpu/ops/readout_pallas.py:_readout_kernel8);
-  its homed form cic_readout_homed reads extended x-slabs
+- K2 cic_readout: 1-3 fields at particles in cell order (any order is
+  right) and at the 2LPT lattice (replaces
+  fastpm_tpu/ops/readout_pallas.py:_readout_kernel8); its homed form
+  cic_readout_homed reads extended x-slabs
   (make_readout3_from8_homed_fn);
 - K3 cic_paint_into: particles in any order, scalar mass or a mass
   column, added into a canvas the caller owns (replaces
@@ -52,6 +54,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .cudalib import launch as _launch
 
 __all__ = ["Slab", "cell_key", "sort_by_cell", "slab_cell", "cic_paint",
            "cic_readout", "cic_paint_into", "cic_readout3",
@@ -275,22 +279,13 @@ def _check_canvas(canvas, x, mass):
     return nmesh, column
 
 
-def _launch(name, *args, device):
-    """Call the C entry point `name` on the current stream of device and
-    raise if the launch failed."""
-    from .cudalib import get_lib
-    fn = getattr(get_lib(), name)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
 def cic_paint(x: torch.Tensor, nmesh, inv_cell, mass=1.0) -> torch.Tensor:
     """Deposit a scalar mass at every particle into a new (nx, ny, nz)
-    float32 canvas. On CUDA this launches K1 (csrc/cic_paint.cu), meant
-    for cell-sorted particles; the canvas differs from run to run in the
-    last bits (f32 atomics)."""
+    float32 canvas. On CUDA this launches K1 (csrc/cic_paint.cu). It is
+    right for particles in any order; cell order only buys locality of
+    the atomics (the stale force paints in a carried, no longer sorted
+    order). The canvas differs from run to run in the last bits (f32
+    atomics)."""
     _check_positions(x)
     nmesh = tuple(int(n) for n in nmesh)
     _check_mesh(nmesh)

@@ -16,7 +16,7 @@ import os
 import subprocess
 import time
 
-__all__ = ["get_lib", "build", "SOURCES"]
+__all__ = ["get_lib", "build", "launch", "SOURCES"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -101,5 +101,20 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = I
         fn.argtypes = head + tail
+    # (in pointers, out pointers, P, n, B, stream): host arrays of 1 + P
+    # device pointers
+    lib.fastpm_bitonic_merge.restype = I
+    lib.fastpm_bitonic_merge.argtypes = [P, P, I, L, I, P]
     _lib = lib
     return lib
+
+
+def launch(name: str, *args, device) -> None:
+    """Call the C entry point `name` on the current stream of device and
+    raise if the launch failed."""
+    import torch
+    fn = getattr(get_lib(), name)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -9,7 +9,9 @@ ranks of a torch.distributed process group.
 
 On one rank the force step is gravity.compute_force_carry for one
 scalar-mass species and gravity.compute_force (every species into one
-canvas) otherwise. On several, each rank holds a contiguous block of
+canvas) otherwise. With stale_every = N > 1, N - 1 of every N carry
+forces are stale (gravity.compute_force_stale: the carried order, no
+sort; solver.py:548-572). On several, each rank holds a contiguous block of
 every species' rows (Store.shard) and the force is the homed slab force
 of parallel/psolver.py: the order-free carry for one scalar-mass species
 with the CIC painter, the multi-species body otherwise, and the v1
@@ -19,8 +21,8 @@ finds a particle beyond it; that force is then run again, so no result
 with a particle beyond the halo is ever used (solver.py:1332-1368).
 
 Not in this slice (NotImplementedError; see ROADMAP.md): force modes
-cola, za and 2lpt, stale stepping, rehome, PGD, the neutrino linear
-response, baryons, and the pencil (2D) decomposition.
+cola, za and 2lpt, rehome, PGD, the neutrino linear response, baryons,
+and the pencil (2D) decomposition.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from .timemachine import (StateTable, ACTION_FORCE, ACTION_KICK,
 from .mesh import PM
 from .painter import Painter
 from .store import Store, lattice_store
-from .gravity import compute_force, compute_force_carry, carry_eligible
+from .gravity import (compute_force, compute_force_carry,
+                      compute_force_stale, carry_eligible)
 from .lpt import lpt_solve, lpt_evolve
 from .parallel.comm import Ring
 from .parallel.pfft import SlabPM
@@ -70,8 +73,13 @@ def _f32(a: float) -> float:
 class SolverConfig:
     """Mirror of FastPMConfig (api/fastpm/solver.h) with lua-schema
     defaults (src/lua-runtime-fastpm.lua), restricted to what this
-    slice serves. stale_every, rehome and pgdc keep the JAX package's
-    names so that asking for them fails loudly."""
+    slice serves. rehome and pgdc keep the JAX package's names so that
+    asking for them fails loudly.
+
+    stale_every: with N > 1, on one device, N - 1 of every N carry forces
+    reuse the carried order of the one before (no environment default,
+    unlike the JAX package's FASTPM_TPU_STALE); the sharded and
+    multi-species forces ignore it."""
 
     nc: int
     boxsize: float
@@ -104,8 +112,7 @@ class SolverConfig:
         if self.force_mode not in ("fastpm", "pm"):
             raise NotImplementedError(
                 f"force_mode {self.force_mode!r} {_LATER}")
-        for name, on in (("stale stepping", self.stale_every > 1),
-                         ("rehome", self.rehome), ("PGD", self.pgdc)):
+        for name, on in (("rehome", self.rehome), ("PGD", self.pgdc)):
             if on:
                 raise NotImplementedError(f"{name} {_LATER}")
 
@@ -157,6 +164,9 @@ class Solver:
         self._halo = {}
         # force steps by the path they took
         self.force_paths = Counter()
+        # stale stepping: per force mesh, the stale forces since the last
+        # carry force
+        self._stale_since = {}
 
     @property
     def sharded(self) -> bool:
@@ -168,6 +178,7 @@ class Solver:
         if name not in (CDM, NCDM):
             raise NotImplementedError(f"species {name!r} {_LATER}")
         self.species[name] = store.shard(self.ring)
+        self._stale_since.clear()
 
     def global_count(self, name: str) -> int:
         """The number of particles of a species over every rank."""
@@ -216,6 +227,8 @@ class Solver:
             p = p.replace(dx2=torch.zeros_like(p.dx2))
         p = lpt_evolve(self.cosmology, a0, p, za_only=False)
         self.species[species] = p.replace(dx1=None, dx2=None, dv1=None)
+        # new particles: no carried order to reuse (solver.py:299-302)
+        self._stale_since.clear()
         self.event_handlers.emit(ev.EVENT_LPT, ev.STAGE_AFTER,
                                  solver=self, pm=self.lptpm,
                                  delta_k=delta_k_ic,
@@ -256,11 +269,7 @@ class Solver:
             stores, delta_k = self._sharded_force(pm, painter, stores)
             kpm = self._slab_pm(pm).kpm
         elif carry_eligible(painter, stores):
-            p, delta_k = compute_force_carry(pm, painter, stores.pop(),
-                                             cfg.kernel_type,
-                                             cfg.softening_type)
-            stores = [p]
-            self.force_paths["carry"] += 1
+            stores, delta_k = self._carry_force(pm, painter, stores.pop())
         else:
             stores, delta_k = compute_force(pm, painter, stores,
                                             cfg.kernel_type,
@@ -285,6 +294,27 @@ class Solver:
         self.event_handlers.emit(
             ev.EVENT_FORCE, ev.STAGE_AFTER, solver=self, pm=kpm,
             a_f=trans.a_f, a_n=a_n, N=N, delta_k=delta_k_decic)
+
+    def _carry_force(self, pm: PM, painter: Painter, store: Store):
+        """The order-free force of one species on one device: fresh (with
+        the sort), or stale when stale_every allows it for this force
+        mesh. Returns ([store], delta_k)."""
+        cfg = self.config
+        since = self._stale_since.get(pm.Nmesh)
+        if since is not None and since < cfg.stale_every - 1:
+            p, delta_k = compute_force_stale(pm, painter, store,
+                                             cfg.kernel_type,
+                                             cfg.softening_type)
+            self._stale_since[pm.Nmesh] = since + 1
+            self.force_paths["stale"] += 1
+        else:
+            p, delta_k = compute_force_carry(pm, painter, store,
+                                             cfg.kernel_type,
+                                             cfg.softening_type)
+            if cfg.stale_every > 1:
+                self._stale_since[pm.Nmesh] = 0
+            self.force_paths["carry"] += 1
+        return [p], delta_k
 
     # ---- the slab force over the ranks (parallel/psolver.py) ----
 

@@ -33,8 +33,9 @@ def test_import_leaves_jax_out():
     # multi-rank force among them
     names = out.stdout.split()
     assert len(names) >= 30
-    for name in ("cli", "solver", "gravity", "ncdm", "ops.cic",
-                 "parallel.comm", "parallel.pfft", "parallel.psolver"):
+    for name in ("cli", "solver", "gravity", "ncdm", "ops.cic", "ops.sort",
+                 "benchlib", "parallel.comm", "parallel.pfft",
+                 "parallel.psolver"):
         assert "fastpm_torch." + name in names
 
 
@@ -55,6 +56,13 @@ def test_entry_points_raise_without_cuda(tmp_path):
         run_fastpm(load_params(str(conf)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([str(conf)])
+    from fastpm_torch import benchlib
+    from fastpm_torch.mesh import PM
+    for entry in (lambda: benchlib.make_step_fn(PM(8, 16.0)),
+                  lambda: benchlib.make_stale_step_fns(PM(8, 16.0)),
+                  lambda: benchlib.example_particles(4, 16.0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
 
 
 def test_unserved_parameter_stops_the_cli(tmp_path):

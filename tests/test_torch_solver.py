@@ -69,6 +69,6 @@ def test_solver_matches_jax(mode, start):
 
 def test_unserved_modes_raise():
     for kw in (dict(force_mode="cola"), dict(force_mode="2lpt"),
-               dict(stale_every=2), dict(rehome=True), dict(pgdc=True)):
+               dict(rehome=True), dict(pgdc=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SolverConfig(nc=8, boxsize=16.0, **kw)
