@@ -111,7 +111,8 @@ KERNELS = {
                           "fastpm_tpu/ops/readout_pallas.py:764"),
     "cic_paint4": ("fastpm_torch/csrc/cic_paint4.cu",
                    "fastpm_tpu/ops/paint_pallas.py:689"),
-    "cic_readout4": ("fastpm_torch/csrc/cic_readout4.cu",
+    # K2's kernel summing plane by plane, in one pass
+    "cic_readout4": ("fastpm_torch/csrc/cic_readout.cu",
                      "fastpm_tpu/ops/readout_pallas.py:371"),
     "merge_pairs": ("fastpm_torch/csrc/bitonic_merge.cu",
                     "fastpm_tpu/ops/sort_pallas.py:92"),
@@ -233,13 +234,50 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
         del got
 
         for label, fs, fi in (("3 fields %d^3" % nmesh, fields, inv),
+                              ("2 fields %d^3" % nmesh, fields[:2], inv),
                               ("1 field %d^3" % nc, [lpt_field], lpt_inv)):
             err = check_close("K2 cic_readout %s, %s" % (kind, label),
                               cic.cic_readout(fs, x, fi),
                               cic.cic_readout_plain(fs, x, fi))
             rows["cic_readout"]["err"] = max(rows["cic_readout"]["err"], err)
+            readout_paths("K2 %s, %s" % (kind, label), fs, x, fi)
 
         key = "" if kind == "uniform" else "_" + kind
+        # step 2 (every block from device memory) against step 3 (the
+        # tile), in turns
+        rows["cic_readout"]["share" + key], steps = readout_paths(
+            "K2 %s, 3 fields %d^3" % (kind, nmesh), fields, x, inv, reps=reps)
+        rows["cic_readout"]["ms_step2" + key] = steps[0]
+        rows["cic_readout"]["ms_step3" + key] = steps[1]
+        if kind == "uniform":
+            # the same particles drifted by up to a cell in their sorted
+            # order (the stale force), and shuffled (store order)
+            g2 = torch.Generator(device=dev).manual_seed(19)
+            drift = (torch.rand(x.shape, generator=g2, device=dev) * 2 - 1
+                     ) * (box / nmesh)
+            stale = x + drift
+            stale -= torch.floor(stale / box) * box
+            shuffled = x[torch.randperm(n, generator=g2, device=dev)]
+            for label, xx in (("stale (sorted, drifted a cell)", stale),
+                              ("random order", shuffled)):
+                err = check_close("K2 cic_readout %s, 3 fields %d^3"
+                                  % (label, nmesh),
+                                  cic.cic_readout(fields, xx, inv),
+                                  cic.cic_readout_plain(fields, xx, inv))
+                rows["cic_readout"]["err"] = max(rows["cic_readout"]["err"],
+                                                 err)
+                readout_paths("K2 %s, 3 fields %d^3" % (label, nmesh),
+                              fields, xx, inv, reps=reps)
+            del stale, shuffled, drift
+            # the 2LPT readouts: one field at the lattice, in lattice order
+            q = jittered_lattice(nc, box, 0.0, nc, dev, 0)
+            err = check_close("K2 cic_readout 2LPT lattice, 1 field %d^3"
+                              % nc, cic.cic_readout([lpt_field], q, lpt_inv),
+                              cic.cic_readout_plain([lpt_field], q, lpt_inv))
+            rows["cic_readout"]["err"] = max(rows["cic_readout"]["err"], err)
+            readout_paths("K2 2LPT lattice, 1 field %d^3" % nc, [lpt_field],
+                          q, lpt_inv, reps=reps)
+            del q
         rows["cic_paint"]["ms" + key] = time_ms(
             lambda: cic.cic_paint(x, mesh, inv), reps)
         rows["cic_paint"]["plain_ms" + key] = time_ms(
@@ -287,6 +325,38 @@ def check_close(label, got, want):
     if not ok:
         raise SystemExit("%s disagrees with its plain version" % label)
     return err
+
+
+def readout_paths(label, fields, x, inv, slab=None, two_planes=False,
+                  reps=0):
+    """The readout kernel's two paths on one input (ops.cic.readout_probe,
+    outside the launch counts): the share of blocks that take the
+    shared-memory tile, and the tile and device-memory paths' values
+    equal bit for bit (SystemExit if not). With reps, both paths' times
+    in turns (device memory, tile, tile, device memory). Returns (share,
+    (device-memory ms, tile ms) or None)."""
+    import torch
+    from fastpm_torch.ops import cic
+
+    def probe(tile):
+        return cic.readout_probe(fields, x, inv, slab, two_planes, tile)
+
+    on, tiled, total = probe(True)
+    same = torch.equal(on, probe(False)[0])
+    print("%s: %d of %d blocks tiled (%.1f%%); tile and device-memory "
+          "paths equal bit for bit %s" % (label, tiled, total,
+                                         100.0 * tiled / total, same))
+    if not same:
+        raise SystemExit("%s: the tile path disagrees with the device-memory "
+                         "path" % label)
+    if not reps:
+        return tiled / total, None
+    t = [time_ms(lambda: probe(tile), reps)
+         for tile in (False, True, True, False)]
+    steps = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+    print("%s: step 2 (device memory) %.4f / %.4f ms, step 3 (tile) %.4f / "
+          "%.4f ms, in turns" % (label, t[0], t[3], t[1], t[2]))
+    return tiled / total, steps
 
 
 def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
@@ -348,6 +418,9 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
         rows["cic_readout3"]["plain_ms" + key] = time_ms(
             lambda: [cic.cic_readout_plain(fields, x, inv) for x in xs],
             reps)
+        # K4 runs with the tile off (step 2); step 3 on store order
+        readout_paths("K4 %s, 3 fields at the CDM (store order)" % kind,
+                      fields, x_cdm, inv, reps=reps)
         if kind == "uniform":
             rows["cic_paint_into"]["ms_cdm"] = time_ms(
                 lambda: cic.cic_paint_into(got, x_cdm, inv, m_cdm), reps)
@@ -522,14 +595,32 @@ def check_kernels_homed(dev, nc=256, nmesh=512, box=768.0, H=4, every=4,
                 lambda: paint(plain, pcanvas, x, 1.0, None), reps)
         del pcanvas
 
+        g2 = torch.Generator(device=dev).manual_seed(37)
+        drift = (torch.rand(x.shape, generator=g2, device=dev) * 2 - 1
+                 ) * (box / nmesh)
+        stale = x + drift
+        stale -= torch.floor(stale / box) * box
+        del drift
+        shuffled = x[torch.randperm(n, generator=g2, device=dev)]
         for name, (fn, plain) in reads.items():
             for fs, s, label in ((fields, slab, "%dx%dx%d" % ext),
                                  (periodic, None, "periodic %d^3" % nmesh)):
                 if s is None and name == "cic_readout_homed":
                     continue
-                err = check_close("%s %s, 3 fields %s" % (name, kind, label),
-                                  fn(fs, x, s), plain(fs, x, s))
-                rows[name]["err"] = max(rows[name]["err"], err)
+                for order, xx in (("", x), (", stale", stale),
+                                  (", random order", shuffled)):
+                    err = check_close("%s %s%s, 3 fields %s"
+                                      % (name, kind, order, label),
+                                      fn(fs, xx, s), plain(fs, xx, s))
+                    rows[name]["err"] = max(rows[name]["err"], err)
+                    share, steps = readout_paths(
+                        "%s %s%s, 3 fields %s" % (name, kind, order, label),
+                        fs, xx, inv, s, name == "cic_readout4",
+                        reps if order == "" else 0)
+                    if order == "" and s is not None:
+                        rows[name]["share" + key] = share
+                        rows[name]["ms_step2" + key] = steps[0]
+                        rows[name]["ms_step3" + key] = steps[1]
             rows[name]["ms" + key] = time_ms(lambda: fn(fields, x, slab),
                                              reps)
             rows[name]["plain_ms" + key] = time_ms(
@@ -537,6 +628,7 @@ def check_kernels_homed(dev, nc=256, nmesh=512, box=768.0, H=4, every=4,
             if kind == "uniform":
                 rows[name]["library_ms"] = grid_sample_ms(
                     fields, [x], inv, nmesh, reps, slab)
+        del stale, shuffled
         if kind == "uniform":
             fn, plain = reads["cic_readout4"]
             rows["cic_readout4"]["ms_periodic"] = time_ms(
@@ -557,6 +649,64 @@ def check_kernels_homed(dev, nc=256, nmesh=512, box=768.0, H=4, every=4,
                                        (40 + 48) * n)
     print_rows(rows)
     return rows
+
+
+def check_readout_edges(dev, rows, n=64, box=128.0):
+    """Phases 3 and A, edge cases: the geometries of tests/readout_cases.py
+    (cell, store and stale order, runs across an x face, rows wrapping in
+    y, the last column in z, cell faces; on rank 1 of 4's extended slab
+    with H = 2 its sorted and stale rows and its last plane with the rows
+    beyond) at a 64^3 mesh, where a block of 256 sorted particles fits
+    the tile. Each readout kernel against its plain version (K2 and homed
+    K2 with 1-3 fields, K4, K6), the share of tiled blocks, both paths
+    bit for bit, and the rows shuffled against the sorted rows."""
+    import torch
+    from fastpm_torch.ops import cic
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import readout_cases as cases
+
+    count = n ** 3 // 2 + 99          # a ragged last block
+    nmesh, inv = cases.mesh(n, box)
+    slab, ext = cases.slab_of(n, n // 4, 2, 1)
+    g = torch.Generator(device=dev).manual_seed(43)
+    fields = [torch.randn(nmesh, generator=g, device=dev) for _ in range(3)]
+    efields = [torch.randn(ext, generator=g, device=dev) for _ in range(3)]
+    runs = [(kind, cases.periodic_case(kind, n, box, count), None)
+            for kind in cases.PERIODIC]
+    runs += [(kind, cases.slab_case(kind, n, box, count, slab, ext), slab)
+             for kind in cases.SLAB]
+    for kind, pos, s in runs:
+        x = torch.from_numpy(pos).to(dev)
+        fs = fields if s is None else efields
+        k2 = "cic_readout" if s is None else "cic_readout_homed"
+        plain = cic.cic_readout_plain(fs, x, inv, s)
+        checks = [("%s, %d field%s" % (k2, k, "s" * (k > 1)), k2,
+                   (cic.cic_readout(fs[:k], x, inv) if s is None
+                    else cic.cic_readout_homed(fs[:k], x, inv, s)),
+                   plain[:, :k]) for k in (1, 2, 3)]
+        if s is None:
+            checks.append(("cic_readout3", "cic_readout3",
+                           cic.cic_readout3(*fs, x, inv), plain))
+        checks.append(("cic_readout4", "cic_readout4",
+                       cic.cic_readout4(*fs, x, inv, s),
+                       cic.cic_readout4_plain(*fs, x, inv, s)))
+        for label, name, got, want in checks:
+            err = check_close("%s edge case %s (%d^3%s)"
+                              % (label, kind, n, ", slab" if s else ""),
+                              got, want)
+            rows[name]["err"] = max(rows[name]["err"], err)
+        readout_paths("%s edge case %s" % (k2, kind), fs, x, inv, s)
+        readout_paths("cic_readout4 edge case %s" % kind, fs, x, inv, s,
+                      True)
+        perm = torch.randperm(count, generator=g, device=dev)
+        got, tiled, _ = cic.readout_probe(fs, x[perm], inv, s)
+        back = torch.empty_like(got)
+        back[perm] = got
+        same = torch.equal(back, cic.readout_probe(fs, x, inv, s)[0])
+        print("%s edge case %s shuffled: %d blocks tiled; equal to the "
+              "unshuffled rows bit for bit %s" % (k2, kind, tiled, same))
+        if not same:
+            raise SystemExit("%s: the shuffled rows disagree" % kind)
 
 
 def write_lua(path, text):
@@ -742,6 +892,13 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
           "%.4g particle-steps/s" % (force_ms, nc ** 3 / force_ms * 1e3))
     profile_force(lambda: gravity.compute_force_carry(
         pm, painter, store.wrap(pm.BoxSize)))
+    # the force readout's blocks on the z = 0 state in cell order (the
+    # share depends on the positions alone)
+    x = store.wrap(pm.BoxSize).x
+    x = x[cic.sort_by_cell(x, pm.Nmesh, pm.InvCellSize)].contiguous()
+    fields = [torch.randn(tuple(pm.Nmesh), device=dev) for _ in range(3)]
+    readout_paths("K2 force readout on the main path's z = 0 state in cell "
+                  "order", fields, x, pm.InvCellSize, reps=10)
     return launches, solver, pm
 
 
@@ -1130,6 +1287,11 @@ def stale_force(solver, pm, reps=5):
     if not err <= 1e-5 * scale:
         raise SystemExit("the stale force disagrees with the carry force")
     del carried, stale, want
+    fields = [torch.randn(tuple(pm.Nmesh), device=store.x.device)
+              for _ in range(3)]
+    readout_paths("K2 stale force readout (the carried order drifted one "
+                  "step)", fields, store.x, pm.InvCellSize, reps=5)
+    del fields
     n = store.np_local
     for label, fn in (("carry", gravity.compute_force_carry),
                       ("stale", gravity.compute_force_stale)):
@@ -1188,6 +1350,7 @@ def main():
     rows = check_kernels(dev)
     rows.update(check_kernels_ncdm(dev))
     rows.update(check_kernels_homed(dev))
+    check_readout_edges(dev, rows)
     # the benchlib particles and mesh of phases C and D
     from fastpm_torch import benchlib
     from fastpm_torch.mesh import PM
@@ -1230,9 +1393,13 @@ def main():
             "library_ms": r.get("library_ms")})
         # K7 has no clustered case: a sorting network does not depend
         # on the data
+        # the readouts' share of tiled blocks and their step 2 (every
+        # block from device memory) and step 3 (the tile) times
         for key in ("ms_clustered", "plain_ms_clustered", "ms_periodic",
                     "plain_ms_periodic", "library_ms_periodic",
-                    "launches_periodic", "library_ms_full_sort"):
+                    "launches_periodic", "library_ms_full_sort", "share",
+                    "share_clustered", "ms_step2", "ms_step3",
+                    "ms_step2_clustered", "ms_step3_clustered"):
             if key in r:
                 kernels[-1][key] = r[key]
     print("chip_smoke: every phase, the build included, in %.1f s"

@@ -1,5 +1,8 @@
-// Device code shared by the CIC kernels K1-K6: the base cell, fraction
-// and the 8 corner indices and weights of one particle.
+// Device code shared by the CIC kernels: the base cell, fraction and the
+// 8 corner indices and weights of one particle, for the paints K1, K3
+// and K5; the readout (K2, K4, K6, csrc/cic_readout.cu) repeats this
+// rounding with int32 indices and a cheaper wrap, and uses wrap_cell for
+// bases far outside the mesh.
 //
 // For each particle g = x * InvCellSize in float32, base = floor(g),
 // frac = g - base; the base cell and its +1 neighbour wrap periodically;
@@ -124,15 +127,6 @@ __device__ __forceinline__ void deposit(const float* __restrict__ x,
         return;
     }
     for (int c = 0; c < 8; ++c) atomicAdd(canvas + idx[c], __fmul_rn(w[c], m));
-}
-
-// The weighted sum of field f over a particle's first nc corners.
-__device__ __forceinline__ float gather(const float* __restrict__ f,
-                                        const size_t* idx, const float* w,
-                                        int nc = 8) {
-    float acc = 0.0f;
-    for (int c = 0; c < nc; ++c) acc += w[c] * __ldg(f + idx[c]);
-    return acc;
 }
 
 }  // namespace fastpm_cic

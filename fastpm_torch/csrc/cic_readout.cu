@@ -1,34 +1,60 @@
-// K2 and K4: CIC readout (gather) of 1 to 3 mesh fields at particles in
-// any order: periodic fields, or, homed, one rank's extended x-slabs.
+// K2, K4 and K6: CIC readout (gather) of 1 to 3 mesh fields at particles
+// in any order, periodic fields or one rank's extended x-slabs, in one
+// pass over the fields.
 //
-// Replaces two TPU kernels:
-// - K2 fastpm_tpu/ops/readout_pallas.py:_readout_kernel8, the one-pass
-//   3-component gather of cell-sorted particles from wrap-padded canvas
-//   windows. make_readout3_from8_fn reaches it for the order-free force's
-//   readout and, with one field, the 2LPT readouts;
-//   make_readout3_from8_homed_fn for the homed slab force's readout from
-//   the extended slabs (open in x);
-// - K4 readout_pallas.py:_readout_kernel (reached through
-//   make_readout3_fn), which sorts unsorted particles by cell, gathers 24
-//   per-corner rows from canvas windows on the MXU, sums them and sorts
-//   the values back: the multi-species force's readout, once per species.
+// Replaces three TPU kernels of fastpm_tpu/ops/readout_pallas.py:
+// - K2 _readout_kernel8 (:836), the one-pass gather of cell-sorted
+//   particles from wrap-padded canvas windows. make_readout3_from8_fn
+//   (:1248) reaches it for the order-free force's readout and, with one
+//   field, the 2LPT readouts; make_readout3_from8_homed_fn (:764) for the
+//   homed slab force's readout from the extended slabs (open in x);
+// - K6 _readout_kernel4 (:371), which gathers the 4 corners of each x
+//   plane of the cloud in a pass of its own, the caller adding the two
+//   passes (:1416-1419): make_readout3_from4_fn (:659) and
+//   make_readout3_from4_homed_fn (:1354);
+// - K4 _readout_kernel (:48, through make_readout3_fn, :186), which sorts
+//   unsorted particles by cell, gathers 24 per-corner rows on the MXU and
+//   sorts the values back: the multi-species force's readout, once per
+//   species, in store order.
 //
-// Contract: the base cell, fraction and corner weights of cic_common.cuh;
-// out[i, c] = sum over the 8 corners of w * field_c at the corner. No
-// wrap-padded canvases, windows or range tables: the periodic wrap is
-// index arithmetic. In the homed form a particle beyond the slab reads
-// zero (its paint counted it). Thread i writes row i, so K4's rows come
-// back in the caller's order with no sort and no unsort.
+// Contract: the base cell, fraction and corner weights ((wx * wy) * wz)
+// of cic_common.cuh; out[i, c] = the sum over the 8 corners (dx-major)
+// of w * field_c at the corner (K2, K4), or the sum over x plane 0's 4
+// corners plus the sum over plane 1's (K6). Every product and sum is
+// rounded on its own in the plain version's order (no fused
+// multiply-add), so the result equals ops/cic.py's plain version bit
+// for bit. In the homed form a particle beyond the slab reads zero (its
+// paint counted it). Row i of the output is particle i's, so K4's rows
+// come back in the caller's order with no sort and no unsort.
 //
-// What bounds it on an H100: device-memory bytes when the particles are
-// sorted by cell (the carry force sorts them, the stale force reads out
-// in the order of an earlier sort, the 2LPT readouts come in lattice
-// order), as the 8 corner loads of neighbouring threads share
-// cache lines in L1/L2; the latency of scattered loads when they are not
-// (a random store order misses L2 on most of its 24 loads per particle).
-// One thread per particle computes the 8 indices and weights once and
-// reuses them for every field. Staging canvas tiles in shared memory, or
-// binning unsorted particles by cell first, is left for later work.
+// What bounds it on an H100: device-memory bytes. The fields read once,
+// the positions read once, the values written once: at 256^3 particles
+// on 512^3 with three fields 2.0 GB, 0.60 ms at 3.35 TB/s. The design,
+// step by step:
+// 1. One pass. A thread computes its particle's cell, 8 corner rows and
+//    weights once and sums every field from them. K6's two planes are
+//    two running sums in registers, added at the end: no second pass
+//    over the fields and no partial buffer (TWO_PLANES).
+// 2. Cheap arithmetic, packed input and output. int32 flat indices (the
+//    wrappers bound the mesh below 2^31 cells); the periodic wrap by
+//    compare-and-add for bases in [-n, 2n), the exact remainder only
+//    beyond; a block's positions come in, and its (n, k) values go out,
+//    through shared memory in coalesced 16-byte accesses.
+// 3. A shared-memory tile for cell-sorted blocks. In cell order (the
+//    carry force, the stale force's earlier order, the 2LPT lattice) a
+//    block's 256 particles sit in a few y-rows of one or two x planes.
+//    Such a block stages the rows it needs of planes x .. x+1 (rows
+//    wrapping in y, planes in periodic x) with cp.async, one field at a
+//    time into two buffers, so one field's rows arrive while the
+//    previous one is summed; each copy moves whole 128-byte lines where
+//    the scattered gather moved 32-byte sectors for 4 bytes each. A
+//    block whose rows do not fit (store order, voids) gathers from device
+//    memory as in step 2. Both paths feed the same sum, so a particle's
+//    value does not depend on the path its block took. K4 runs with the
+//    tile off: in store order no block fits, and the tile's shared
+//    memory would halve the blocks in flight.
+
+#include <climits>
 
 #include "cic_common.cuh"
 
@@ -36,73 +62,300 @@ namespace {
 
 using fastpm_cic::XAxis;
 
-template <bool OPEN_X>
-__global__ void cic_readout_kernel(const float* __restrict__ x, long long n,
-                                   int nx, int ny, int nz,
-                                   float icx, float icy, float icz,
-                                   XAxis ax,
-                                   const float* __restrict__ f0,
-                                   const float* __restrict__ f1,
-                                   const float* __restrict__ f2, int k,
-                                   float* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    size_t idx[8];
-    float w[8];
-    const float* fields[3] = {f0, f1, f2};
-    if (!fastpm_cic::corners(x, i, nx, ny, nz, icx, icy, icz, idx, w,
-                             OPEN_X ? ax : XAxis{0, 0})) {
-        for (int comp = 0; comp < k; ++comp) out[i * k + comp] = 0.0f;
-        return;
-    }
-    for (int comp = 0; comp < k; ++comp)
-        out[i * k + comp] = fastpm_cic::gather(fields[comp], idx, w);
+constexpr int THREADS = 256;
+// one tile buffer: P planes x R rows x nz floats (24 KB); two of them
+constexpr int TILE_FLOATS = 6144;
+
+struct Params {
+    const float* x;
+    long long n;
+    int nx, ny, nz;
+    float icx, icy, icz;
+    XAxis ax;
+    const float* f[3];
+    float* out;
+    int* blocks;   // null, or [blocks that took the tile, all blocks]
+    bool vec;      // x and out 16-byte aligned: vector copies
+    bool tile;     // the tile path is allowed
+};
+
+// The periodic wrap of a base cell: compare-and-add over [-n, 2n), which
+// holds every position the solver keeps; the exact remainder beyond.
+__device__ __forceinline__ int wrap(int b, int n) {
+    const int r = b < 0 ? b + n : (b >= n ? b - n : b);
+    return (unsigned)r < (unsigned)n ? r : fastpm_cic::wrap_cell(b, n);
 }
 
-int launch(const float* x, long long n, int nx, int ny, int nz, float icx,
-           float icy, float icz, XAxis ax, const float* f0,
-           const float* f1, const float* f2, int k, float* out,
-           cudaStream_t stream) {
-    if (k < 1 || k > 3) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        const int threads = 256;
-        const unsigned int blocks =
-            (unsigned int)((n + threads - 1) / threads);
-        if (ax.n0 > 0)
-            cic_readout_kernel<true><<<blocks, threads, 0, stream>>>(
-                x, n, nx, ny, nz, icx, icy, icz, ax, f0, f1, f2, k, out);
-        else
-            cic_readout_kernel<false><<<blocks, threads, 0, stream>>>(
-                x, n, nx, ny, nz, icx, icy, icz, ax, f0, f1, f2, k, out);
+// A particle's corners: planes x0, x1, rows y0, y1, columns z0, z1 (the
+// +1 neighbours wrapped, x1 unwrapped on an open axis) and the 8
+// weights, dx-major.
+struct Corners {
+    int x0, x1, y0, y1, z0, z1;
+    float w[8];
+};
+
+// The float32 rounding of cell() in cic_common.cuh; false for a particle
+// beyond an open x-slab.
+template <bool OPEN_X>
+__device__ __forceinline__ bool locate(const float* p, const Params& a,
+                                       Corners& c) {
+    const float g[3] = {__fmul_rn(p[0], a.icx), __fmul_rn(p[1], a.icy),
+                        __fmul_rn(p[2], a.icz)};
+    const float b[3] = {floorf(g[0]), floorf(g[1]), floorf(g[2])};
+    if (OPEN_X) {
+        const int rel = wrap(wrap((int)b[0], a.ax.n0) + a.ax.shift,
+                             a.ax.n0);
+        if (rel >= a.nx - 1) return false;
+        c.x0 = rel;
+        c.x1 = rel + 1;
+    } else {
+        c.x0 = wrap((int)b[0], a.nx);
+        c.x1 = c.x0 + 1 == a.nx ? 0 : c.x0 + 1;
     }
+    c.y0 = wrap((int)b[1], a.ny);
+    c.y1 = c.y0 + 1 == a.ny ? 0 : c.y0 + 1;
+    c.z0 = wrap((int)b[2], a.nz);
+    c.z1 = c.z0 + 1 == a.nz ? 0 : c.z0 + 1;
+    float f[3], t[3];
+    for (int d = 0; d < 3; ++d) {
+        f[d] = __fsub_rn(g[d], b[d]);
+        t[d] = __fsub_rn(1.0f, f[d]);
+    }
+    for (int dx = 0; dx < 2; ++dx)
+        for (int dy = 0; dy < 2; ++dy) {
+            const float wxy = __fmul_rn(dx ? f[0] : t[0], dy ? f[1] : t[1]);
+            c.w[4 * dx + 2 * dy] = __fmul_rn(wxy, t[2]);
+            c.w[4 * dx + 2 * dy + 1] = __fmul_rn(wxy, f[2]);
+        }
+    return true;
+}
+
+// The 8 corner values (dx-major, then dy, then dz) of src at the 4 rows
+// r and columns z0, z1: from device memory (__ldg) or from a tile.
+template <bool DEVICE>
+__device__ __forceinline__ void fetch(const float* src, const int r[4],
+                                      int z0, int z1, float v[8]) {
+    for (int q = 0; q < 4; ++q) {
+        v[2 * q] = DEVICE ? __ldg(src + r[q] + z0) : src[r[q] + z0];
+        v[2 * q + 1] = DEVICE ? __ldg(src + r[q] + z1) : src[r[q] + z1];
+    }
+}
+
+// The weighted sum of the 8 corner values: one running sum (K2, K4) or
+// one per x plane added at the end (K6), each product and sum rounded
+// alone. Both paths call it, so a value does not depend on the path.
+template <bool TWO_PLANES>
+__device__ __forceinline__ float weigh(const float v[8], const float w[8]) {
+    if (TWO_PLANES) {
+        float a0 = 0.0f, a1 = 0.0f;
+        for (int q = 0; q < 4; ++q) {
+            a0 = __fadd_rn(a0, __fmul_rn(w[q], v[q]));
+            a1 = __fadd_rn(a1, __fmul_rn(w[q + 4], v[q + 4]));
+        }
+        return __fadd_rn(a0, a1);
+    }
+    float acc = 0.0f;
+    for (int q = 0; q < 8; ++q) acc = __fadd_rn(acc, __fmul_rn(w[q], v[q]));
+    return acc;
+}
+
+// Copy m floats between device and shared memory, coalesced: 16 bytes a
+// thread for a whole, aligned block, else 4.
+__device__ __forceinline__ void copy_block(float* dst, const float* src,
+                                           int m, bool vec) {
+    if (vec && m % 4 == 0) {
+        for (int j = threadIdx.x; j < m / 4; j += THREADS)
+            reinterpret_cast<float4*>(dst)[j] =
+                reinterpret_cast<const float4*>(src)[j];
+    } else {
+        for (int j = threadIdx.x; j < m; j += THREADS) dst[j] = src[j];
+    }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of rows ymin .. ymin + R - 1 (wrapping in y) of planes
+// xmin .. xmin + P - 1 (wrapping in periodic x) of field src into tile,
+// [plane][row][z]: one warp a row, 16 bytes a lane.
+template <bool OPEN_X>
+__device__ __forceinline__ void stage(float* tile, const float* src,
+                                      const Params& a, int xmin, int P,
+                                      int ymin, int R) {
+    const int lane = threadIdx.x & 31, chunks = a.nz >> 2;
+    for (int row = threadIdx.x >> 5; row < P * R; row += THREADS / 32) {
+        const int p = row / R, r = row - p * R;
+        int gx = xmin + p, gy = ymin + r;
+        if (!OPEN_X && gx >= a.nx) gx -= a.nx;
+        if (gy >= a.ny) gy -= a.ny;
+        const float* s = src + (gx * a.ny + gy) * a.nz;
+        float* d = tile + row * a.nz;
+        for (int j = lane; j < chunks; j += 32)
+            cp_async16(d + 4 * j, s + 4 * j);
+    }
+}
+
+template <int K, bool OPEN_X, bool TWO_PLANES>
+__global__ void __launch_bounds__(THREADS)
+readout_kernel(const Params a) {
+    extern __shared__ __align__(16) float smem[];
+    float* io = smem;                  // positions in, values out
+    float* tiles = smem + 3 * THREADS; // two tile buffers, with the tile
+    __shared__ int span[4];            // xmin, -xmax, ymin, -ymax
+    const int tid = threadIdx.x;
+    const long long start = (long long)blockIdx.x * THREADS;
+    const int cnt = (int)min((long long)THREADS, a.n - start);
+
+    if (tid < 4) span[tid] = INT_MAX;
+    copy_block(io, a.x + 3 * start, 3 * cnt, a.vec);
+    __syncthreads();
+    Corners c;
+    const bool ok = tid < cnt && locate<OPEN_X>(io + 3 * tid, a, c);
+    float res[K];
+
+    // the tile path: the rows of planes xmin .. xmax + 1 and rows ymin ..
+    // ymax + 1 of the block's particles, if they fit one buffer
+    bool tiled = false;
+    int xmin = 0, ymin = 0, P = 0, R = 0;
+    if (a.tile) {
+        int v[4] = {ok ? c.x0 : INT_MAX, ok ? -c.x0 : INT_MAX,
+                    ok ? c.y0 : INT_MAX, ok ? -c.y0 : INT_MAX};
+        for (int q = 0; q < 4; ++q) {
+            v[q] = __reduce_min_sync(0xffffffffu, v[q]);
+            if ((tid & 31) == 0) atomicMin(span + q, v[q]);
+        }
+        __syncthreads();
+        if (span[0] != INT_MAX) {
+            xmin = span[0];
+            ymin = span[2];
+            P = -span[1] - xmin + 2;
+            R = -span[3] - ymin + 2;
+            tiled = (long long)P * R * a.nz <= TILE_FLOATS;
+        }
+    }
+
+    if (tiled) {
+        int r[4] = {0, 0, 0, 0};
+        if (ok) {
+            r[0] = ((c.x0 - xmin) * R + c.y0 - ymin) * a.nz;
+            r[1] = r[0] + a.nz;
+            r[2] = r[0] + R * a.nz;
+            r[3] = r[2] + a.nz;
+        }
+        stage<OPEN_X>(tiles, a.f[0], a, xmin, P, ymin, R);
+        cp_async_commit();
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            if (k + 1 < K) {
+                stage<OPEN_X>(tiles + ((k + 1) & 1) * TILE_FLOATS,
+                              a.f[k + 1], a, xmin, P, ymin, R);
+                cp_async_commit();
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+            res[k] = 0.0f;
+            if (ok) {
+                float v[8];
+                fetch<false>(tiles + (k & 1) * TILE_FLOATS, r, c.z0, c.z1,
+                             v);
+                res[k] = weigh<TWO_PLANES>(v, c.w);
+            }
+            // the buffer is staged again two fields on; io is rewritten
+            __syncthreads();
+        }
+    } else {
+        for (int k = 0; k < K; ++k) res[k] = 0.0f;
+        if (ok) {
+            const int r[4] = {(c.x0 * a.ny + c.y0) * a.nz,
+                              (c.x0 * a.ny + c.y1) * a.nz,
+                              (c.x1 * a.ny + c.y0) * a.nz,
+                              (c.x1 * a.ny + c.y1) * a.nz};
+            float v[K][8];
+            for (int k = 0; k < K; ++k) fetch<true>(a.f[k], r, c.z0, c.z1,
+                                                    v[k]);
+            for (int k = 0; k < K; ++k) res[k] = weigh<TWO_PLANES>(v[k], c.w);
+        }
+        // every position is read before io takes the values
+        __syncthreads();
+    }
+
+    for (int k = 0; k < K; ++k) io[tid * K + k] = res[k];
+    __syncthreads();
+    copy_block(a.out + K * start, io, K * cnt, a.vec);
+    if (a.blocks != nullptr && tid == 0) {
+        if (tiled) atomicAdd(a.blocks, 1);
+        atomicAdd(a.blocks + 1, 1);
+    }
+}
+
+template <int K, bool OPEN_X, bool TWO_PLANES>
+int launch_as(const Params& a, cudaStream_t stream) {
+    const auto kernel = readout_kernel<K, OPEN_X, TWO_PLANES>;
+    const int bytes =
+        (3 * THREADS + (a.tile ? 2 * TILE_FLOATS : 0)) * (int)sizeof(float);
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    const unsigned int blocks = (unsigned int)((a.n + THREADS - 1) / THREADS);
+    kernel<<<blocks, THREADS, bytes, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
 }  // namespace
 
-// Read k (1..3) periodic fields (each nx*ny*nz float32, device) at n
-// particles (x: n x 3 float32, device) into out (n x k float32, device)
-// on `stream`. Unused field pointers may be null. Returns
-// cudaGetLastError().
+// Read k (1..3) fields (each nx*ny*nz float32, device; unused pointers
+// may be null) at n particles (x: n x 3 float32, device) into out (n x k
+// float32, device) on `stream`. n0 == 0: periodic in x; n0 > 0: the
+// extended slab, open in x over a global mesh of n0 planes with shift
+// H - r0. two_planes (k == 3 only): K6's sum, plane by plane. tile: allow
+// the shared-memory tile path (it needs nz % 4 == 0 and 16-byte aligned
+// fields). blocks: null, or a device int[2] to which the launch adds the
+// count of blocks that took the tile path and the count of all blocks.
+// Returns cudaGetLastError().
 extern "C" int fastpm_cic_readout(const float* x, long long n, int nx,
                                   int ny, int nz, float icx, float icy,
-                                  float icz, const float* f0,
+                                  float icz, int n0, int shift,
+                                  int two_planes, const float* f0,
                                   const float* f1, const float* f2, int k,
-                                  float* out, cudaStream_t stream) {
-    return launch(x, n, nx, ny, nz, icx, icy, icz, XAxis{0, 0}, f0, f1, f2,
-                  k, out, stream);
-}
-
-// The homed form: the fields are extended slabs (nx*ny*nz), open in x
-// over a global mesh of n0 > 0 planes with shift H - r0.
-extern "C" int fastpm_cic_readout_homed(const float* x, long long n, int nx,
-                                        int ny, int nz, float icx,
-                                        float icy, float icz, int n0,
-                                        int shift, const float* f0,
-                                        const float* f1, const float* f2,
-                                        int k, float* out,
-                                        cudaStream_t stream) {
-    if (n0 <= 0 || nx < 2) return (int)cudaErrorInvalidValue;
-    return launch(x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift}, f0, f1,
-                  f2, k, out, stream);
+                                  float* out, int tile, int* blocks,
+                                  cudaStream_t stream) {
+    if (k < 1 || k > 3 || (two_planes && k != 3) || n0 < 0
+        || (n0 > 0 && nx < 2))
+        return (int)cudaErrorInvalidValue;
+    if (n <= 0) return (int)cudaGetLastError();
+    Params a{x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
+             {f0, f1, f2}, out, blocks, aligned16(x) && aligned16(out),
+             tile != 0 && nz % 4 == 0};
+    for (int q = 0; q < k; ++q) a.tile = a.tile && aligned16(a.f[q]);
+    const bool open = n0 > 0;
+    if (two_planes)
+        return open ? launch_as<3, true, true>(a, stream)
+                    : launch_as<3, false, true>(a, stream);
+    switch (k) {
+        case 1:
+            return open ? launch_as<1, true, false>(a, stream)
+                        : launch_as<1, false, false>(a, stream);
+        case 2:
+            return open ? launch_as<2, true, false>(a, stream)
+                        : launch_as<2, false, false>(a, stream);
+        default:
+            return open ? launch_as<3, true, false>(a, stream)
+                        : launch_as<3, false, false>(a, stream);
+    }
 }

@@ -60,7 +60,7 @@ from .cudalib import launch as _launch
 __all__ = ["Slab", "cell_key", "sort_by_cell", "slab_cell", "cic_paint",
            "cic_readout", "cic_paint_into", "cic_readout3",
            "cic_paint_homed", "cic_readout_homed", "cic_paint4",
-           "cic_readout4",
+           "cic_readout4", "readout_probe",
            "cic_paint_plain", "cic_paint_into_plain", "cic_readout_plain",
            "cic_paint_homed_plain", "cic_paint4_plain",
            "cic_readout4_plain"]
@@ -386,24 +386,44 @@ def cic_paint4(canvas: torch.Tensor, x: torch.Tensor, inv_cell, mass=1.0,
 cic_paint4.launches = 0
 
 
-def cic_readout(fields, x: torch.Tensor, inv_cell) -> torch.Tensor:
-    """Interpolate 1 to 3 (nx, ny, nz) float32 fields at every particle,
-    (N, k) float32. On CUDA this launches K2 (csrc/cic_readout.cu)."""
-    _check_positions(x)
-    fields = list(fields)
-    if not 1 <= len(fields) <= 3:
-        raise ValueError("cic_readout takes 1 to 3 fields")
-    nmesh = _check_fields(fields, x)
-    if x.device.type == "cpu":
-        return cic_readout_plain(fields, x, inv_cell)
+def _readout(fields, x, inv_cell, slab=None, two_planes=False, tile=True,
+             blocks=None):
+    """Launch the readout kernel (csrc/cic_readout.cu) on checked
+    inputs: (N, k) float32. blocks: None, or a device int32 (2,) tensor
+    that the launch adds its tiled and all blocks to."""
+    nmesh = tuple(fields[0].shape)
     x = x.contiguous()
     fields = [f.contiguous() for f in fields]
     ptrs = [f.data_ptr() for f in fields] + [None] * (3 - len(fields))
     out = torch.empty((x.shape[0], len(fields)), dtype=torch.float32,
                       device=x.device)
+    n0, shift = (slab.n0, slab.shift) if slab is not None else (0, 0)
     _launch("fastpm_cic_readout", x.data_ptr(), x.shape[0], *nmesh,
-            *_inv32(inv_cell), *ptrs, len(fields), out.data_ptr(),
-            device=x.device)
+            *_inv32(inv_cell), n0, shift, int(two_planes), *ptrs,
+            len(fields), out.data_ptr(), int(tile),
+            None if blocks is None else blocks.data_ptr(), device=x.device)
+    return out
+
+
+def _check_readout(fields, x, slab, lo=1, hi=3):
+    _check_positions(x)
+    fields = list(fields)
+    if not lo <= len(fields) <= hi:
+        raise ValueError(f"the readout takes {lo} to {hi} fields")
+    nmesh = _check_fields(fields, x)
+    _check_slab(slab, nmesh)
+    return fields
+
+
+def cic_readout(fields, x: torch.Tensor, inv_cell) -> torch.Tensor:
+    """Interpolate 1 to 3 (nx, ny, nz) float32 fields at every particle,
+    (N, k) float32. On CUDA this launches K2 (csrc/cic_readout.cu), which
+    stages the field rows of a cell-sorted block in shared memory; any
+    order is right."""
+    fields = _check_readout(fields, x, None)
+    if x.device.type == "cpu":
+        return cic_readout_plain(fields, x, inv_cell)
+    out = _readout(fields, x, inv_cell)
     cic_readout.launches += 1
     return out
 
@@ -415,24 +435,12 @@ def cic_readout_homed(fields, x: torch.Tensor, inv_cell,
                       slab: Slab) -> torch.Tensor:
     """Interpolate 1 to 3 extended slab fields ((nloc + 2H + 1, ny, nz)
     float32) at every particle, (N, k) float32; a particle beyond the
-    slab reads zero. On CUDA this launches homed K2
-    (csrc/cic_readout.cu)."""
-    _check_positions(x)
-    fields = list(fields)
-    if not 1 <= len(fields) <= 3:
-        raise ValueError("cic_readout_homed takes 1 to 3 fields")
-    nmesh = _check_fields(fields, x)
-    _check_slab(slab, nmesh)
+    slab reads zero. On CUDA this launches homed K2, K2's kernel with an
+    open x axis (csrc/cic_readout.cu)."""
+    fields = _check_readout(fields, x, slab)
     if x.device.type == "cpu":
         return cic_readout_plain(fields, x, inv_cell, slab)
-    x = x.contiguous()
-    fields = [f.contiguous() for f in fields]
-    ptrs = [f.data_ptr() for f in fields] + [None] * (3 - len(fields))
-    out = torch.empty((x.shape[0], len(fields)), dtype=torch.float32,
-                      device=x.device)
-    _launch("fastpm_cic_readout_homed", x.data_ptr(), x.shape[0], *nmesh,
-            *_inv32(inv_cell), slab.n0, slab.shift, *ptrs, len(fields),
-            out.data_ptr(), device=x.device)
+    out = _readout(fields, x, inv_cell, slab)
     cic_readout_homed.launches += 1
     return out
 
@@ -443,20 +451,13 @@ cic_readout_homed.launches = 0
 def cic_readout3(cx, cy, cz, x: torch.Tensor, inv_cell) -> torch.Tensor:
     """Interpolate the three (nx, ny, nz) float32 force fields at every
     particle, in any order: (N, 3) float32, row i for particle i. On
-    CUDA this launches K4, which is K2's kernel (csrc/cic_readout.cu)
-    with three fields: on unsorted particles it beat a kernel of its
-    own (PERF.md)."""
-    _check_positions(x)
-    fields = [cx, cy, cz]
-    nmesh = _check_fields(fields, x)
+    CUDA this launches K4, K2's kernel with its shared-memory tile off
+    (csrc/cic_readout.cu): in store order no block's rows fit a tile,
+    and the tile's shared memory would cut the blocks in flight."""
+    fields = _check_readout([cx, cy, cz], x, None)
     if x.device.type == "cpu":
         return cic_readout_plain(fields, x, inv_cell)
-    x = x.contiguous()
-    fields = [f.contiguous() for f in fields]
-    out = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
-    _launch("fastpm_cic_readout", x.data_ptr(), x.shape[0], *nmesh,
-            *_inv32(inv_cell), *(f.data_ptr() for f in fields), 3,
-            out.data_ptr(), device=x.device)
+    out = _readout(fields, x, inv_cell, tile=False)
     cic_readout3.launches += 1
     return out
 
@@ -466,27 +467,34 @@ cic_readout3.launches = 0
 
 def cic_readout4(cx, cy, cz, x: torch.Tensor, inv_cell,
                  slab: Slab | None = None) -> torch.Tensor:
-    """Interpolate the three force fields at every particle in two passes,
-    one per x plane of the cloud, and add the passes: (N, 3) float32.
-    The fields are periodic, or extended slabs when slab is given (a
-    particle beyond the slab reads zero). On CUDA this launches K6
-    (csrc/cic_readout4.cu) into a (2, N, 3) buffer."""
-    _check_positions(x)
-    fields = [cx, cy, cz]
-    nmesh = _check_fields(fields, x)
-    _check_slab(slab, nmesh)
+    """Interpolate the three force fields at every particle, the 4
+    corners of each x plane of the cloud summed apart and the two sums
+    added: (N, 3) float32. The fields are periodic, or extended slabs
+    when slab is given (a particle beyond the slab reads zero). On CUDA
+    this launches K6, K2's kernel summing plane by plane, in one pass
+    (csrc/cic_readout.cu)."""
+    fields = _check_readout([cx, cy, cz], x, slab)
     if x.device.type == "cpu":
-        return cic_readout4_plain(cx, cy, cz, x, inv_cell, slab)
-    x = x.contiguous()
-    fields = [f.contiguous() for f in fields]
-    part = torch.empty((2, x.shape[0], 3), dtype=torch.float32,
-                       device=x.device)
-    n0, shift = (slab.n0, slab.shift) if slab is not None else (0, 0)
-    _launch("fastpm_cic_readout4", x.data_ptr(), x.shape[0], *nmesh,
-            *_inv32(inv_cell), n0, shift, *(f.data_ptr() for f in fields),
-            part.data_ptr(), device=x.device)
+        return cic_readout4_plain(*fields, x, inv_cell, slab)
+    out = _readout(fields, x, inv_cell, slab, two_planes=True)
     cic_readout4.launches += 1
-    return part[0] + part[1]
+    return out
 
 
 cic_readout4.launches = 0
+
+
+def readout_probe(fields, x: torch.Tensor, inv_cell,
+                  slab: Slab | None = None, two_planes: bool = False,
+                  tile: bool = True):
+    """The readout kernel launched for measurement, outside every
+    wrapper's launch count: (values (N, k), blocks that took the
+    shared-memory tile path, all blocks). tile=False keeps every block
+    on the device-memory path; two_planes gives K6's sum. CUDA only."""
+    fields = _check_readout(fields, x, slab, hi=3)
+    if x.device.type != "cuda":
+        raise ValueError("readout_probe measures the CUDA kernel")
+    blocks = torch.zeros(2, dtype=torch.int32, device=x.device)
+    out = _readout(fields, x, inv_cell, slab, two_planes, tile, blocks)
+    tiled, total = blocks.tolist()
+    return out, tiled, total
