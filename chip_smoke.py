@@ -12,9 +12,12 @@ Phases, in order (any failure ends the script with a nonzero exit):
 3. K1 / K2 checks at the main path's shapes (256^3 = 16.8 M cell-sorted
    particles, a 512^3 mesh; uniform and clustered particles): each
    kernel against its plain PyTorch version on the card, K2 also with
-   the one 256^3 field of the 2LPT readouts, and CUDA-event timings of
-   the kernel, the plain version, a PyTorch yardstick where one exists,
-   and the least time the card could take (bytes at 3.35 TB/s);
+   2 fields, with the one 256^3 field of the 2LPT readouts (at the
+   particles and at the lattice), on the uniform particles drifted by up
+   to a cell in their order (stale) and shuffled (equal to the sorted
+   rows bit for bit), and CUDA-event timings of the kernel, the plain
+   version, a PyTorch yardstick where one exists, and the least time
+   the card could take (bytes at 3.35 TB/s);
 4. K3 / K4 checks at the ncdm path's shapes, particles in store order:
    K3 adds 16.8 M CDM particles (scalar mass) and 5.24 M ncdm particles
    (a mass column) into one 512^3 canvas, K4 reads the three 512^3
@@ -42,9 +45,13 @@ A. the homed kernels at the slab force's shapes: rank 0 of one with
    H = 4, an extended slab of 521 x 512 x 512, 16.8 M cell-sorted
    particles (a 256^3 lattice displaced up to 2 cells, and clustered):
    homed K1 and K5 (scalar mass, and a mass column at 5.24 M
-   particles), homed K2 and K6, and K5 / K6 on the periodic 512^3 mesh,
-   each against its plain version, with the same timings (grid_sample
-   the yardstick of the readouts);
+   particles), homed K2 and K6 (sorted, drifted a cell, shuffled), and
+   K5 / K6 on the periodic 512^3 mesh, each against its plain version,
+   with the same timings (grid_sample the yardstick of the readouts);
+   then the readouts' edge cases of tests/readout_cases.py at 64^3 (K2
+   and homed K2 with 1-3 fields, K4, K6; runs across an x face, rows
+   wrapping in y, the last z column, the slab's last plane and the rows
+   beyond it), and K2 on the rows shuffled, bit for bit;
 B. the homed slab force (fastpm_torch.parallel) at full width on a
    one-rank NCCL process group started on localhost: the main path's
    z = 0 state (phase 7), H from required_halo_planes, the carry and the
@@ -240,44 +247,42 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
                               cic.cic_readout(fs, x, fi),
                               cic.cic_readout_plain(fs, x, fi))
             rows["cic_readout"]["err"] = max(rows["cic_readout"]["err"], err)
-            readout_paths("K2 %s, %s" % (kind, label), fs, x, fi)
 
         key = "" if kind == "uniform" else "_" + kind
-        # step 2 (every block from device memory) against step 3 (the
-        # tile), in turns
-        rows["cic_readout"]["share" + key], steps = readout_paths(
-            "K2 %s, 3 fields %d^3" % (kind, nmesh), fields, x, inv, reps=reps)
-        rows["cic_readout"]["ms_step2" + key] = steps[0]
-        rows["cic_readout"]["ms_step3" + key] = steps[1]
         if kind == "uniform":
             # the same particles drifted by up to a cell in their sorted
-            # order (the stale force), and shuffled (store order)
+            # order (the stale force), shuffled (store order), and the
+            # 2LPT readouts' one field at the lattice, in lattice order
             g2 = torch.Generator(device=dev).manual_seed(19)
-            drift = (torch.rand(x.shape, generator=g2, device=dev) * 2 - 1
-                     ) * (box / nmesh)
-            stale = x + drift
+            stale = x + (torch.rand(x.shape, generator=g2, device=dev) * 2
+                         - 1) * (box / nmesh)
             stale -= torch.floor(stale / box) * box
-            shuffled = x[torch.randperm(n, generator=g2, device=dev)]
-            for label, xx in (("stale (sorted, drifted a cell)", stale),
-                              ("random order", shuffled)):
-                err = check_close("K2 cic_readout %s, 3 fields %d^3"
-                                  % (label, nmesh),
-                                  cic.cic_readout(fields, xx, inv),
-                                  cic.cic_readout_plain(fields, xx, inv))
+            perm = torch.randperm(n, generator=g2, device=dev)
+            q = jittered_lattice(nc, box, 0.0, nc, dev, 0)
+            for row_key, label, fs, xx, fi in (
+                    ("ms_stale", "stale (sorted, drifted a cell)", fields,
+                     stale, inv),
+                    ("ms_random", "random order", fields, x[perm], inv),
+                    (None, "2LPT lattice", [lpt_field], q, lpt_inv)):
+                got = cic.cic_readout(fs, xx, fi)
+                err = check_close("K2 cic_readout %s, %d field(s)"
+                                  % (label, len(fs)), got,
+                                  cic.cic_readout_plain(fs, xx, fi))
                 rows["cic_readout"]["err"] = max(rows["cic_readout"]["err"],
                                                  err)
-                readout_paths("K2 %s, 3 fields %d^3" % (label, nmesh),
-                              fields, xx, inv, reps=reps)
-            del stale, shuffled, drift
-            # the 2LPT readouts: one field at the lattice, in lattice order
-            q = jittered_lattice(nc, box, 0.0, nc, dev, 0)
-            err = check_close("K2 cic_readout 2LPT lattice, 1 field %d^3"
-                              % nc, cic.cic_readout([lpt_field], q, lpt_inv),
-                              cic.cic_readout_plain([lpt_field], q, lpt_inv))
-            rows["cic_readout"]["err"] = max(rows["cic_readout"]["err"], err)
-            readout_paths("K2 2LPT lattice, 1 field %d^3" % nc, [lpt_field],
-                          q, lpt_inv, reps=reps)
-            del q
+                if row_key == "ms_random":
+                    back = torch.empty_like(got)
+                    back[perm] = got
+                    same = torch.equal(back, cic.cic_readout(fs, x, fi))
+                    print("K2 cic_readout random order: the sorted rows' "
+                          "values bit for bit %s" % same)
+                    if not same:
+                        raise SystemExit("K2 depends on the particle order")
+                ms = time_ms(lambda: cic.cic_readout(fs, xx, fi), reps)
+                print("K2 cic_readout %s: kernel_ms %.4f" % (label, ms))
+                if row_key is not None:
+                    rows["cic_readout"][row_key] = ms
+            del stale, perm, q
         rows["cic_paint"]["ms" + key] = time_ms(
             lambda: cic.cic_paint(x, mesh, inv), reps)
         rows["cic_paint"]["plain_ms" + key] = time_ms(
@@ -325,38 +330,6 @@ def check_close(label, got, want):
     if not ok:
         raise SystemExit("%s disagrees with its plain version" % label)
     return err
-
-
-def readout_paths(label, fields, x, inv, slab=None, two_planes=False,
-                  reps=0):
-    """The readout kernel's two paths on one input (ops.cic.readout_probe,
-    outside the launch counts): the share of blocks that take the
-    shared-memory tile, and the tile and device-memory paths' values
-    equal bit for bit (SystemExit if not). With reps, both paths' times
-    in turns (device memory, tile, tile, device memory). Returns (share,
-    (device-memory ms, tile ms) or None)."""
-    import torch
-    from fastpm_torch.ops import cic
-
-    def probe(tile):
-        return cic.readout_probe(fields, x, inv, slab, two_planes, tile)
-
-    on, tiled, total = probe(True)
-    same = torch.equal(on, probe(False)[0])
-    print("%s: %d of %d blocks tiled (%.1f%%); tile and device-memory "
-          "paths equal bit for bit %s" % (label, tiled, total,
-                                         100.0 * tiled / total, same))
-    if not same:
-        raise SystemExit("%s: the tile path disagrees with the device-memory "
-                         "path" % label)
-    if not reps:
-        return tiled / total, None
-    t = [time_ms(lambda: probe(tile), reps)
-         for tile in (False, True, True, False)]
-    steps = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
-    print("%s: step 2 (device memory) %.4f / %.4f ms, step 3 (tile) %.4f / "
-          "%.4f ms, in turns" % (label, t[0], t[3], t[1], t[2]))
-    return tiled / total, steps
 
 
 def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
@@ -418,9 +391,6 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
         rows["cic_readout3"]["plain_ms" + key] = time_ms(
             lambda: [cic.cic_readout_plain(fields, x, inv) for x in xs],
             reps)
-        # K4 runs with the tile off (step 2); step 3 on store order
-        readout_paths("K4 %s, 3 fields at the CDM (store order)" % kind,
-                      fields, x_cdm, inv, reps=reps)
         if kind == "uniform":
             rows["cic_paint_into"]["ms_cdm"] = time_ms(
                 lambda: cic.cic_paint_into(got, x_cdm, inv, m_cdm), reps)
@@ -595,12 +565,11 @@ def check_kernels_homed(dev, nc=256, nmesh=512, box=768.0, H=4, every=4,
                 lambda: paint(plain, pcanvas, x, 1.0, None), reps)
         del pcanvas
 
+        # the sorted rows drifted by up to a cell (stale), and shuffled
         g2 = torch.Generator(device=dev).manual_seed(37)
-        drift = (torch.rand(x.shape, generator=g2, device=dev) * 2 - 1
-                 ) * (box / nmesh)
-        stale = x + drift
+        stale = x + (torch.rand(x.shape, generator=g2, device=dev) * 2
+                     - 1) * (box / nmesh)
         stale -= torch.floor(stale / box) * box
-        del drift
         shuffled = x[torch.randperm(n, generator=g2, device=dev)]
         for name, (fn, plain) in reads.items():
             for fs, s, label in ((fields, slab, "%dx%dx%d" % ext),
@@ -613,14 +582,6 @@ def check_kernels_homed(dev, nc=256, nmesh=512, box=768.0, H=4, every=4,
                                       % (name, kind, order, label),
                                       fn(fs, xx, s), plain(fs, xx, s))
                     rows[name]["err"] = max(rows[name]["err"], err)
-                    share, steps = readout_paths(
-                        "%s %s%s, 3 fields %s" % (name, kind, order, label),
-                        fs, xx, inv, s, name == "cic_readout4",
-                        reps if order == "" else 0)
-                    if order == "" and s is not None:
-                        rows[name]["share" + key] = share
-                        rows[name]["ms_step2" + key] = steps[0]
-                        rows[name]["ms_step3" + key] = steps[1]
             rows[name]["ms" + key] = time_ms(lambda: fn(fields, x, slab),
                                              reps)
             rows[name]["plain_ms" + key] = time_ms(
@@ -656,10 +617,9 @@ def check_readout_edges(dev, rows, n=64, box=128.0):
     (cell, store and stale order, runs across an x face, rows wrapping in
     y, the last column in z, cell faces; on rank 1 of 4's extended slab
     with H = 2 its sorted and stale rows and its last plane with the rows
-    beyond) at a 64^3 mesh, where a block of 256 sorted particles fits
-    the tile. Each readout kernel against its plain version (K2 and homed
-    K2 with 1-3 fields, K4, K6), the share of tiled blocks, both paths
-    bit for bit, and the rows shuffled against the sorted rows."""
+    beyond) at a 64^3 mesh, 131,171 particles. Each readout kernel
+    against its plain version (K2 and homed K2 with 1-3 fields, K4, K6),
+    and K2 on the rows shuffled against the sorted rows, bit for bit."""
     import torch
     from fastpm_torch.ops import cic
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -695,16 +655,13 @@ def check_readout_edges(dev, rows, n=64, box=128.0):
                               % (label, kind, n, ", slab" if s else ""),
                               got, want)
             rows[name]["err"] = max(rows[name]["err"], err)
-        readout_paths("%s edge case %s" % (k2, kind), fs, x, inv, s)
-        readout_paths("cic_readout4 edge case %s" % kind, fs, x, inv, s,
-                      True)
         perm = torch.randperm(count, generator=g, device=dev)
-        got, tiled, _ = cic.readout_probe(fs, x[perm], inv, s)
-        back = torch.empty_like(got)
-        back[perm] = got
-        same = torch.equal(back, cic.readout_probe(fs, x, inv, s)[0])
-        print("%s edge case %s shuffled: %d blocks tiled; equal to the "
-              "unshuffled rows bit for bit %s" % (k2, kind, tiled, same))
+        back = torch.empty_like(plain)
+        back[perm] = (cic.cic_readout(fs, x[perm], inv) if s is None
+                      else cic.cic_readout_homed(fs, x[perm], inv, s))
+        same = torch.equal(back, checks[2][2])
+        print("%s edge case %s shuffled: equal to the unshuffled rows bit "
+              "for bit %s" % (k2, kind, same))
         if not same:
             raise SystemExit("%s: the shuffled rows disagree" % kind)
 
@@ -892,13 +849,14 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
           "%.4g particle-steps/s" % (force_ms, nc ** 3 / force_ms * 1e3))
     profile_force(lambda: gravity.compute_force_carry(
         pm, painter, store.wrap(pm.BoxSize)))
-    # the force readout's blocks on the z = 0 state in cell order (the
-    # share depends on the positions alone)
+    # K2 alone on the z = 0 state in cell order, as the force reads out
     x = store.wrap(pm.BoxSize).x
     x = x[cic.sort_by_cell(x, pm.Nmesh, pm.InvCellSize)].contiguous()
     fields = [torch.randn(tuple(pm.Nmesh), device=dev) for _ in range(3)]
-    readout_paths("K2 force readout on the main path's z = 0 state in cell "
-                  "order", fields, x, pm.InvCellSize, reps=10)
+    print("main path: K2 at the z = 0 state in cell order, 3 fields: "
+          "kernel_ms %.4f" % time_ms(lambda: cic.cic_readout(fields, x,
+                                                              pm.InvCellSize)))
+    del x, fields
     return launches, solver, pm
 
 
@@ -1269,6 +1227,7 @@ def stale_force(solver, pm, reps=5):
     import torch
     from fastpm_torch import gravity
     from fastpm_torch.kdk import DriftFactor
+    from fastpm_torch.ops import cic
     from fastpm_torch.painter import Painter
 
     painter = Painter(pm, "cic")
@@ -1289,8 +1248,9 @@ def stale_force(solver, pm, reps=5):
     del carried, stale, want
     fields = [torch.randn(tuple(pm.Nmesh), device=store.x.device)
               for _ in range(3)]
-    readout_paths("K2 stale force readout (the carried order drifted one "
-                  "step)", fields, store.x, pm.InvCellSize, reps=5)
+    print("stale force: K2 at the carried order drifted one step, 3 "
+          "fields: kernel_ms %.4f" % time_ms(
+              lambda: cic.cic_readout(fields, store.x, pm.InvCellSize)))
     del fields
     n = store.np_local
     for label, fn in (("carry", gravity.compute_force_carry),
@@ -1393,13 +1353,10 @@ def main():
             "library_ms": r.get("library_ms")})
         # K7 has no clustered case: a sorting network does not depend
         # on the data
-        # the readouts' share of tiled blocks and their step 2 (every
-        # block from device memory) and step 3 (the tile) times
         for key in ("ms_clustered", "plain_ms_clustered", "ms_periodic",
                     "plain_ms_periodic", "library_ms_periodic",
-                    "launches_periodic", "library_ms_full_sort", "share",
-                    "share_clustered", "ms_step2", "ms_step3",
-                    "ms_step2_clustered", "ms_step3_clustered"):
+                    "launches_periodic", "library_ms_full_sort", "ms_stale",
+                    "ms_random"):
             if key in r:
                 kernels[-1][key] = r[key]
     print("chip_smoke: every phase, the build included, in %.1f s"

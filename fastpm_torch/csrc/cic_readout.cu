@@ -29,32 +29,34 @@
 //
 // What bounds it on an H100: device-memory bytes. The fields read once,
 // the positions read once, the values written once: at 256^3 particles
-// on 512^3 with three fields 2.0 GB, 0.60 ms at 3.35 TB/s. The design,
-// step by step:
-// 1. One pass. A thread computes its particle's cell, 8 corner rows and
-//    weights once and sums every field from them. K6's two planes are
-//    two running sums in registers, added at the end: no second pass
-//    over the fields and no partial buffer (TWO_PLANES).
-// 2. Cheap arithmetic, packed input and output. int32 flat indices (the
-//    wrappers bound the mesh below 2^31 cells); the periodic wrap by
+// on 512^3 with three fields 2.0 GB, 0.60 ms at 3.35 TB/s. The gathers
+// come close to that only where the 8 corner loads of neighbouring
+// threads share cache lines in L1 and L2: particles in cell order (the
+// carry force sorts them, the stale force reads out in the order of an
+// earlier sort, the 2LPT readouts come in lattice order). In store
+// order (K4) most of the 24 loads of a particle miss L2, and latency
+// bounds it. The design:
+// 1. One pass. A thread computes its particle's cell, 4 corner rows,
+//    2 columns and 8 weights once and sums every field from them. K6's
+//    two planes are two running sums in registers, added at the end: no
+//    second pass over the fields and no partial buffer (TWO_PLANES).
+// 2. Little work beside the loads. int32 flat indices (the wrappers
+//    bound the mesh below 2^31 cells); the periodic wrap by
 //    compare-and-add for bases in [-n, 2n), the exact remainder only
 //    beyond; a block's positions come in, and its (n, k) values go out,
-//    through shared memory in coalesced 16-byte accesses.
-// 3. A shared-memory tile for cell-sorted blocks. In cell order (the
-//    carry force, the stale force's earlier order, the 2LPT lattice) a
-//    block's 256 particles sit in a few y-rows of one or two x planes.
-//    Such a block stages the rows it needs of planes x .. x+1 (rows
-//    wrapping in y, planes in periodic x) with cp.async, one field at a
-//    time into two buffers, so one field's rows arrive while the
-//    previous one is summed; each copy moves whole 128-byte lines where
-//    the scattered gather moved 32-byte sectors for 4 bytes each. A
-//    block whose rows do not fit (store order, voids) gathers from device
-//    memory as in step 2. Both paths feed the same sum, so a particle's
-//    value does not depend on the path its block took. K4 runs with the
-//    tile off: in store order no block fits, and the tile's shared
-//    memory would halve the blocks in flight.
-
-#include <climits>
+//    through shared memory in coalesced 16-byte accesses; the block's
+//    shared memory stays small, so L1 keeps the lines the corners share.
+// 3. Five blocks of 256 threads an SM (__launch_bounds__, 46 registers):
+//    against 6 (40 registers, the compiler's own choice) it holds fewer
+//    lines in flight for L1 to keep, which pays most in store and stale
+//    order, and against 4 or fewer it keeps enough loads in flight for
+//    cell order (bench_torch_readout.py, PERF.md).
+// Staging the rows of a cell-sorted block in shared memory (cp.async,
+// double-buffered by field) was measured against this and lost on every
+// case, the 2LPT lattice included: at an eighth of a particle per cell a
+// block's rows of planes x and x + 1 cost as many L2 bytes as the
+// gathers, and the tile's shared memory takes L1 from them (PERF.md,
+// PR 5).
 
 #include "cic_common.cuh"
 
@@ -63,8 +65,6 @@ namespace {
 using fastpm_cic::XAxis;
 
 constexpr int THREADS = 256;
-// one tile buffer: P planes x R rows x nz floats (24 KB); two of them
-constexpr int TILE_FLOATS = 6144;
 
 struct Params {
     const float* x;
@@ -74,9 +74,7 @@ struct Params {
     XAxis ax;
     const float* f[3];
     float* out;
-    int* blocks;   // null, or [blocks that took the tile, all blocks]
     bool vec;      // x and out 16-byte aligned: vector copies
-    bool tile;     // the tile path is allowed
 };
 
 // The periodic wrap of a base cell: compare-and-add over [-n, 2n), which
@@ -130,20 +128,9 @@ __device__ __forceinline__ bool locate(const float* p, const Params& a,
     return true;
 }
 
-// The 8 corner values (dx-major, then dy, then dz) of src at the 4 rows
-// r and columns z0, z1: from device memory (__ldg) or from a tile.
-template <bool DEVICE>
-__device__ __forceinline__ void fetch(const float* src, const int r[4],
-                                      int z0, int z1, float v[8]) {
-    for (int q = 0; q < 4; ++q) {
-        v[2 * q] = DEVICE ? __ldg(src + r[q] + z0) : src[r[q] + z0];
-        v[2 * q + 1] = DEVICE ? __ldg(src + r[q] + z1) : src[r[q] + z1];
-    }
-}
-
-// The weighted sum of the 8 corner values: one running sum (K2, K4) or
-// one per x plane added at the end (K6), each product and sum rounded
-// alone. Both paths call it, so a value does not depend on the path.
+// The weighted sum of the 8 corner values v (dx-major, then dy, then
+// dz): one running sum (K2, K4) or one per x plane added at the end
+// (K6), each product and sum rounded alone, as the plain version.
 template <bool TWO_PLANES>
 __device__ __forceinline__ float weigh(const float v[8], const float w[8]) {
     if (TWO_PLANES) {
@@ -172,146 +159,43 @@ __device__ __forceinline__ void copy_block(float* dst, const float* src,
     }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start the copy of rows ymin .. ymin + R - 1 (wrapping in y) of planes
-// xmin .. xmin + P - 1 (wrapping in periodic x) of field src into tile,
-// [plane][row][z]: one warp a row, 16 bytes a lane.
-template <bool OPEN_X>
-__device__ __forceinline__ void stage(float* tile, const float* src,
-                                      const Params& a, int xmin, int P,
-                                      int ymin, int R) {
-    const int lane = threadIdx.x & 31, chunks = a.nz >> 2;
-    for (int row = threadIdx.x >> 5; row < P * R; row += THREADS / 32) {
-        const int p = row / R, r = row - p * R;
-        int gx = xmin + p, gy = ymin + r;
-        if (!OPEN_X && gx >= a.nx) gx -= a.nx;
-        if (gy >= a.ny) gy -= a.ny;
-        const float* s = src + (gx * a.ny + gy) * a.nz;
-        float* d = tile + row * a.nz;
-        for (int j = lane; j < chunks; j += 32)
-            cp_async16(d + 4 * j, s + 4 * j);
-    }
-}
-
 template <int K, bool OPEN_X, bool TWO_PLANES>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 5)
 readout_kernel(const Params a) {
-    extern __shared__ __align__(16) float smem[];
-    float* io = smem;                  // positions in, values out
-    float* tiles = smem + 3 * THREADS; // two tile buffers, with the tile
-    __shared__ int span[4];            // xmin, -xmax, ymin, -ymax
+    __shared__ __align__(16) float io[3 * THREADS];  // positions, values
     const int tid = threadIdx.x;
     const long long start = (long long)blockIdx.x * THREADS;
     const int cnt = (int)min((long long)THREADS, a.n - start);
 
-    if (tid < 4) span[tid] = INT_MAX;
     copy_block(io, a.x + 3 * start, 3 * cnt, a.vec);
     __syncthreads();
     Corners c;
-    const bool ok = tid < cnt && locate<OPEN_X>(io + 3 * tid, a, c);
     float res[K];
-
-    // the tile path: the rows of planes xmin .. xmax + 1 and rows ymin ..
-    // ymax + 1 of the block's particles, if they fit one buffer
-    bool tiled = false;
-    int xmin = 0, ymin = 0, P = 0, R = 0;
-    if (a.tile) {
-        int v[4] = {ok ? c.x0 : INT_MAX, ok ? -c.x0 : INT_MAX,
-                    ok ? c.y0 : INT_MAX, ok ? -c.y0 : INT_MAX};
-        for (int q = 0; q < 4; ++q) {
-            v[q] = __reduce_min_sync(0xffffffffu, v[q]);
-            if ((tid & 31) == 0) atomicMin(span + q, v[q]);
-        }
-        __syncthreads();
-        if (span[0] != INT_MAX) {
-            xmin = span[0];
-            ymin = span[2];
-            P = -span[1] - xmin + 2;
-            R = -span[3] - ymin + 2;
-            tiled = (long long)P * R * a.nz <= TILE_FLOATS;
-        }
-    }
-
-    if (tiled) {
-        int r[4] = {0, 0, 0, 0};
-        if (ok) {
-            r[0] = ((c.x0 - xmin) * R + c.y0 - ymin) * a.nz;
-            r[1] = r[0] + a.nz;
-            r[2] = r[0] + R * a.nz;
-            r[3] = r[2] + a.nz;
-        }
-        stage<OPEN_X>(tiles, a.f[0], a, xmin, P, ymin, R);
-        cp_async_commit();
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-            if (k + 1 < K) {
-                stage<OPEN_X>(tiles + ((k + 1) & 1) * TILE_FLOATS,
-                              a.f[k + 1], a, xmin, P, ymin, R);
-                cp_async_commit();
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
+    for (int k = 0; k < K; ++k) res[k] = 0.0f;
+    if (tid < cnt && locate<OPEN_X>(io + 3 * tid, a, c)) {
+        const int r[4] = {(c.x0 * a.ny + c.y0) * a.nz,
+                          (c.x0 * a.ny + c.y1) * a.nz,
+                          (c.x1 * a.ny + c.y0) * a.nz,
+                          (c.x1 * a.ny + c.y1) * a.nz};
+        float v[K][8];
+        for (int k = 0; k < K; ++k)
+            for (int q = 0; q < 4; ++q) {
+                v[k][2 * q] = __ldg(a.f[k] + r[q] + c.z0);
+                v[k][2 * q + 1] = __ldg(a.f[k] + r[q] + c.z1);
             }
-            __syncthreads();
-            res[k] = 0.0f;
-            if (ok) {
-                float v[8];
-                fetch<false>(tiles + (k & 1) * TILE_FLOATS, r, c.z0, c.z1,
-                             v);
-                res[k] = weigh<TWO_PLANES>(v, c.w);
-            }
-            // the buffer is staged again two fields on; io is rewritten
-            __syncthreads();
-        }
-    } else {
-        for (int k = 0; k < K; ++k) res[k] = 0.0f;
-        if (ok) {
-            const int r[4] = {(c.x0 * a.ny + c.y0) * a.nz,
-                              (c.x0 * a.ny + c.y1) * a.nz,
-                              (c.x1 * a.ny + c.y0) * a.nz,
-                              (c.x1 * a.ny + c.y1) * a.nz};
-            float v[K][8];
-            for (int k = 0; k < K; ++k) fetch<true>(a.f[k], r, c.z0, c.z1,
-                                                    v[k]);
-            for (int k = 0; k < K; ++k) res[k] = weigh<TWO_PLANES>(v[k], c.w);
-        }
-        // every position is read before io takes the values
-        __syncthreads();
+        for (int k = 0; k < K; ++k) res[k] = weigh<TWO_PLANES>(v[k], c.w);
     }
-
+    // every position is read before io takes the values
+    __syncthreads();
     for (int k = 0; k < K; ++k) io[tid * K + k] = res[k];
     __syncthreads();
     copy_block(a.out + K * start, io, K * cnt, a.vec);
-    if (a.blocks != nullptr && tid == 0) {
-        if (tiled) atomicAdd(a.blocks, 1);
-        atomicAdd(a.blocks + 1, 1);
-    }
 }
 
 template <int K, bool OPEN_X, bool TWO_PLANES>
 int launch_as(const Params& a, cudaStream_t stream) {
-    const auto kernel = readout_kernel<K, OPEN_X, TWO_PLANES>;
-    const int bytes =
-        (3 * THREADS + (a.tile ? 2 * TILE_FLOATS : 0)) * (int)sizeof(float);
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (rc != cudaSuccess) return (int)rc;
     const unsigned int blocks = (unsigned int)((a.n + THREADS - 1) / THREADS);
-    kernel<<<blocks, THREADS, bytes, stream>>>(a);
+    readout_kernel<K, OPEN_X, TWO_PLANES><<<blocks, THREADS, 0, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -323,26 +207,20 @@ bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 // may be null) at n particles (x: n x 3 float32, device) into out (n x k
 // float32, device) on `stream`. n0 == 0: periodic in x; n0 > 0: the
 // extended slab, open in x over a global mesh of n0 planes with shift
-// H - r0. two_planes (k == 3 only): K6's sum, plane by plane. tile: allow
-// the shared-memory tile path (it needs nz % 4 == 0 and 16-byte aligned
-// fields). blocks: null, or a device int[2] to which the launch adds the
-// count of blocks that took the tile path and the count of all blocks.
-// Returns cudaGetLastError().
+// H - r0. two_planes (k == 3 only): K6's sum, plane by plane. Returns
+// cudaGetLastError().
 extern "C" int fastpm_cic_readout(const float* x, long long n, int nx,
                                   int ny, int nz, float icx, float icy,
                                   float icz, int n0, int shift,
                                   int two_planes, const float* f0,
                                   const float* f1, const float* f2, int k,
-                                  float* out, int tile, int* blocks,
-                                  cudaStream_t stream) {
+                                  float* out, cudaStream_t stream) {
     if (k < 1 || k > 3 || (two_planes && k != 3) || n0 < 0
         || (n0 > 0 && nx < 2))
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaGetLastError();
-    Params a{x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
-             {f0, f1, f2}, out, blocks, aligned16(x) && aligned16(out),
-             tile != 0 && nz % 4 == 0};
-    for (int q = 0; q < k; ++q) a.tile = a.tile && aligned16(a.f[q]);
+    const Params a{x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
+                   {f0, f1, f2}, out, aligned16(x) && aligned16(out)};
     const bool open = n0 > 0;
     if (two_planes)
         return open ? launch_as<3, true, true>(a, stream)

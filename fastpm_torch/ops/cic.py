@@ -20,13 +20,16 @@ PyTorch versions, and the cell sort that prepares the order-free force.
 - K5 cic_paint4: K1's deposit in two passes of 4 corners, periodic or
   homed (replaces paint_pallas.py:_paint_kernel4, both
   make_paint_from4_fn and make_paint_from4_homed_fn);
-- K6 cic_readout4: the three-field readout in two passes whose partial
-  values are summed, periodic or homed (replaces
-  readout_pallas.py:_readout_kernel4, both make_readout3_from4_fn and
-  make_readout3_from4_homed_fn).
+- K6 cic_readout4: the three-field readout with the 4 corners of each x
+  plane of the cloud summed apart and the two sums added, periodic or
+  homed (replaces readout_pallas.py:_readout_kernel4, both
+  make_readout3_from4_fn and make_readout3_from4_homed_fn; the TPU
+  kernel's two passes are one pass of K2's kernel here).
 
 The port keeps the TPU kernels' contract, not their mechanism (see
-csrc/*.cu).
+csrc/*.cu). One kernel, csrc/cic_readout.cu, serves every readout (K2,
+homed K2, K4, K6); it rounds each product and sum as the plain versions
+do, in their order, so on the card the two agree bit for bit.
 
 Every function takes positions x (N, 3) float32 in box units and the
 mesh as (Nmesh, InvCellSize). The base cell and fraction follow
@@ -60,7 +63,7 @@ from .cudalib import launch as _launch
 __all__ = ["Slab", "cell_key", "sort_by_cell", "slab_cell", "cic_paint",
            "cic_readout", "cic_paint_into", "cic_readout3",
            "cic_paint_homed", "cic_readout_homed", "cic_paint4",
-           "cic_readout4", "readout_probe",
+           "cic_readout4",
            "cic_paint_plain", "cic_paint_into_plain", "cic_readout_plain",
            "cic_paint_homed_plain", "cic_paint4_plain",
            "cic_readout4_plain"]
@@ -386,11 +389,9 @@ def cic_paint4(canvas: torch.Tensor, x: torch.Tensor, inv_cell, mass=1.0,
 cic_paint4.launches = 0
 
 
-def _readout(fields, x, inv_cell, slab=None, two_planes=False, tile=True,
-             blocks=None):
+def _readout(fields, x, inv_cell, slab=None, two_planes=False):
     """Launch the readout kernel (csrc/cic_readout.cu) on checked
-    inputs: (N, k) float32. blocks: None, or a device int32 (2,) tensor
-    that the launch adds its tiled and all blocks to."""
+    inputs: (N, k) float32."""
     nmesh = tuple(fields[0].shape)
     x = x.contiguous()
     fields = [f.contiguous() for f in fields]
@@ -400,16 +401,16 @@ def _readout(fields, x, inv_cell, slab=None, two_planes=False, tile=True,
     n0, shift = (slab.n0, slab.shift) if slab is not None else (0, 0)
     _launch("fastpm_cic_readout", x.data_ptr(), x.shape[0], *nmesh,
             *_inv32(inv_cell), n0, shift, int(two_planes), *ptrs,
-            len(fields), out.data_ptr(), int(tile),
-            None if blocks is None else blocks.data_ptr(), device=x.device)
+            len(fields), out.data_ptr(), device=x.device)
     return out
 
 
-def _check_readout(fields, x, slab, lo=1, hi=3):
+def _check_readout(fields, x, slab):
+    """The fields as a list, after the checks of the readout wrappers."""
     _check_positions(x)
     fields = list(fields)
-    if not lo <= len(fields) <= hi:
-        raise ValueError(f"the readout takes {lo} to {hi} fields")
+    if not 1 <= len(fields) <= 3:
+        raise ValueError("the readout takes 1 to 3 fields")
     nmesh = _check_fields(fields, x)
     _check_slab(slab, nmesh)
     return fields
@@ -417,9 +418,10 @@ def _check_readout(fields, x, slab, lo=1, hi=3):
 
 def cic_readout(fields, x: torch.Tensor, inv_cell) -> torch.Tensor:
     """Interpolate 1 to 3 (nx, ny, nz) float32 fields at every particle,
-    (N, k) float32. On CUDA this launches K2 (csrc/cic_readout.cu), which
-    stages the field rows of a cell-sorted block in shared memory; any
-    order is right."""
+    (N, k) float32. On CUDA this launches K2 (csrc/cic_readout.cu). It
+    is right for particles in any order; cell order (the carry force,
+    the stale force's earlier order, the 2LPT lattice) lets the corner
+    loads of neighbouring particles share cache lines."""
     fields = _check_readout(fields, x, None)
     if x.device.type == "cpu":
         return cic_readout_plain(fields, x, inv_cell)
@@ -451,13 +453,13 @@ cic_readout_homed.launches = 0
 def cic_readout3(cx, cy, cz, x: torch.Tensor, inv_cell) -> torch.Tensor:
     """Interpolate the three (nx, ny, nz) float32 force fields at every
     particle, in any order: (N, 3) float32, row i for particle i. On
-    CUDA this launches K4, K2's kernel with its shared-memory tile off
-    (csrc/cic_readout.cu): in store order no block's rows fit a tile,
-    and the tile's shared memory would cut the blocks in flight."""
+    CUDA this launches K4, which is K2's kernel with three fields
+    (csrc/cic_readout.cu): on unsorted particles it beat a kernel of its
+    own (PERF.md)."""
     fields = _check_readout([cx, cy, cz], x, None)
     if x.device.type == "cpu":
         return cic_readout_plain(fields, x, inv_cell)
-    out = _readout(fields, x, inv_cell, tile=False)
+    out = _readout(fields, x, inv_cell)
     cic_readout3.launches += 1
     return out
 
@@ -482,19 +484,3 @@ def cic_readout4(cx, cy, cz, x: torch.Tensor, inv_cell,
 
 
 cic_readout4.launches = 0
-
-
-def readout_probe(fields, x: torch.Tensor, inv_cell,
-                  slab: Slab | None = None, two_planes: bool = False,
-                  tile: bool = True):
-    """The readout kernel launched for measurement, outside every
-    wrapper's launch count: (values (N, k), blocks that took the
-    shared-memory tile path, all blocks). tile=False keeps every block
-    on the device-memory path; two_planes gives K6's sum. CUDA only."""
-    fields = _check_readout(fields, x, slab, hi=3)
-    if x.device.type != "cuda":
-        raise ValueError("readout_probe measures the CUDA kernel")
-    blocks = torch.zeros(2, dtype=torch.int32, device=x.device)
-    out = _readout(fields, x, inv_cell, slab, two_planes, tile, blocks)
-    tiled, total = blocks.tolist()
-    return out, tiled, total

@@ -1,7 +1,7 @@
 """Edge geometries of the CIC readout (K2, K4, K6), made from a numpy
-seed: the particle orders and places that decide which path a block of
-the CUDA kernel takes (a shared-memory tile of a few rows, or gathers
-from device memory) and the wraps and faces it must get right.
+seed: the particle orders that decide how well the CUDA kernel's corner
+loads share cache lines (cell, store and stale order), and the wraps,
+faces and slab ends it must get right.
 
 Shared by tests/test_torch_readout_edges.py (the plain versions against
 the JAX package on the CPU) and the cuda case of tests/test_torch_cic.py

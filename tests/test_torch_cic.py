@@ -5,10 +5,13 @@ against the Pallas from8 kernels in interpret mode (fed a
 make_prepare_fn(base_only=True) bundle, as the JAX force feeds them) and
 against the JAX scatter/gather Painter (K3 and K4's plain versions are
 held against their Pallas kernels in tests/test_torch_ncdm.py, the
-homed kernels' and K5 / K6's in tests/test_torch_parallel.py). The CUDA
-case holds K1-K6 against their plain versions on the card and skips
-without one; it needs no JAX, so on a GPU machine without it the file
-runs as `python -m pytest --noconftest tests/test_torch_cic.py -m cuda`.
+homed kernels' and K5 / K6's in tests/test_torch_parallel.py, the
+readouts' edge cases in tests/test_torch_readout_edges.py). The CUDA
+cases hold K1-K6 against their plain versions on the card (the
+readouts bit for bit on the edge cases of tests/readout_cases.py) and
+skip without one; they need no JAX, so on a GPU machine without it the
+file runs as `python -m pytest --noconftest tests/test_torch_cic.py -m
+cuda`.
 """
 
 import numpy as np
@@ -184,18 +187,17 @@ def test_kernels_match_plain_on_cuda():
 
 @pytest.mark.cuda
 def test_readout_edges_on_cuda():
-    """K2 (k = 1, 2, 3), K4, homed K2 and K6 against their plain versions
-    on the edge cases of tests/readout_cases.py at a 64^3 mesh, where a
-    block of 256 cell-sorted particles fits the kernel's shared-memory
-    tile; the tile path and the device-memory path equal bit for bit, and
-    so do a sorted array and the same rows shuffled."""
+    """K2 and homed K2 (k = 1, 2, 3), K4 and K6 equal to their plain
+    versions bit for bit on the edge cases of tests/readout_cases.py at
+    a 64^3 mesh (the kernel rounds as they do, in their order), and so
+    do a sorted array and the same rows shuffled; unaligned positions
+    (the kernel's scalar copies) change nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import readout_cases as cases
     dev = torch.device("cuda")
     n, box = 64, 128.0
-    # a ragged last block, and a scalar copy path for the positions
-    count = n ** 3 // 2 + 99
+    count = n ** 3 // 2 + 99          # a ragged last block
     nmesh, inv = cases.mesh(n, box)
     slab, ext = cases.slab_of(n, 16, 2, 1)
     fields = [torch.randn(nmesh, device=dev) for _ in range(3)]
@@ -207,42 +209,23 @@ def test_readout_edges_on_cuda():
     for kind, pos, s in runs:
         x = torch.from_numpy(pos).to(dev)
         fs = fields if s is None else efields
+
+        def k2(fs, x):
+            return (cic.cic_readout(fs, x, inv) if s is None
+                    else cic.cic_readout_homed(fs, x, inv, s))
         plain = cic.cic_readout_plain(fs, x, inv, s)
         for k in (1, 2, 3):
-            got = (cic.cic_readout(fs[:k], x, inv) if s is None
-                   else cic.cic_readout_homed(fs[:k], x, inv, s))
-            torch.testing.assert_close(got, plain[:, :k], rtol=1e-5,
-                                       atol=2e-6)
+            assert torch.equal(k2(fs[:k], x), plain[:, :k]), (kind, k)
         if s is None:
-            torch.testing.assert_close(cic.cic_readout3(*fs, x, inv), plain,
-                                       rtol=1e-5, atol=2e-6)
-        torch.testing.assert_close(cic.cic_readout4(*fs, x, inv, s),
-                                   cic.cic_readout4_plain(*fs, x, inv, s),
-                                   rtol=1e-5, atol=2e-6)
-        for two_planes in (False, True):
-            on, tiled, total = cic.readout_probe(fs, x, inv, s, two_planes)
-            off, none, _ = cic.readout_probe(fs, x, inv, s, two_planes,
-                                             tile=False)
-            assert none == 0 and torch.equal(on, off), kind
-        assert total == (count + 255) // 256
-        if kind == "random":
-            assert tiled == 0
-        elif kind in ("sorted", "xplane", "ywrap", "zlast", "slab_sorted"):
-            assert tiled > total // 2, (kind, tiled, total)
+            assert torch.equal(cic.cic_readout3(*fs, x, inv), plain)
+        assert torch.equal(cic.cic_readout4(*fs, x, inv, s),
+                           cic.cic_readout4_plain(*fs, x, inv, s)), kind
         perm = torch.randperm(count, device=dev)
-        got, tiled, _ = cic.readout_probe(fs, x[perm], inv, s)
-        shuffled = torch.empty_like(got)
-        shuffled[perm] = got
-        assert tiled == 0
-        assert torch.equal(shuffled, cic.readout_probe(fs, x, inv, s)[0])
-    # unaligned positions (the scalar copy) and an unaligned field (no
-    # tile) take the same values
+        shuffled = torch.empty_like(plain)
+        shuffled[perm] = k2(fs, x[perm])
+        assert torch.equal(shuffled, plain), kind
     x = torch.from_numpy(cases.periodic_case("sorted", n, box, count)).to(dev)
     xs = torch.cat([x[:1], x]).contiguous()[1:]
     assert xs.data_ptr() % 16 != 0
-    want = cic.cic_readout(fields, x, inv)
-    assert torch.equal(cic.cic_readout(fields, xs, inv), want)
-    f0 = torch.cat([fields[0].reshape(-1)[:1],
-                    fields[0].reshape(-1)])[1:].view(nmesh)
-    got, tiled, _ = cic.readout_probe([f0] + fields[1:], x, inv)
-    assert tiled == 0 and torch.equal(got, want)
+    assert torch.equal(cic.cic_readout(fields, xs, inv),
+                       cic.cic_readout(fields, x, inv))

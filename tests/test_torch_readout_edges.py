@@ -190,5 +190,3 @@ def test_readout4_returns_n_by_3_and_checks_its_arguments():
         cic.cic_readout4(big, big, big, x, inv)
     with pytest.raises(ValueError, match="1 to 3 fields"):
         cic.cic_readout(fs + fs[:1], x, inv)
-    with pytest.raises(ValueError, match="CUDA"):
-        cic.readout_probe(fs, x, inv)
