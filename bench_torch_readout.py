@@ -16,7 +16,9 @@ the wrappers and their launch counts. Every variant's values must equal
 the built kernel's bit for bit. Cases: cell-sorted uniform and
 clustered particles with the three force fields (K2 on the main path,
 and K6's plane-by-plane sum), the 2LPT lattice with one 256^3 field,
-and store order (K4's case). Each variant is timed in two rounds, the
+and K4's cases (launched for store order, as cic_readout3 launches
+them): a lattice moved by 4 cells in lattice order, and uniform and
+clustered particles shuffled. Each variant is timed in two rounds, the
 second in reverse order, 10 launches a time; grid_sample is the
 yardstick. Prints the card line, a table of mean ms and the ratio of
 each variant to the first.
@@ -97,11 +99,14 @@ def threads(n):
 
 
 # name -> edits (old text, new text) of the source ("built": as it is,
-# with a floor of 5 blocks). A block of 256 threads holds 4 KB of shared
-# memory with the reserve, so a carveout of 8 KB (max_l1) keeps 2 blocks
-# on an SM, 16 KB (carve7) 4
+# with a floor of 5 blocks, and the K4 cases launched for store order, as
+# cic_readout3 launches them). A block of 256 threads holds 4 KB of
+# shared memory with the reserve, so a carveout of 8 KB (max_l1, and
+# store order) keeps 2 blocks on an SM, 16 KB (carve7) 4
 VARIANTS = {
     "built": [],
+    "store_default": [("store_order ? (int)cudaSharedmemCarveoutMaxL1",
+                       "store_order ? (int)cudaSharedmemCarveoutDefault")],
     "no_min": [min_blocks(None)],
     "max_l1": [min_blocks(None), carveout(0)],
     "carve7": [min_blocks(None), carveout(7)],
@@ -168,19 +173,19 @@ def build_variants(verbose):
                       ctypes.c_float)
         cdll.fastpm_cic_readout.restype = I
         cdll.fastpm_cic_readout.argtypes = [P, L, I, I, I, F, F, F, I, I, I,
-                                            P, P, P, I, P, P]
+                                            I, P, P, P, I, P, P]
         libs[name] = cdll
     return libs
 
 
-def call(lib, fields, x, inv, two_planes, out):
+def call(lib, fields, x, inv, two_planes, store_order, out):
     import torch
     from fastpm_torch.ops import cic
     nmesh = fields[0].shape
     ptrs = [f.data_ptr() for f in fields] + [None] * (3 - len(fields))
     rc = lib.fastpm_cic_readout(
         x.data_ptr(), x.shape[0], *nmesh, *cic._inv32(inv), 0, 0,
-        int(two_planes),
+        int(two_planes), int(store_order),
         *ptrs, len(fields), out.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -240,7 +245,8 @@ def main():
         want = (cic.cic_readout4(*fs, x, fi) if two
                 else cic.cic_readout(fs, x, fi))
         for vname, lib in libs.items():
-            if not torch.equal(call(lib, fs, x, fi, two, out), want):
+            got = call(lib, fs, x, fi, two, cname.startswith("K4"), out)
+            if not torch.equal(got, want):
                 raise SystemExit("%s: %s differs from the built kernel"
                                  % (vname, cname))
     for order in (list(libs), list(libs)[::-1]):
@@ -248,7 +254,8 @@ def main():
             for cname, (fs, x, fi, two) in cases.items():
                 out = torch.empty((n, len(fs)), device=dev)
                 times[vname, cname].append(cs.time_ms(
-                    lambda: call(libs[vname], fs, x, fi, two, out), reps))
+                    lambda: call(libs[vname], fs, x, fi, two,
+                                 cname.startswith("K4"), out), reps))
     yard = {c: cs.grid_sample_ms(cases[c][0], [cases[c][1]], cases[c][2],
                                  nmesh, reps)
             for c in ("K2 sorted", "K2 clustered", "K2 stale",

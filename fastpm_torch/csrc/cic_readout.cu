@@ -50,13 +50,15 @@
 //    against 6 (40 registers, the compiler's own choice) it holds fewer
 //    lines in flight for L1 to keep, which pays most in store and stale
 //    order, and against 4 or fewer it keeps enough loads in flight for
-//    cell order (bench_torch_readout.py, PERF.md).
+//    cell order. K4 (store_order) prefers the largest L1 instead, which
+//    leaves room for 2 blocks: in store order a larger L1 and fewer
+//    lines in flight keep more of the corners' shared lines; in cell
+//    order it starves the gathers (bench_torch_readout.py, PERF.md).
 // Staging the rows of a cell-sorted block in shared memory (cp.async,
 // double-buffered by field) was measured against this and lost on every
 // case, the 2LPT lattice included: at an eighth of a particle per cell a
 // block's rows of planes x and x + 1 cost as many L2 bytes as the
-// gathers, and the tile's shared memory takes L1 from them (PERF.md,
-// PR 5).
+// gathers, and the tile's shared memory takes L1 from them (PERF.md).
 
 #include "cic_common.cuh"
 
@@ -193,7 +195,14 @@ readout_kernel(const Params a) {
 }
 
 template <int K, bool OPEN_X, bool TWO_PLANES>
-int launch_as(const Params& a, cudaStream_t stream) {
+int launch_as(const Params& a, bool store_order, cudaStream_t stream) {
+    // set on every launch: K2 and K4 share the 3-field instantiation
+    const cudaError_t rc = cudaFuncSetAttribute(
+        readout_kernel<K, OPEN_X, TWO_PLANES>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        store_order ? (int)cudaSharedmemCarveoutMaxL1
+                    : (int)cudaSharedmemCarveoutDefault);
+    if (rc != cudaSuccess) return (int)rc;
     const unsigned int blocks = (unsigned int)((a.n + THREADS - 1) / THREADS);
     readout_kernel<K, OPEN_X, TWO_PLANES><<<blocks, THREADS, 0, stream>>>(a);
     return (int)cudaGetLastError();
@@ -207,12 +216,14 @@ bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 // may be null) at n particles (x: n x 3 float32, device) into out (n x k
 // float32, device) on `stream`. n0 == 0: periodic in x; n0 > 0: the
 // extended slab, open in x over a global mesh of n0 planes with shift
-// H - r0. two_planes (k == 3 only): K6's sum, plane by plane. Returns
-// cudaGetLastError().
+// H - r0. two_planes (k == 3 only): K6's sum, plane by plane.
+// store_order: the particles are in store order, not by cell (K4).
+// Returns cudaGetLastError().
 extern "C" int fastpm_cic_readout(const float* x, long long n, int nx,
                                   int ny, int nz, float icx, float icy,
                                   float icz, int n0, int shift,
-                                  int two_planes, const float* f0,
+                                  int two_planes, int store_order,
+                                  const float* f0,
                                   const float* f1, const float* f2, int k,
                                   float* out, cudaStream_t stream) {
     if (k < 1 || k > 3 || (two_planes && k != 3) || n0 < 0
@@ -221,19 +232,19 @@ extern "C" int fastpm_cic_readout(const float* x, long long n, int nx,
     if (n <= 0) return (int)cudaGetLastError();
     const Params a{x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
                    {f0, f1, f2}, out, aligned16(x) && aligned16(out)};
-    const bool open = n0 > 0;
+    const bool open = n0 > 0, so = store_order != 0;
     if (two_planes)
-        return open ? launch_as<3, true, true>(a, stream)
-                    : launch_as<3, false, true>(a, stream);
+        return open ? launch_as<3, true, true>(a, so, stream)
+                    : launch_as<3, false, true>(a, so, stream);
     switch (k) {
         case 1:
-            return open ? launch_as<1, true, false>(a, stream)
-                        : launch_as<1, false, false>(a, stream);
+            return open ? launch_as<1, true, false>(a, so, stream)
+                        : launch_as<1, false, false>(a, so, stream);
         case 2:
-            return open ? launch_as<2, true, false>(a, stream)
-                        : launch_as<2, false, false>(a, stream);
+            return open ? launch_as<2, true, false>(a, so, stream)
+                        : launch_as<2, false, false>(a, so, stream);
         default:
-            return open ? launch_as<3, true, false>(a, stream)
-                        : launch_as<3, false, false>(a, stream);
+            return open ? launch_as<3, true, false>(a, so, stream)
+                        : launch_as<3, false, false>(a, so, stream);
     }
 }
