@@ -48,10 +48,10 @@ A. the homed kernels at the slab force's shapes: rank 0 of one with
    particles), homed K2 and K6 (sorted, drifted a cell, shuffled), and
    K5 / K6 on the periodic 512^3 mesh, each against its plain version,
    with the same timings (grid_sample the yardstick of the readouts);
-   then the readouts' edge cases of tests/readout_cases.py at 64^3 (K2
-   and homed K2 with 1-3 fields, K4, K6; runs across an x face, rows
-   wrapping in y, the last z column, the slab's last plane and the rows
-   beyond it), and K2 on the rows shuffled, bit for bit;
+   then the readouts' edge cases of fastpm_torch/ops/readout_cases.py
+   at 64^3 (K2 and homed K2 with 1-3 fields, K4, K6; runs across an x
+   face, rows wrapping in y, the last z column, the slab's last plane
+   and the rows beyond it), and K2 on the rows shuffled, bit for bit;
 B. the homed slab force (fastpm_torch.parallel) at full width on a
    one-rank NCCL process group started on localhost: the main path's
    z = 0 state (phase 7), H from required_halo_planes, the carry and the
@@ -613,17 +613,17 @@ def check_kernels_homed(dev, nc=256, nmesh=512, box=768.0, H=4, every=4,
 
 
 def check_readout_edges(dev, rows, n=64, box=128.0):
-    """Phases 3 and A, edge cases: the geometries of tests/readout_cases.py
-    (cell, store and stale order, runs across an x face, rows wrapping in
-    y, the last column in z, cell faces; on rank 1 of 4's extended slab
-    with H = 2 its sorted and stale rows and its last plane with the rows
-    beyond) at a 64^3 mesh, 131,171 particles. Each readout kernel
-    against its plain version (K2 and homed K2 with 1-3 fields, K4, K6),
-    and K2 on the rows shuffled against the sorted rows, bit for bit."""
+    """Phases 3 and A, edge cases: the geometries of
+    fastpm_torch/ops/readout_cases.py (cell, store and stale order, runs
+    across an x face, rows wrapping in y, the last column in z, cell
+    faces; on rank 1 of 4's extended slab with H = 2 its sorted and stale
+    rows and its last plane with the rows beyond) at a 64^3 mesh,
+    131,171 particles. Each readout kernel against its plain version (K2
+    and homed K2 with 1-3 fields, K4, K6), and K2 on the rows shuffled
+    against the sorted rows, bit for bit."""
     import torch
     from fastpm_torch.ops import cic
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    import readout_cases as cases
+    from fastpm_torch.ops import readout_cases as cases
 
     count = n ** 3 // 2 + 99          # a ragged last block
     nmesh, inv = cases.mesh(n, box)

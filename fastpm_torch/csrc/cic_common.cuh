@@ -1,8 +1,8 @@
 // Device code shared by the CIC kernels: the base cell, fraction and the
 // 8 corner indices and weights of one particle, for the paints K1, K3
-// and K5; the readout (K2, K4, K6, csrc/cic_readout.cu) repeats this
-// rounding with int32 indices and a cheaper wrap, and uses wrap_cell for
-// bases far outside the mesh.
+// and K5 and the readout (K2, K4, K6, csrc/cic_readout.cu). The homed
+// paint counts a particle as beyond its slab exactly where the homed
+// readout reads it as zero, because both take cell() below.
 //
 // For each particle g = x * InvCellSize in float32, base = floor(g),
 // frac = g - base; the base cell and its +1 neighbour wrap periodically;
@@ -11,6 +11,8 @@
 // 273-295 base_cell_frac / w8_from_frac). __fmul_rn / __fsub_rn keep
 // nvcc from contracting x * inv - floor into a fused multiply-add, so the
 // fraction is rounded exactly as the float32 reference computes it.
+// Flat indices are int32: the wrappers (ops/cic.py) bound every mesh
+// below 2^31 cells.
 //
 // The x axis is periodic over the canvas's nx planes, or open: the
 // homed slab force paints into and reads from its rank's x-slab widened
@@ -24,7 +26,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <stddef.h>
 
 namespace fastpm_cic {
 
@@ -40,31 +41,35 @@ __device__ __forceinline__ int wrap_cell(int i, int n) {
     return r < 0 ? r + n : r;
 }
 
-// Base cell lo, +1 neighbour hi, fraction f and 1 - f per axis of
-// particle i of x (n x 3 float32). Returns false for a particle beyond an
+// The periodic wrap of a base cell: compare-and-add over [-n, 2n), which
+// holds every position the solver keeps; the exact remainder beyond.
+__device__ __forceinline__ int wrap(int b, int n) {
+    const int r = b < 0 ? b + n : (b >= n ? b - n : b);
+    return (unsigned)r < (unsigned)n ? r : wrap_cell(b, n);
+}
+
+// Base cell lo, +1 neighbour hi, fraction f and 1 - f per axis of the
+// particle at p (3 float32). Returns false for a particle beyond an
 // open x-slab (lo, hi, f and t are then not set).
-__device__ __forceinline__ bool cell(const float* __restrict__ x,
-                                     long long i, int nx, int ny, int nz,
+__device__ __forceinline__ bool cell(const float* p, int nx, int ny, int nz,
                                      float icx, float icy, float icz,
                                      XAxis ax, int lo[3], int hi[3],
                                      float f[3], float t[3]) {
-    const float g[3] = {__fmul_rn(x[3 * i], icx),
-                        __fmul_rn(x[3 * i + 1], icy),
-                        __fmul_rn(x[3 * i + 2], icz)};
+    const float g[3] = {__fmul_rn(p[0], icx), __fmul_rn(p[1], icy),
+                        __fmul_rn(p[2], icz)};
     const float b[3] = {floorf(g[0]), floorf(g[1]), floorf(g[2])};
     if (ax.n0 > 0) {
-        const int rel = wrap_cell(wrap_cell((int)b[0], ax.n0) + ax.shift,
-                                  ax.n0);
+        const int rel = wrap(wrap((int)b[0], ax.n0) + ax.shift, ax.n0);
         if (rel >= nx - 1) return false;
         lo[0] = rel;
         hi[0] = rel + 1;
     } else {
-        lo[0] = wrap_cell((int)b[0], nx);
+        lo[0] = wrap((int)b[0], nx);
         hi[0] = lo[0] + 1 == nx ? 0 : lo[0] + 1;
     }
     const int nm[3] = {nx, ny, nz};
     for (int d = 1; d < 3; ++d) {
-        lo[d] = wrap_cell((int)b[d], nm[d]);
+        lo[d] = wrap((int)b[d], nm[d]);
         hi[d] = lo[d] + 1 == nm[d] ? 0 : lo[d] + 1;
     }
     for (int d = 0; d < 3; ++d) {
@@ -80,13 +85,13 @@ __device__ __forceinline__ void plane_corners(int dx, const int lo[3],
                                               const int hi[3],
                                               const float f[3],
                                               const float t[3], int ny,
-                                              int nz, size_t idx[4],
+                                              int nz, int idx[4],
                                               float w[4]) {
-    const size_t ix = (size_t)(dx ? hi[0] : lo[0]) * ny;
+    const int ix = (dx ? hi[0] : lo[0]) * ny;
     const float wx = dx ? f[0] : t[0];
     int c = 0;
     for (int dy = 0; dy < 2; ++dy) {
-        const size_t ixy = (ix + (dy ? hi[1] : lo[1])) * nz;
+        const int ixy = (ix + (dy ? hi[1] : lo[1])) * nz;
         const float wxy = __fmul_rn(wx, dy ? f[1] : t[1]);
         for (int dz = 0; dz < 2; ++dz, ++c) {
             idx[c] = ixy + (dz ? hi[2] : lo[2]);
@@ -95,34 +100,32 @@ __device__ __forceinline__ void plane_corners(int dx, const int lo[3],
     }
 }
 
-// Fill idx[8] (flat index into an nx*ny*nz mesh) and w[8] for particle i
-// of x (n x 3 float32), dx-major. Returns false for a particle beyond an
-// open x-slab.
-__device__ __forceinline__ bool corners(const float* __restrict__ x,
-                                        long long i, int nx, int ny, int nz,
-                                        float icx, float icy, float icz,
-                                        size_t idx[8], float w[8],
+// Fill idx[8] (flat index into an nx*ny*nz mesh) and w[8] for the
+// particle at p, dx-major. Returns false for a particle beyond an open
+// x-slab.
+__device__ __forceinline__ bool corners(const float* p, int nx, int ny,
+                                        int nz, float icx, float icy,
+                                        float icz, int idx[8], float w[8],
                                         XAxis ax = XAxis{0, 0}) {
     int lo[3], hi[3];
     float f[3], t[3];
-    if (!cell(x, i, nx, ny, nz, icx, icy, icz, ax, lo, hi, f, t))
-        return false;
+    if (!cell(p, nx, ny, nz, icx, icy, icz, ax, lo, hi, f, t)) return false;
     plane_corners(0, lo, hi, f, t, ny, nz, idx, w);
     plane_corners(1, lo, hi, f, t, ny, nz, idx + 4, w + 4);
     return true;
 }
 
-// Add particle i's mass m at its 8 corners of canvas (float atomics). A
-// particle beyond an open x-slab deposits nothing and adds one to *bad.
-__device__ __forceinline__ void deposit(const float* __restrict__ x,
-                                        long long i, int nx, int ny, int nz,
-                                        float icx, float icy, float icz,
-                                        float m, float* canvas,
+// Add mass m of the particle at p at its 8 corners of canvas (float
+// atomics). A particle beyond an open x-slab deposits nothing and adds
+// one to *bad.
+__device__ __forceinline__ void deposit(const float* p, int nx, int ny,
+                                        int nz, float icx, float icy,
+                                        float icz, float m, float* canvas,
                                         XAxis ax = XAxis{0, 0},
                                         int* bad = nullptr) {
-    size_t idx[8];
+    int idx[8];
     float w[8];
-    if (!corners(x, i, nx, ny, nz, icx, icy, icz, idx, w, ax)) {
+    if (!corners(p, nx, ny, nz, icx, icy, icz, idx, w, ax)) {
         atomicAdd(bad, 1);
         return;
     }

@@ -43,7 +43,8 @@ __global__ void cic_paint_kernel(const float* __restrict__ x, long long n,
                                  float mass, float* __restrict__ canvas) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    fastpm_cic::deposit(x, i, nx, ny, nz, icx, icy, icz, mass, canvas);
+    fastpm_cic::deposit(x + 3 * i, nx, ny, nz, icx, icy, icz, mass,
+                        canvas);
 }
 
 __global__ void cic_paint_homed_kernel(const float* __restrict__ x,
@@ -55,7 +56,7 @@ __global__ void cic_paint_homed_kernel(const float* __restrict__ x,
                                        int* __restrict__ bad) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    fastpm_cic::deposit(x, i, nx, ny, nz, icx, icy, icz,
+    fastpm_cic::deposit(x + 3 * i, nx, ny, nz, icx, icy, icz,
                         masses ? masses[i] : mass, canvas, ax, bad);
 }
 

@@ -44,12 +44,12 @@ __global__ void cic_paint4_kernel(const float* __restrict__ x, long long n,
     if (i >= n) return;
     int lo[3], hi[3];
     float f[3], t[3];
-    if (!fastpm_cic::cell(x, i, nx, ny, nz, icx, icy, icz, ax, lo, hi, f,
-                          t)) {
+    if (!fastpm_cic::cell(x + 3 * i, nx, ny, nz, icx, icy, icz, ax, lo,
+                          hi, f, t)) {
         if (dx == 0) atomicAdd(bad, 1);
         return;
     }
-    size_t idx[4];
+    int idx[4];
     float w[4];
     fastpm_cic::plane_corners(dx, lo, hi, f, t, ny, nz, idx, w);
     const float m = masses ? masses[i] : mass;

@@ -38,7 +38,7 @@ __global__ void cic_paint_into_kernel(const float* __restrict__ x,
                                       float* __restrict__ canvas) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    fastpm_cic::deposit(x, i, nx, ny, nz, icx, icy, icz,
+    fastpm_cic::deposit(x + 3 * i, nx, ny, nz, icx, icy, icz,
                         masses ? masses[i] : mass, canvas);
 }
 

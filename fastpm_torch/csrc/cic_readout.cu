@@ -79,57 +79,6 @@ struct Params {
     bool vec;      // x and out 16-byte aligned: vector copies
 };
 
-// The periodic wrap of a base cell: compare-and-add over [-n, 2n), which
-// holds every position the solver keeps; the exact remainder beyond.
-__device__ __forceinline__ int wrap(int b, int n) {
-    const int r = b < 0 ? b + n : (b >= n ? b - n : b);
-    return (unsigned)r < (unsigned)n ? r : fastpm_cic::wrap_cell(b, n);
-}
-
-// A particle's corners: planes x0, x1, rows y0, y1, columns z0, z1 (the
-// +1 neighbours wrapped, x1 unwrapped on an open axis) and the 8
-// weights, dx-major.
-struct Corners {
-    int x0, x1, y0, y1, z0, z1;
-    float w[8];
-};
-
-// The float32 rounding of cell() in cic_common.cuh; false for a particle
-// beyond an open x-slab.
-template <bool OPEN_X>
-__device__ __forceinline__ bool locate(const float* p, const Params& a,
-                                       Corners& c) {
-    const float g[3] = {__fmul_rn(p[0], a.icx), __fmul_rn(p[1], a.icy),
-                        __fmul_rn(p[2], a.icz)};
-    const float b[3] = {floorf(g[0]), floorf(g[1]), floorf(g[2])};
-    if (OPEN_X) {
-        const int rel = wrap(wrap((int)b[0], a.ax.n0) + a.ax.shift,
-                             a.ax.n0);
-        if (rel >= a.nx - 1) return false;
-        c.x0 = rel;
-        c.x1 = rel + 1;
-    } else {
-        c.x0 = wrap((int)b[0], a.nx);
-        c.x1 = c.x0 + 1 == a.nx ? 0 : c.x0 + 1;
-    }
-    c.y0 = wrap((int)b[1], a.ny);
-    c.y1 = c.y0 + 1 == a.ny ? 0 : c.y0 + 1;
-    c.z0 = wrap((int)b[2], a.nz);
-    c.z1 = c.z0 + 1 == a.nz ? 0 : c.z0 + 1;
-    float f[3], t[3];
-    for (int d = 0; d < 3; ++d) {
-        f[d] = __fsub_rn(g[d], b[d]);
-        t[d] = __fsub_rn(1.0f, f[d]);
-    }
-    for (int dx = 0; dx < 2; ++dx)
-        for (int dy = 0; dy < 2; ++dy) {
-            const float wxy = __fmul_rn(dx ? f[0] : t[0], dy ? f[1] : t[1]);
-            c.w[4 * dx + 2 * dy] = __fmul_rn(wxy, t[2]);
-            c.w[4 * dx + 2 * dy + 1] = __fmul_rn(wxy, f[2]);
-        }
-    return true;
-}
-
 // The weighted sum of the 8 corner values v (dx-major, then dy, then
 // dz): one running sum (K2, K4) or one per x plane added at the end
 // (K6), each product and sum rounded alone, as the plain version.
@@ -171,21 +120,17 @@ readout_kernel(const Params a) {
 
     copy_block(io, a.x + 3 * start, 3 * cnt, a.vec);
     __syncthreads();
-    Corners c;
+    int idx[8];
+    float w[8];
     float res[K];
     for (int k = 0; k < K; ++k) res[k] = 0.0f;
-    if (tid < cnt && locate<OPEN_X>(io + 3 * tid, a, c)) {
-        const int r[4] = {(c.x0 * a.ny + c.y0) * a.nz,
-                          (c.x0 * a.ny + c.y1) * a.nz,
-                          (c.x1 * a.ny + c.y0) * a.nz,
-                          (c.x1 * a.ny + c.y1) * a.nz};
+    if (tid < cnt && fastpm_cic::corners(io + 3 * tid, a.nx, a.ny, a.nz,
+                                         a.icx, a.icy, a.icz, idx, w,
+                                         OPEN_X ? a.ax : XAxis{0, 0})) {
         float v[K][8];
         for (int k = 0; k < K; ++k)
-            for (int q = 0; q < 4; ++q) {
-                v[k][2 * q] = __ldg(a.f[k] + r[q] + c.z0);
-                v[k][2 * q + 1] = __ldg(a.f[k] + r[q] + c.z1);
-            }
-        for (int k = 0; k < K; ++k) res[k] = weigh<TWO_PLANES>(v[k], c.w);
+            for (int q = 0; q < 8; ++q) v[k][q] = __ldg(a.f[k] + idx[q]);
+        for (int k = 0; k < K; ++k) res[k] = weigh<TWO_PLANES>(v[k], w);
     }
     // every position is read before io takes the values
     __syncthreads();
@@ -195,14 +140,7 @@ readout_kernel(const Params a) {
 }
 
 template <int K, bool OPEN_X, bool TWO_PLANES>
-int launch_as(const Params& a, bool store_order, cudaStream_t stream) {
-    // set on every launch: K2 and K4 share the 3-field instantiation
-    const cudaError_t rc = cudaFuncSetAttribute(
-        readout_kernel<K, OPEN_X, TWO_PLANES>,
-        cudaFuncAttributePreferredSharedMemoryCarveout,
-        store_order ? (int)cudaSharedmemCarveoutMaxL1
-                    : (int)cudaSharedmemCarveoutDefault);
-    if (rc != cudaSuccess) return (int)rc;
+int launch_as(const Params& a, cudaStream_t stream) {
     const unsigned int blocks = (unsigned int)((a.n + THREADS - 1) / THREADS);
     readout_kernel<K, OPEN_X, TWO_PLANES><<<blocks, THREADS, 0, stream>>>(a);
     return (int)cudaGetLastError();
@@ -216,14 +154,12 @@ bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 // may be null) at n particles (x: n x 3 float32, device) into out (n x k
 // float32, device) on `stream`. n0 == 0: periodic in x; n0 > 0: the
 // extended slab, open in x over a global mesh of n0 planes with shift
-// H - r0. two_planes (k == 3 only): K6's sum, plane by plane.
-// store_order: the particles are in store order, not by cell (K4).
-// Returns cudaGetLastError().
+// H - r0. two_planes (k == 3 only): K6's sum, plane by plane. Returns
+// cudaGetLastError().
 extern "C" int fastpm_cic_readout(const float* x, long long n, int nx,
                                   int ny, int nz, float icx, float icy,
                                   float icz, int n0, int shift,
-                                  int two_planes, int store_order,
-                                  const float* f0,
+                                  int two_planes, const float* f0,
                                   const float* f1, const float* f2, int k,
                                   float* out, cudaStream_t stream) {
     if (k < 1 || k > 3 || (two_planes && k != 3) || n0 < 0
@@ -232,19 +168,19 @@ extern "C" int fastpm_cic_readout(const float* x, long long n, int nx,
     if (n <= 0) return (int)cudaGetLastError();
     const Params a{x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
                    {f0, f1, f2}, out, aligned16(x) && aligned16(out)};
-    const bool open = n0 > 0, so = store_order != 0;
+    const bool open = n0 > 0;
     if (two_planes)
-        return open ? launch_as<3, true, true>(a, so, stream)
-                    : launch_as<3, false, true>(a, so, stream);
+        return open ? launch_as<3, true, true>(a, stream)
+                    : launch_as<3, false, true>(a, stream);
     switch (k) {
         case 1:
-            return open ? launch_as<1, true, false>(a, so, stream)
-                        : launch_as<1, false, false>(a, so, stream);
+            return open ? launch_as<1, true, false>(a, stream)
+                        : launch_as<1, false, false>(a, stream);
         case 2:
-            return open ? launch_as<2, true, false>(a, so, stream)
-                        : launch_as<2, false, false>(a, so, stream);
+            return open ? launch_as<2, true, false>(a, stream)
+                        : launch_as<2, false, false>(a, stream);
         default:
-            return open ? launch_as<3, true, false>(a, so, stream)
-                        : launch_as<3, false, false>(a, so, stream);
+            return open ? launch_as<3, true, false>(a, stream)
+                        : launch_as<3, false, false>(a, stream);
     }
 }

@@ -389,11 +389,9 @@ def cic_paint4(canvas: torch.Tensor, x: torch.Tensor, inv_cell, mass=1.0,
 cic_paint4.launches = 0
 
 
-def _readout(fields, x, inv_cell, slab=None, two_planes=False,
-             store_order=False):
+def _readout(fields, x, inv_cell, slab=None, two_planes=False):
     """Launch the readout kernel (csrc/cic_readout.cu) on checked
-    inputs: (N, k) float32. store_order: the particles are not in cell
-    order (K4), which the launch shape follows."""
+    inputs: (N, k) float32."""
     nmesh = tuple(fields[0].shape)
     x = x.contiguous()
     fields = [f.contiguous() for f in fields]
@@ -402,8 +400,7 @@ def _readout(fields, x, inv_cell, slab=None, two_planes=False,
                       device=x.device)
     n0, shift = (slab.n0, slab.shift) if slab is not None else (0, 0)
     _launch("fastpm_cic_readout", x.data_ptr(), x.shape[0], *nmesh,
-            *_inv32(inv_cell), n0, shift, int(two_planes),
-            int(store_order), *ptrs,
+            *_inv32(inv_cell), n0, shift, int(two_planes), *ptrs,
             len(fields), out.data_ptr(), device=x.device)
     return out
 
@@ -457,13 +454,12 @@ def cic_readout3(cx, cy, cz, x: torch.Tensor, inv_cell) -> torch.Tensor:
     """Interpolate the three (nx, ny, nz) float32 force fields at every
     particle, in any order: (N, 3) float32, row i for particle i. On
     CUDA this launches K4, which is K2's kernel with three fields
-    (csrc/cic_readout.cu; on unsorted particles it beat a kernel of its
-    own), launched for store order: the largest L1, 2 blocks an SM
-    (PERF.md)."""
+    (csrc/cic_readout.cu): on unsorted particles it beat a kernel of its
+    own (PERF.md)."""
     fields = _check_readout([cx, cy, cz], x, None)
     if x.device.type == "cpu":
         return cic_readout_plain(fields, x, inv_cell)
-    out = _readout(fields, x, inv_cell, store_order=True)
+    out = _readout(fields, x, inv_cell)
     cic_readout3.launches += 1
     return out
 

@@ -96,8 +96,8 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
             ("fastpm_cic_paint_into", [F, P, P, P]),
             ("fastpm_cic_paint_homed", [I, I, F, P, P, P, P]),
             ("fastpm_cic_paint4", [I, I, F, P, P, P, P]),
-            # two_planes, store_order, f0, f1, f2, k, out
-            ("fastpm_cic_readout", [I, I, I, I, P, P, P, I, P, P])):
+            # two_planes, f0, f1, f2, k, out
+            ("fastpm_cic_readout", [I, I, I, P, P, P, I, P, P])):
         fn = getattr(lib, name)
         fn.restype = I
         fn.argtypes = head + tail

@@ -3,9 +3,9 @@ seed: the particle orders that decide how well the CUDA kernel's corner
 loads share cache lines (cell, store and stale order), and the wraps,
 faces and slab ends it must get right.
 
-Shared by tests/test_torch_readout_edges.py (the plain versions against
-the JAX package on the CPU) and the cuda case of tests/test_torch_cic.py
-(the kernel against the plain versions on the card). Imports no JAX.
+Used by tests/test_torch_readout_edges.py (the plain versions against
+the JAX package on the CPU), the cuda case of tests/test_torch_cic.py
+and chip_smoke.py (the kernel against the plain versions on the card).
 """
 
 import numpy as np

@@ -8,10 +8,10 @@ held against their Pallas kernels in tests/test_torch_ncdm.py, the
 homed kernels' and K5 / K6's in tests/test_torch_parallel.py, the
 readouts' edge cases in tests/test_torch_readout_edges.py). The CUDA
 cases hold K1-K6 against their plain versions on the card (the
-readouts bit for bit on the edge cases of tests/readout_cases.py) and
-skip without one; they need no JAX, so on a GPU machine without it the
-file runs as `python -m pytest --noconftest tests/test_torch_cic.py -m
-cuda`.
+readouts bit for bit on the edge cases of
+fastpm_torch/ops/readout_cases.py) and skip without one; they need no
+JAX, so on a GPU machine without it the file runs as `python -m pytest
+--noconftest tests/test_torch_cic.py -m cuda`.
 """
 
 import numpy as np
@@ -188,13 +188,14 @@ def test_kernels_match_plain_on_cuda():
 @pytest.mark.cuda
 def test_readout_edges_on_cuda():
     """K2 and homed K2 (k = 1, 2, 3), K4 and K6 equal to their plain
-    versions bit for bit on the edge cases of tests/readout_cases.py at
-    a 64^3 mesh (the kernel rounds as they do, in their order), and so
-    do a sorted array and the same rows shuffled; unaligned positions
-    (the kernel's scalar copies) change nothing."""
+    versions bit for bit on the edge cases of
+    fastpm_torch/ops/readout_cases.py at a 64^3 mesh (the kernel rounds
+    as they do, in their order), and so do a sorted array and the same
+    rows shuffled; unaligned positions (the kernel's scalar copies)
+    change nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    import readout_cases as cases
+    from fastpm_torch.ops import readout_cases as cases
     dev = torch.device("cuda")
     n, box = 64, 128.0
     count = n ** 3 // 2 + 99          # a ragged last block

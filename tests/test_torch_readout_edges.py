@@ -1,9 +1,9 @@
 """The readout's plain versions (K2 and K4 cic_readout_plain, K6
 cic_readout4_plain, periodic and on one rank's extended slab) against
-the JAX package on the edge geometries of tests/readout_cases.py: cell,
-store and stale order, sorted runs across an x face, rows that wrap in
-y, the last column in z, the open slab's last plane and the rows beyond
-it, with 1, 2 and 3 fields.
+the JAX package on the edge geometries of
+fastpm_torch/ops/readout_cases.py: cell, store and stale order, sorted
+runs across an x face, rows that wrap in y, the last column in z, the
+open slab's last plane and the rows beyond it, with 1, 2 and 3 fields.
 
 The oracles are the JAX Painter with backend="never" and the XLA homed
 readout (psolver._readout_homed), and the Pallas from8 / from4 factories
@@ -27,8 +27,8 @@ from fastpm_tpu.parallel import psolver as jps
 from fastpm_tpu.ops import paint_pallas as pp
 from fastpm_tpu.ops import readout_pallas as rp
 
-import readout_cases as cases
 from fastpm_torch.ops import cic
+from fastpm_torch.ops import readout_cases as cases
 
 N, BOX, COUNT = 16, 64.0, 3000
 NLOC, H, RANK = 4, 1, 1                     # rank 1 of 4
