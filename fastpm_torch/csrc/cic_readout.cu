@@ -36,24 +36,25 @@
 // earlier sort, the 2LPT readouts come in lattice order). In store
 // order (K4) most of the 24 loads of a particle miss L2, and latency
 // bounds it. The design:
-// 1. One pass. A thread computes its particle's cell, 4 corner rows,
-//    2 columns and 8 weights once and sums every field from them. K6's
-//    two planes are two running sums in registers, added at the end: no
-//    second pass over the fields and no partial buffer (TWO_PLANES).
-// 2. Little work beside the loads. int32 flat indices (the wrappers
-//    bound the mesh below 2^31 cells); the periodic wrap by
-//    compare-and-add for bases in [-n, 2n), the exact remainder only
-//    beyond; a block's positions come in, and its (n, k) values go out,
-//    through shared memory in coalesced 16-byte accesses; the block's
-//    shared memory stays small, so L1 keeps the lines the corners share.
-// 3. Five blocks of 256 threads an SM (__launch_bounds__, 46 registers):
-//    against 6 (40 registers, the compiler's own choice) it holds fewer
-//    lines in flight for L1 to keep, which pays most in store and stale
-//    order, and against 4 or fewer it keeps enough loads in flight for
-//    cell order. K4 (store_order) prefers the largest L1 instead, which
-//    leaves room for 2 blocks: in store order a larger L1 and fewer
-//    lines in flight keep more of the corners' shared lines; in cell
-//    order it starves the gathers (bench_torch_readout.py, PERF.md).
+// 1. One pass. A thread computes its particle's cell, 8 corner indices
+//    and 8 weights once (cell() and corners() of cic_common.cuh, as the
+//    paints) and sums every field from them. K6's two planes are two
+//    running sums in registers, added at the end: no second pass over
+//    the fields and no partial buffer (TWO_PLANES).
+// 2. Little work beside the loads: int32 flat indices and the
+//    compare-and-add wrap of cic_common.cuh; a block's positions come
+//    in, and its (n, k) values go out, through shared memory in
+//    coalesced 16-byte accesses.
+// 3. Few lines in flight, so L1 keeps the ones that neighbouring
+//    particles' corners share. A thread gathers one field at a time:
+//    its 8 loads are summed before the next field's issue, so it holds
+//    8 lines in flight, not 24. Five blocks of 256 threads an SM
+//    (__launch_bounds__, 46 registers): against 6 (the compiler's own
+//    choice) fewer lines in flight, against 4 or fewer too few loads to
+//    cover the latency in cell order. Against all 24 loads at once this
+//    is 1 % faster in cell order, 6 % in stale order, 8-9 % in store
+//    order and 22 % on clustered store order (K4), where the parent's
+//    kernel had beaten the 24 loads (PERF.md, PR 5).
 // Staging the rows of a cell-sorted block in shared memory (cp.async,
 // double-buffered by field) was measured against this and lost on every
 // case, the 2LPT lattice included: at an eighth of a particle per cell a
@@ -113,30 +114,35 @@ __device__ __forceinline__ void copy_block(float* dst, const float* src,
 template <int K, bool OPEN_X, bool TWO_PLANES>
 __global__ void __launch_bounds__(THREADS, 5)
 readout_kernel(const Params a) {
-    __shared__ __align__(16) float io[3 * THREADS];  // positions, values
+    __shared__ __align__(16) float pos[3 * THREADS];
+    __shared__ __align__(16) float val[3 * THREADS];
     const int tid = threadIdx.x;
     const long long start = (long long)blockIdx.x * THREADS;
     const int cnt = (int)min((long long)THREADS, a.n - start);
 
-    copy_block(io, a.x + 3 * start, 3 * cnt, a.vec);
+    copy_block(pos, a.x + 3 * start, 3 * cnt, a.vec);
     __syncthreads();
     int idx[8];
     float w[8];
-    float res[K];
-    for (int k = 0; k < K; ++k) res[k] = 0.0f;
-    if (tid < cnt && fastpm_cic::corners(io + 3 * tid, a.nx, a.ny, a.nz,
+    const bool inside =
+        tid < cnt && fastpm_cic::corners(pos + 3 * tid, a.nx, a.ny, a.nz,
                                          a.icx, a.icy, a.icz, idx, w,
-                                         OPEN_X ? a.ax : XAxis{0, 0})) {
-        float v[K][8];
-        for (int k = 0; k < K; ++k)
-            for (int q = 0; q < 8; ++q) v[k][q] = __ldg(a.f[k] + idx[q]);
-        for (int k = 0; k < K; ++k) res[k] = weigh<TWO_PLANES>(v[k], w);
+                                         OPEN_X ? a.ax : XAxis{0, 0});
+    // one field at a time: its 8 loads are summed before the next
+    // field's issue
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+        const float* f = k == 0 ? a.f[0] : (k == 1 ? a.f[1] : a.f[2]);
+        float r = 0.0f;
+        if (inside) {
+            float v[8];
+            for (int q = 0; q < 8; ++q) v[q] = __ldg(f + idx[q]);
+            r = weigh<TWO_PLANES>(v, w);
+        }
+        val[tid * K + k] = r;
     }
-    // every position is read before io takes the values
     __syncthreads();
-    for (int k = 0; k < K; ++k) io[tid * K + k] = res[k];
-    __syncthreads();
-    copy_block(a.out + K * start, io, K * cnt, a.vec);
+    copy_block(a.out + K * start, val, K * cnt, a.vec);
 }
 
 template <int K, bool OPEN_X, bool TWO_PLANES>
