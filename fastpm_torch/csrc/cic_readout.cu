@@ -54,7 +54,7 @@
 //    cover the latency in cell order. Against all 24 loads at once this
 //    is 1 % faster in cell order, 6 % in stale order, 8-9 % in store
 //    order and 22 % on clustered store order (K4), where the parent's
-//    kernel had beaten the 24 loads (PERF.md, PR 5).
+//    kernel had beaten the 24 loads (PERF.md).
 // Staging the rows of a cell-sorted block in shared memory (cp.async,
 // double-buffered by field) was measured against this and lost on every
 // case, the 2LPT lattice included: at an eighth of a particle per cell a
@@ -76,6 +76,7 @@ struct Params {
     float icx, icy, icz;
     XAxis ax;
     const float* f[3];
+    int k;         // fields: 1 to 3
     float* out;
     bool vec;      // x and out 16-byte aligned: vector copies
 };
@@ -111,7 +112,7 @@ __device__ __forceinline__ void copy_block(float* dst, const float* src,
     }
 }
 
-template <int K, bool OPEN_X, bool TWO_PLANES>
+template <bool OPEN_X, bool TWO_PLANES>
 __global__ void __launch_bounds__(THREADS, 5)
 readout_kernel(const Params a) {
     __shared__ __align__(16) float pos[3 * THREADS];
@@ -131,7 +132,7 @@ readout_kernel(const Params a) {
     // one field at a time: its 8 loads are summed before the next
     // field's issue
 #pragma unroll 1
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < a.k; ++k) {
         const float* f = k == 0 ? a.f[0] : (k == 1 ? a.f[1] : a.f[2]);
         float r = 0.0f;
         if (inside) {
@@ -139,16 +140,16 @@ readout_kernel(const Params a) {
             for (int q = 0; q < 8; ++q) v[q] = __ldg(f + idx[q]);
             r = weigh<TWO_PLANES>(v, w);
         }
-        val[tid * K + k] = r;
+        val[tid * a.k + k] = r;
     }
     __syncthreads();
-    copy_block(a.out + K * start, val, K * cnt, a.vec);
+    copy_block(a.out + a.k * start, val, a.k * cnt, a.vec);
 }
 
-template <int K, bool OPEN_X, bool TWO_PLANES>
+template <bool OPEN_X, bool TWO_PLANES>
 int launch_as(const Params& a, cudaStream_t stream) {
     const unsigned int blocks = (unsigned int)((a.n + THREADS - 1) / THREADS);
-    readout_kernel<K, OPEN_X, TWO_PLANES><<<blocks, THREADS, 0, stream>>>(a);
+    readout_kernel<OPEN_X, TWO_PLANES><<<blocks, THREADS, 0, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -173,20 +174,11 @@ extern "C" int fastpm_cic_readout(const float* x, long long n, int nx,
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaGetLastError();
     const Params a{x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
-                   {f0, f1, f2}, out, aligned16(x) && aligned16(out)};
+                   {f0, f1, f2}, k, out, aligned16(x) && aligned16(out)};
     const bool open = n0 > 0;
     if (two_planes)
-        return open ? launch_as<3, true, true>(a, stream)
-                    : launch_as<3, false, true>(a, stream);
-    switch (k) {
-        case 1:
-            return open ? launch_as<1, true, false>(a, stream)
-                        : launch_as<1, false, false>(a, stream);
-        case 2:
-            return open ? launch_as<2, true, false>(a, stream)
-                        : launch_as<2, false, false>(a, stream);
-        default:
-            return open ? launch_as<3, true, false>(a, stream)
-                        : launch_as<3, false, false>(a, stream);
-    }
+        return open ? launch_as<true, true>(a, stream)
+                    : launch_as<false, true>(a, stream);
+    return open ? launch_as<true, false>(a, stream)
+                : launch_as<false, false>(a, stream);
 }
