@@ -81,6 +81,7 @@ D. the benchlib step at full width (256^3 particles, a 512^3 mesh, box
 """
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -181,6 +182,17 @@ def wrapper(name):
     """The wrapper of a kernel of KERNELS."""
     from fastpm_torch.ops import cic, sort
     return getattr(sort if name == "merge_pairs" else cic, name)
+
+
+def reset_peak():
+    """Start a new peak-memory count with only live tensors allocated:
+    what earlier phases left in reference cycles (a finished Solver is
+    one) is freed first, so a path's peak does not depend on when the
+    garbage collector last ran."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def reset_launches():
@@ -796,8 +808,7 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
     conf = write_lua(os.path.join(tmp, "main.lua"), SMALL_LUA % dict(
         nc=nc, box=box, nstep=nstep, zout="0.0", out=out,
         ps=os.path.join(FIXTURES, "powerspec.txt")))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     reset_launches()
     t0 = time.perf_counter()
     log = Log(echo=False)
@@ -874,8 +885,7 @@ def ncdm_path(dev, tmp, nc=256, box=768.0):
     conf, out = ncdm_lua(tmp, "ncdm_full", nc=nc, box=box)
     params = load_params(conf)
     nforce = len(params.time_step)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     reset_launches()
     t0 = time.perf_counter()
     log = Log(echo=False)
@@ -1015,8 +1025,7 @@ def homed_force(dev, store, pm, reps=5):
                 ("homed from8 multi", lambda: multi("from8")),
                 ("homed from4 carry", lambda: carry("from4")),
                 ("homed from4 multi", lambda: multi("from4"))):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             ms = time_ms(step, reps)
             print("homed force: %s %.2f ms = %.4g particle-steps/s, peak "
                   "%.3f GB" % (label, ms, n / ms * 1e3,
@@ -1149,8 +1158,7 @@ def benchlib_path(dev, x0, v0, pm, nstep=5, B=32768, every=3):
     finals, launches = {}, {}
     for name, run in runs.items():
         run[0](x0, v0, coeffs)               # warm-up (cuFFT plans)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         reset_launches()
         t0 = time.perf_counter()
         x, v = x0, v0
