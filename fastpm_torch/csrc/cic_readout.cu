@@ -49,12 +49,12 @@
 //    particles' corners share. A thread gathers one field at a time:
 //    its 8 loads are summed before the next field's issue, so it holds
 //    8 lines in flight, not 24. Five blocks of 256 threads an SM
-//    (__launch_bounds__, 46 registers): against 6 (the compiler's own
-//    choice) fewer lines in flight, against 4 or fewer too few loads to
-//    cover the latency in cell order. Against all 24 loads at once this
-//    is 1 % faster in cell order, 6 % in stale order, 8-9 % in store
-//    order and 22 % on clustered store order (K4), where the parent's
-//    kernel had beaten the 24 loads (PERF.md).
+//    (__launch_bounds__): against 6 (the compiler's own choice) fewer
+//    lines in flight, against 4 or fewer too few loads to cover the
+//    latency in cell order. Against all 24 loads at once this is 2 %
+//    faster in cell order, 6 % in stale order, 9 % in store order and
+//    24 % on clustered store order (K4); one field at the 2LPT lattice
+//    is 7 % slower (PERF.md).
 // Staging the rows of a cell-sorted block in shared memory (cp.async,
 // double-buffered by field) was measured against this and lost on every
 // case, the 2LPT lattice included: at an eighth of a particle per cell a
