@@ -13,19 +13,23 @@ Phases, in order (any failure ends the script with a nonzero exit):
    particles, a 512^3 mesh; uniform and clustered particles): each
    kernel against its plain PyTorch version on the card, K2 also with
    2 fields, with the one 256^3 field of the 2LPT readouts (at the
-   particles and at the lattice), on the uniform particles drifted by up
-   to a cell in their order (stale) and shuffled (equal to the sorted
-   rows bit for bit), and CUDA-event timings of the kernel, the plain
-   version, a PyTorch yardstick where one exists, and the least time
-   the card could take (bytes at 3.35 TB/s);
+   particles and at the lattice), K1 and K2 on the uniform particles
+   drifted by up to a cell in their order (stale) and shuffled (K2 equal
+   to the sorted rows bit for bit), and CUDA-event timings of the
+   kernel, the plain version, a PyTorch yardstick where one exists, and
+   the least time the card could take (bytes at 3.35 TB/s);
 4. K3 / K4 checks at the ncdm path's shapes, particles in store order:
    K3 adds 16.8 M CDM particles (scalar mass) and 5.24 M ncdm particles
    (a mass column) into one 512^3 canvas, K4 reads the three 512^3
-   force fields at both sets; against the plain versions, the total
-   mass, and the same timings;
+   force fields at both sets; then both given each species' cell order
+   (cell_order, the counting sort by line of csrc/cic_bin.cu, against
+   its plain version): against the plain versions, the total mass, K4's
+   rows bit for bit, and the same timings, the order's apart;
 5. golden: tests/fixtures/nbodykit.lua through fastpm_torch.cli.main
    writes 1894 FOF objects at a = 0.6667 and 1668 at a = 1.0, and logs
-   the input sigma8 0.815897;
+   the input sigma8 0.815897; the LCDM and ODE broadband series of
+   tests/test_torch_broadband.py (64^3, 8 steps) on the card: 16 lines,
+   each exact or within one unit of its last printed digit;
 6. device agreement: one 32^3 Lua file, and tests/fixtures/ncdm.lua
    (16^3 CDM + 1280 ncdm), on the CPU and on the card; both species
    agree by id, and 2/Mass agrees;
@@ -33,14 +37,16 @@ Phases, in order (any failure ends the script with a nonzero exit):
    boxsize = 768 on a 512^3 force mesh (B2), 5 time steps, P(k) files
    and a z = 0 snapshot, through fastpm_torch.cli.run_fastpm; the launch
    counters show every force step went through K1 / K2 and none
-   through K3 / K4;
+   through K3 / K4; K1 and K2 at the z = 0 state in cell order;
 8. the ncdm path at full width: tests/fixtures/ncdm.lua's physics at
    nc = 256, boxsize = 768 on a 512^3 force mesh (16.8 M CDM + 5.24 M
-   ncdm particles), its 6 time steps, through run_fastpm; K3 and K4
-   launch twice per force step, K1 never; both species' ids complete,
-   the ncdm mass sums to Omega_ncdm * RHO_CRIT * boxsize^3, one finite
-   P(k) file per force step; the multi-species force step's time and
-   profile;
+   ncdm particles), its 6 time steps, through run_fastpm; the cell
+   order, K3 and K4 launch twice per force step, K1 never; both
+   species' ids complete, the ncdm mass sums to Omega_ncdm * RHO_CRIT *
+   boxsize^3, one finite P(k) file per force step; the multi-species
+   force step's time and profile; K3 and K4 in the path's own store
+   order, and the order + K3 + K4 + gather + scatter back of a force
+   step as one device-time sum;
 A. the homed kernels at the slab force's shapes: rank 0 of one with
    H = 4, an extended slab of 521 x 512 x 512, 16.8 M cell-sorted
    particles (a 256^3 lattice displaced up to 2 cells, and clustered):
@@ -76,7 +82,8 @@ D. the benchlib step at full width (256^3 particles, a 512^3 mesh, box
    and one step of each from base's final state against base's (acc row
    by row, or per cell where rows of a cell come in another order); then
    the stale force against the carry force on the main path's z = 0
-   state moved by one more drift: by id, times and profiles;
+   state moved by one more drift: by id, times and profiles, and K1 /
+   K2 at that carried order;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -124,6 +131,10 @@ KERNELS = {
                      "fastpm_tpu/ops/readout_pallas.py:371"),
     "merge_pairs": ("fastpm_torch/csrc/bitonic_merge.cu",
                     "fastpm_tpu/ops/sort_pallas.py:92"),
+    # K3's cell order: the counting sort that replaces the sort
+    # make_paint_fn runs before K3's pallas_call
+    "cell_order": ("fastpm_torch/csrc/cic_bin.cu",
+                   "fastpm_tpu/ops/paint_pallas.py:212"),
 }
 HOMED = ("cic_paint_homed", "cic_readout_homed", "cic_paint4",
          "cic_readout4")
@@ -271,6 +282,19 @@ def check_kernels(dev, nc=256, nmesh=512, box=768.0, reps=10):
             stale -= torch.floor(stale / box) * box
             perm = torch.randperm(n, generator=g2, device=dev)
             q = jittered_lattice(nc, box, 0.0, nc, dev, 0)
+            # K1 on the same orders: the tile where a block's rows fit
+            # one, one global atomic a corner where they do not
+            for row_key, label, xx in (
+                    ("ms_stale", "stale (sorted, drifted a cell)", stale),
+                    ("ms_random", "random order", x[perm])):
+                got = cic.cic_paint(xx, mesh, inv)
+                err = check_close("K1 cic_paint %s" % label, got,
+                                  cic.cic_paint_plain(xx, mesh, inv))
+                rows["cic_paint"]["err"] = max(rows["cic_paint"]["err"], err)
+                del got
+                ms = time_ms(lambda: cic.cic_paint(xx, mesh, inv), reps)
+                print("K1 cic_paint %s: kernel_ms %.4f" % (label, ms))
+                rows["cic_paint"][row_key] = ms
             for row_key, label, fs, xx, fi in (
                     ("ms_stale", "stale (sorted, drifted a cell)", fields,
                      stale, inv),
@@ -358,7 +382,8 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
     n_cdm, n_nu = nc ** 3, (nc // every) ** 3 * nsplit
     cells = nmesh ** 3
     m_cdm = 1.0
-    rows = {"cic_paint_into": dict(err=0.0), "cic_readout3": dict(err=0.0)}
+    rows = {"cic_paint_into": dict(err=0.0), "cic_readout3": dict(err=0.0),
+            "cell_order": dict(err=0.0)}
     g = torch.Generator(device=dev).manual_seed(17)
     fields = [torch.randn(mesh, generator=g, device=dev) for _ in range(3)]
     masses = 0.5 + torch.rand(n_nu, generator=g, device=dev)
@@ -369,9 +394,9 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
             xs.append(x[torch.randperm(n, generator=g, device=dev)])
         x_cdm, x_nu = xs
 
-        def paint(fn, canvas):
-            fn(canvas, x_cdm, inv, m_cdm)
-            return fn(canvas, x_nu, inv, masses)
+        def paint(fn, canvas, *orders):
+            fn(canvas, x_cdm, inv, m_cdm, *orders[:1])
+            return fn(canvas, x_nu, inv, masses, *orders[1:])
 
         got = paint(cic.cic_paint_into, torch.zeros(mesh, device=dev))
         want = paint(cic.cic_paint_into_plain, torch.zeros(mesh, device=dev))
@@ -382,7 +407,6 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
             raise SystemExit("K3 does not conserve the total mass")
         rows["cic_paint_into"]["err"] = max(rows["cic_paint_into"]["err"],
                                             err)
-        del want
         for x, label in ((x_cdm, "CDM"), (x_nu, "ncdm")):
             err = check_close(
                 "K4 cic_readout3 %s, 3 fields %d^3 at %s" % (kind, nmesh,
@@ -392,10 +416,49 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
             rows["cic_readout3"]["err"] = max(rows["cic_readout3"]["err"],
                                               err)
 
+        # the order the multi-species force computes once and hands to
+        # both: a permutation with the plain version's line at every
+        # position, K3 agrees as before, K4 equals its rows bit for bit
+        orders = [cic.cell_order(x, mesh, inv) for x in xs]
+        check_order(kind, xs, orders, mesh, inv)
+        err = check_close("K3 cic_paint_into %s, CDM + ncdm, given their "
+                          "cell orders" % kind, paint(
+                              cic.cic_paint_into,
+                              torch.zeros(mesh, device=dev), *orders), want)
+        rows["cic_paint_into"]["err"] = max(rows["cic_paint_into"]["err"],
+                                            err)
+        same = all(torch.equal(cic.cic_readout3(*fields, x, inv, o),
+                               cic.cic_readout3(*fields, x, inv))
+                   for x, o in zip(xs, orders))
+        print("K4 cic_readout3 %s, given the cell orders: the rows in "
+              "store order bit for bit %s" % (kind, same))
+        if not same:
+            raise SystemExit("K4 depends on the order it reads in")
+
         key = "" if kind == "uniform" else "_" + kind
-        # repeated adds into one canvas: the work of a force step's paint
+        # repeated adds into one canvas: the work of a force step's paint,
+        # given the orders (the kernel alone: it reads the rows through
+        # them), and ordering its rows itself
         rows["cic_paint_into"]["ms" + key] = time_ms(
+            lambda: paint(cic.cic_paint_into, got, *orders), reps)
+        rows["cic_paint_into"]["ms_own_order" + key] = time_ms(
             lambda: paint(cic.cic_paint_into, got), reps)
+        rows["cic_readout3"]["ms_given_order" + key] = time_ms(
+            lambda: [cic.cic_readout3(*fields, x, inv, o)
+                     for x, o in zip(xs, orders)], reps)
+        ro = rows["cell_order"]
+        ro["ms" + key] = time_ms(
+            lambda: [cic.cell_order(x, mesh, inv) for x in xs], reps)
+        ro["plain_ms" + key] = time_ms(
+            lambda: [cic.cell_order_plain(x, mesh, inv) for x in xs], reps)
+        if kind == "uniform":
+            # one PyTorch call for the same grouping: torch.sort of the
+            # line keys, given the keys
+            keys = [cic.cell_key(x, mesh, inv) // nmesh for x in xs]
+            ro["library_ms"] = time_ms(
+                lambda: [torch.sort(k) for k in keys], reps)
+            del keys
+        del orders, want
         rows["cic_paint_into"]["plain_ms" + key] = time_ms(
             lambda: paint(cic.cic_paint_into_plain, got), reps)
         rows["cic_readout3"]["ms" + key] = time_ms(
@@ -413,19 +476,53 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
         del got
     torch.cuda.synchronize()
 
-    # bytes: positions (and the ncdm masses) read once, the canvas read
-    # and written once (K3 adds into it), the fields read once and the
-    # values written once (K4). operations: as K1 / K2 per particle
+    # bytes: positions, the cell orders (int64) and the ncdm masses read
+    # once, the canvas read and written once (K3 adds into it), the
+    # fields read once and the values written once (K4). operations: as
+    # K1 / K2 per particle
     n = n_cdm + n_nu
     rows["cic_paint_into"]["bound"] = bound_ms(
-        12 * n + 4 * n_nu + 2 * 4 * cells, 40 * n)
+        12 * n + 8 * n + 4 * n_nu + 2 * 4 * cells, 40 * n)
     rows["cic_readout3"]["bound"] = bound_ms(
         12 * n + 3 * 4 * cells + 12 * n, (40 + 48) * n)
+    # positions read once, the order (int64) written once; the line
+    # counts (4 B a line) written once. operations: the cell, ~20 a row
+    rows["cell_order"]["bound"] = bound_ms(
+        12 * n + 8 * n + 4 * nmesh * nmesh, 20 * n)
     print_rows(rows)
-    print("cic_paint_into uniform: CDM alone %.4f ms, ncdm alone %.4f ms"
-          % (rows["cic_paint_into"]["ms_cdm"],
-             rows["cic_paint_into"]["ms_ncdm"]))
+    r3, r4 = rows["cic_paint_into"], rows["cic_readout3"]
+    print("cic_paint_into uniform: CDM alone %.4f ms, ncdm alone %.4f ms "
+          "(each ordering its rows)" % (r3["ms_cdm"], r3["ms_ncdm"]))
+    for key in ("", "_clustered"):
+        print("random order%s, both species: the cell order %.4f ms apart; "
+              "given the orders K3 %.4f ms, K4 + gather + scatter back "
+              "%.4f ms (K4 in store order %.4f); K3 ordering its rows "
+              "itself %.4f ms" % (
+                  key.replace("_", ", "), rows["cell_order"]["ms" + key],
+                  r3["ms" + key], r4["ms_given_order" + key],
+                  r4["ms" + key], r3["ms_own_order" + key]))
     return rows
+
+
+def check_order(label, xs, orders, mesh, inv):
+    """cell_order's kernel against its plain version: each order is a
+    permutation, and the line (base plane * ny + base row) at every
+    position equals the plain version's (rows of one line may come in
+    any order)."""
+    import torch
+    from fastpm_torch.ops import cic
+    for x, o in zip(xs, orders):
+        n = x.shape[0]
+        line = cic.cell_key(x, mesh, inv).long() // mesh[2]
+        perm = torch.equal(torch.sort(o.index).values,
+                           torch.arange(n, device=x.device))
+        same = torch.equal(line[o.index],
+                           line[cic.cell_order_plain(x, mesh, inv).index])
+        print("cell_order %s, %d rows: a permutation %s, the plain "
+              "version's line at every position %s" % (label, n, perm,
+                                                       same))
+        if not (perm and same):
+            raise SystemExit("cell_order disagrees with its plain version")
 
 
 def grid_sample_ms(fields, xs, inv, nmesh, reps, slab=None):
@@ -711,6 +808,68 @@ def golden(dev, tmp):
             raise SystemExit("golden: FOF count mismatch")
 
 
+def broadband(dev):
+    """Phase 5, second part: the LCDM and ODE broadband series of
+    tests/test_torch_broadband.py (the reference's lightcone checks,
+    64^3 on 64^3, 8 steps) on the card, through K1 and K2. A line that
+    is not printed exactly as the golden must be within one unit of its
+    last printed digit (f32 atomics fix no order of the paint's sums),
+    and is shown with its unrounded value."""
+    import importlib.util
+    import math
+    from fastpm_torch.powerspectrum import measure_power
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_broadband", os.path.join(ROOT, "tests",
+                                             "test_torch_broadband.py"))
+    bb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bb)
+
+    def near(got, want):
+        # one unit in the last of %g's 6 significant digits
+        unit = 10.0 ** (math.floor(math.log10(abs(want))) - 5)
+        return abs(got - want) <= unit * (1 + 1e-9)
+
+    exact = total = 0
+    for mode in ("lcdm", "ode"):
+        raw = []
+
+        def on_force(event):
+            ps = measure_power(event.pm, event.delta_k, ring=event.solver.ring)
+            raw.append(ps.large_scale(4) / event.solver.cosmology.growth_info(
+                event.a_f).D1 ** 2)
+
+        t0 = time.perf_counter()
+        log, var = bb.run_series(mode, dev, on_force)
+        print("broadband %s: 64^3, 8 steps in %.1f s" % (
+            mode, time.perf_counter() - t0))
+        if mode == "ode":
+            ok = "%.8f" % var == bb.ODE_VARIANCE
+            print("broadband ode: white-noise variance %.8f (want %s) %s"
+                  % (var, bb.ODE_VARIANCE, "exact" if ok else
+                     "within 1e-8" if abs(var - float(bb.ODE_VARIANCE))
+                     <= 1.0000001e-8 else "FAIL"))
+            if not abs(var - float(bb.ODE_VARIANCE)) <= 1.0000001e-8:
+                raise SystemExit("broadband ode: white-noise variance")
+        for i, golden in enumerate(bb.GOLDENS[mode]):
+            head, want = golden.split(" = ")
+            line = next((l for l in log.lines if l.startswith(head + " = ")),
+                        "")
+            got = line[len(head) + 3:].split()[0] if line else "nan"
+            total += 1
+            if log.contains(golden):
+                exact += 1
+                print("broadband %s: %s = %s exact" % (mode, head, got))
+            elif line and near(float(got), float(want)):
+                print("broadband %s: %s = %s (unrounded %.9g) against %s: "
+                      "one unit in the last digit" % (mode, head, got,
+                                                      raw[i], want))
+            else:
+                raise SystemExit("broadband %s: %s = %s, want %s"
+                                 % (mode, head, got, want.strip()))
+    print("broadband: %d of %d lines exact, the rest within one unit of "
+          "the last printed digit" % (exact, total))
+
+
 def read_by_id(path, dataset="1", columns=("Position", "Velocity")):
     """(ids, *columns) of one species, sorted by id."""
     import numpy as np
@@ -830,9 +989,8 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
                         launches["cic_readout3"]))
     print("main path: max_memory_allocated %.3f GB"
           % (peak / 1e9))
-    if launches != dict({"cic_paint": nforce, "cic_readout": nforce + 6,
-                         "cic_paint_into": 0, "cic_readout3": 0,
-                         "merge_pairs": 0}, **{k: 0 for k in HOMED}):
+    if launches != dict({k: 0 for k in KERNELS}, cic_paint=nforce,
+                        cic_readout=nforce + 6):
         raise SystemExit("main path did not run through K1 / K2 alone: %s"
                          % launches)
 
@@ -860,15 +1018,24 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
           "%.4g particle-steps/s" % (force_ms, nc ** 3 / force_ms * 1e3))
     profile_force(lambda: gravity.compute_force_carry(
         pm, painter, store.wrap(pm.BoxSize)))
-    # K2 alone on the z = 0 state in cell order, as the force reads out
+    # K1 and K2 alone on the z = 0 state in cell order, as the force
+    # paints and reads out
+    mesh, inv = tuple(pm.Nmesh), pm.InvCellSize
     x = store.wrap(pm.BoxSize).x
-    x = x[cic.sort_by_cell(x, pm.Nmesh, pm.InvCellSize)].contiguous()
-    fields = [torch.randn(tuple(pm.Nmesh), device=dev) for _ in range(3)]
-    print("main path: K2 at the z = 0 state in cell order, 3 fields: "
-          "kernel_ms %.4f" % time_ms(lambda: cic.cic_readout(fields, x,
-                                                              pm.InvCellSize)))
+    x = x[cic.sort_by_cell(x, mesh, inv)].contiguous()
+    fields = [torch.randn(mesh, device=dev) for _ in range(3)]
+    err = check_close("K1 cic_paint at the z = 0 state in cell order",
+                      cic.cic_paint(x, mesh, inv),
+                      cic.cic_paint_plain(x, mesh, inv))
+    rows = {"cic_paint": dict(ms_z0=time_ms(
+                lambda: cic.cic_paint(x, mesh, inv)), err=err),
+            "cic_readout": dict(ms_z0=time_ms(
+                lambda: cic.cic_readout(fields, x, inv)))}
+    print("main path: at the z = 0 state in cell order K1 kernel_ms %.4f, "
+          "K2 (3 fields) kernel_ms %.4f" % (rows["cic_paint"]["ms_z0"],
+                                            rows["cic_readout"]["ms_z0"]))
     del x, fields
-    return launches, solver, pm
+    return launches, solver, pm, rows
 
 
 def ncdm_path(dev, tmp, nc=256, box=768.0):
@@ -900,14 +1067,16 @@ def ncdm_path(dev, tmp, nc=256, box=768.0):
           "force steps, wall %.2f s (ICs and 2LPT of both species, steps, "
           "P(k), snapshot)" % (cdm.np_local, nu.np_local, 2 * nc, nforce,
                                wall))
-    want = dict({"cic_paint": 0, "cic_readout": 6 + 9,
-                 "cic_paint_into": 2 * nforce, "cic_readout3": 2 * nforce,
-                 "merge_pairs": 0}, **{k: 0 for k in HOMED})
-    print("ncdm path: launches %s (want %s: K3 and K4 twice per force "
-          "step, K2 = 6 CDM + 9 ncdm 2LPT readouts)" % (launches, want))
+    want = dict({k: 0 for k in KERNELS}, cic_readout=6 + 9,
+                cic_paint_into=2 * nforce, cic_readout3=2 * nforce,
+                cell_order=2 * nforce)
+    print("ncdm path: launches %s (want %s: the cell order, K3 and K4 "
+          "twice per force step, K2 = 6 CDM + 9 ncdm 2LPT readouts)"
+          % (launches, want))
     print("ncdm path: max_memory_allocated %.3f GB" % (peak / 1e9))
     if launches != want:
-        raise SystemExit("ncdm path did not run through K3 / K4")
+        raise SystemExit("ncdm path did not run through its cell order, "
+                         "K3 and K4")
 
     snap = os.path.join(out, "fastpm_1.0000")
     for dataset, count in (("1", cdm.np_local), ("2", nu.np_local)):
@@ -941,11 +1110,76 @@ def ncdm_path(dev, tmp, nc=256, box=768.0):
         return gravity.compute_force(pm, painter, stores)
 
     force_ms = time_ms(step, reps=5)
-    print("ncdm path: force step %.2f ms (K3 x 2 + FFTs + K4 x 2) = "
-          "%.4g particle-steps/s (N = %.1f M)"
+    print("ncdm path: force step %.2f ms (cell sorts, K3 x 2 + FFTs + K4 "
+          "x 2) = %.4g particle-steps/s (N = %.1f M)"
           % (force_ms, n / force_ms * 1e3, n / 1e6))
-    profile_force(step)
-    return launches
+    prof = profile_force(step)
+    print("ncdm path: in the force step's profile K3 (deposit_kernel) "
+          "%.4f ms, K4 (readout_kernel) %.4f ms"
+          % (prof.get("deposit_kernel", 0.0), prof.get("readout_kernel", 0.0)))
+    return launches, store_order_rows(dev, pm, stores)
+
+
+def store_order_rows(dev, pm, stores, reps=10):
+    """Phase 8, K3 and K4 in the ncdm path's own store order (its z = 0
+    stores): K3 against its plain version, the cell sort's time apart,
+    and the force step's K3 + sort + gathers + K4 + scatter back as one
+    device-time sum. Returns the rows' entries."""
+    import numpy as np
+    import torch
+    from fastpm_torch.ops import cic
+
+    mesh, inv = tuple(pm.Nmesh), pm.InvCellSize
+    xs = [p.x for p in stores]
+    masses = [float(np.float32(stores[0].M0)), stores[1].mass]
+    fields = [torch.randn(mesh, device=dev) for _ in range(3)]
+    canvas = torch.zeros(mesh, device=dev)
+
+    def order():
+        return [cic.cell_order(x, mesh, inv) for x in xs]
+
+    def paint(orders, fn=cic.cic_paint_into):
+        for x, m, o in zip(xs, masses, orders):
+            fn(canvas, x, inv, m, *([o] if o is not None else []))
+
+    def read(orders):
+        return [cic.cic_readout3(*fields, x, inv, o)
+                for x, o in zip(xs, orders)]
+
+    def whole():
+        orders = order()
+        paint(orders)
+        return read(orders)
+
+    orders = order()
+    check_order("in the ncdm path's store order", xs, orders, mesh, inv)
+    paint(orders)
+    want = canvas.clone().zero_()
+    for x, m in zip(xs, masses):
+        cic.cic_paint_into_plain(want, x, inv, m)
+    err = check_close("K3 cic_paint_into, the ncdm path's store order, "
+                      "given the cell orders", canvas, want)
+    del want
+    r3 = dict(err=err, ms_store_order=time_ms(lambda: paint(orders), reps),
+              ms_own_order_store_order=time_ms(lambda: paint([None, None]),
+                                               reps))
+    ro = dict(ms_store_order=time_ms(order, reps))
+    r4 = dict(ms_store_order=time_ms(lambda: read([None, None]), reps),
+              ms_given_order_store_order=time_ms(lambda: read(orders), reps))
+    total = time_ms(whole, reps)
+    print("ncdm path, store order, both species: the cell order %.4f ms; "
+          "given the orders K3 %.4f ms, K4 + gather + scatter back %.4f ms "
+          "(K4 in store order %.4f); K3 ordering its rows itself %.4f ms"
+          % (ro["ms_store_order"], r3["ms_store_order"],
+             r4["ms_given_order_store_order"], r4["ms_store_order"],
+             r3["ms_own_order_store_order"]))
+    print("ncdm path: the cell order + K3 + K4 + gather + scatter back, as "
+          "the force step runs them: %.4f ms of device time (the parts: "
+          "%.4f; before the shared order K3 + K4 took 6.18 ms, PERF.md)"
+          % (total, ro["ms_store_order"] + r3["ms_store_order"]
+             + r4["ms_given_order_store_order"]))
+    r3["sum_ms_store_order"] = total
+    return {"cic_paint_into": r3, "cic_readout3": r4, "cell_order": ro}
 
 
 def homed_force(dev, store, pm, reps=5):
@@ -1254,11 +1488,19 @@ def stale_force(solver, pm, reps=5):
     if not err <= 1e-5 * scale:
         raise SystemExit("the stale force disagrees with the carry force")
     del carried, stale, want
-    fields = [torch.randn(tuple(pm.Nmesh), device=store.x.device)
-              for _ in range(3)]
-    print("stale force: K2 at the carried order drifted one step, 3 "
-          "fields: kernel_ms %.4f" % time_ms(
-              lambda: cic.cic_readout(fields, store.x, pm.InvCellSize)))
+    mesh, inv = tuple(pm.Nmesh), pm.InvCellSize
+    fields = [torch.randn(mesh, device=store.x.device) for _ in range(3)]
+    err = check_close("K1 cic_paint at the carried order drifted one step",
+                      cic.cic_paint(store.x, mesh, inv),
+                      cic.cic_paint_plain(store.x, mesh, inv))
+    rows = {"cic_paint": dict(err=err, ms_stale_carried=time_ms(
+                lambda: cic.cic_paint(store.x, mesh, inv))),
+            "cic_readout": dict(ms_stale_carried=time_ms(
+                lambda: cic.cic_readout(fields, store.x, inv)))}
+    print("stale force: at the carried order drifted one step K1 "
+          "kernel_ms %.4f, K2 (3 fields) kernel_ms %.4f"
+          % (rows["cic_paint"]["ms_stale_carried"],
+             rows["cic_readout"]["ms_stale_carried"]))
     del fields
     n = store.np_local
     for label, fn in (("carry", gravity.compute_force_carry),
@@ -1267,6 +1509,7 @@ def stale_force(solver, pm, reps=5):
         print("%s force step on the drifted z = 0 state: %.2f ms = %.4g "
               "particle-steps/s" % (label, ms, n / ms * 1e3))
         profile_force(lambda: fn(pm, painter, store))
+    return rows
 
 
 def profile_force(step, top=12):
@@ -1295,6 +1538,9 @@ def profile_force(step, top=12):
     for key, us, count in rows[:top]:
         print("force profile: %8.3f ms %5.1f%% x%d %s"
               % (us / 1e3, 100 * us / busy, count, key[:90]))
+    # device ms a step by the port's kernels, for the paths' summaries
+    return {name: sum(us for key, us, _ in rows if name in key) / 1e3
+            for name in ("deposit_kernel", "readout_kernel")}
 
 
 def main():
@@ -1328,17 +1574,22 @@ def main():
     rows.update(check_merge(dev, x0, v0, bpm))
     with tempfile.TemporaryDirectory() as tmp:
         golden(dev, tmp)
+        broadband(dev)
         device_agreement(dev, tmp)
         ncdm_agreement(dev, tmp)
         # each path's launches are read from its own run
-        launches, solver, pm = main_path(dev, tmp)
-        ncdm_launches = ncdm_path(dev, tmp)
+        launches, solver, pm, more = main_path(dev, tmp)
+        ncdm_launches, more_ncdm = ncdm_path(dev, tmp)
     homed_launches = homed_force(dev, solver.species["cdm"], pm)
     bench_launches = benchlib_path(dev, x0, v0, bpm)
     del x0, v0
-    stale_force(solver, pm)
+    more_stale = stale_force(solver, pm)
     del solver
-    for name in ("cic_paint_into", "cic_readout3"):
+    for extra in (more, more_ncdm, more_stale):
+        for name, r in extra.items():
+            err = max(rows[name]["err"], r.pop("err", 0.0))
+            rows[name].update(r, err=err)
+    for name in ("cic_paint_into", "cic_readout3", "cell_order"):
         launches[name] = ncdm_launches[name]
     for name in HOMED:
         launches[name] = homed_launches[name]
@@ -1357,16 +1608,14 @@ def main():
             "bound_by": r["bound"][1],
             # K1 and K3: no single PyTorch call deposits with CIC
             # weights (index_add_ needs the corners and weights first,
-            # which is the plain version)
+            # which is the plain version); cell_order: torch.sort of the
+            # line keys
             "library_ms": r.get("library_ms")})
-        # K7 has no clustered case: a sorting network does not depend
-        # on the data
-        for key in ("ms_clustered", "plain_ms_clustered", "ms_periodic",
-                    "plain_ms_periodic", "library_ms_periodic",
-                    "launches_periodic", "library_ms_full_sort", "ms_stale",
-                    "ms_random"):
-            if key in r:
-                kernels[-1][key] = r[key]
+        # the other rows of each kernel (K7 has no clustered case: a
+        # sorting network does not depend on the data)
+        for key, val in r.items():
+            if key not in ("err", "bound") and key not in kernels[-1]:
+                kernels[-1][key] = val
     print("chip_smoke: every phase, the build included, in %.1f s"
           % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))

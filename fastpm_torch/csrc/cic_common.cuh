@@ -1,6 +1,7 @@
 // Device code shared by the CIC kernels: the base cell, fraction and the
-// 8 corner indices and weights of one particle, for the paints K1, K3
-// and K5 and the readout (K2, K4, K6, csrc/cic_readout.cu). The homed
+// 8 corner indices and weights of one particle, for the paints (K1 and
+// K3 through cic_deposit.cuh, K5) and the readout (K2, K4, K6,
+// csrc/cic_readout.cu). The homed
 // paint counts a particle as beyond its slab exactly where the homed
 // readout reads it as zero, because both take cell() below.
 //
@@ -113,23 +114,6 @@ __device__ __forceinline__ bool corners(const float* p, int nx, int ny,
     plane_corners(0, lo, hi, f, t, ny, nz, idx, w);
     plane_corners(1, lo, hi, f, t, ny, nz, idx + 4, w + 4);
     return true;
-}
-
-// Add mass m of the particle at p at its 8 corners of canvas (float
-// atomics). A particle beyond an open x-slab deposits nothing and adds
-// one to *bad.
-__device__ __forceinline__ void deposit(const float* p, int nx, int ny,
-                                        int nz, float icx, float icy,
-                                        float icz, float m, float* canvas,
-                                        XAxis ax = XAxis{0, 0},
-                                        int* bad = nullptr) {
-    int idx[8];
-    float w[8];
-    if (!corners(p, nx, ny, nz, icx, icy, icz, idx, w, ax)) {
-        atomicAdd(bad, 1);
-        return;
-    }
-    for (int c = 0; c < 8; ++c) atomicAdd(canvas + idx[c], __fmul_rn(w[c], m));
 }
 
 }  // namespace fastpm_cic

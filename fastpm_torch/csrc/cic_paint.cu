@@ -19,48 +19,22 @@
 // cic_common.cuh; a particle beyond the slab deposits nothing and is
 // counted in *bad (the overflow contract of the homed force).
 //
-// What bounds it on an H100: device-memory bytes (12 B read per
-// particle, the canvas written once) and, under clustering, atomic
-// throughput on hot cells. One thread per particle with 8 float
-// atomicAdds. The caller passes particles sorted by cell, so the
-// threads of a warp touch neighbouring canvas lines and most atomics
-// resolve in L2. Shared-memory tiling over the sorted order and warp
-// aggregation of atomics are left for later work.
+// What bounds it on an H100: the canvas's read-modify-writes in L2, and
+// under clustering the atomics that pile onto hot cells. Both forms run
+// the tiled deposit of cic_deposit.cuh: a block gathers 1024 rows' 8
+// corners in a shared-memory tile of their footprint and adds the tile
+// into the canvas once, in float4 reductions of whole lines; rows whose
+// footprint does not fit take one global atomic a corner. The TPU
+// kernel's windows over the sorted order become the chunks' footprints.
 //
 // The canvas must be zeroed by the caller (the homed form adds into it,
 // so species accumulate). f32 atomics land in an order that changes from
 // run to run, so the result differs in the last bits between runs.
 
-#include "cic_common.cuh"
+#include "cic_deposit.cuh"
 
-namespace {
-
+using fastpm_cic::Deposit;
 using fastpm_cic::XAxis;
-
-__global__ void cic_paint_kernel(const float* __restrict__ x, long long n,
-                                 int nx, int ny, int nz,
-                                 float icx, float icy, float icz,
-                                 float mass, float* __restrict__ canvas) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    fastpm_cic::deposit(x + 3 * i, nx, ny, nz, icx, icy, icz, mass,
-                        canvas);
-}
-
-__global__ void cic_paint_homed_kernel(const float* __restrict__ x,
-                                       long long n, int nx, int ny, int nz,
-                                       float icx, float icy, float icz,
-                                       XAxis ax, float mass,
-                                       const float* __restrict__ masses,
-                                       float* __restrict__ canvas,
-                                       int* __restrict__ bad) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    fastpm_cic::deposit(x + 3 * i, nx, ny, nz, icx, icy, icz,
-                        masses ? masses[i] : mass, canvas, ax, bad);
-}
-
-}  // namespace
 
 // Paint n particles (x: n x 3 float32, device) of mass `mass` onto
 // canvas (nx*ny*nz float32, device, zeroed) on `stream`. Returns
@@ -69,13 +43,10 @@ extern "C" int fastpm_cic_paint(const float* x, long long n, int nx, int ny,
                                 int nz, float icx, float icy, float icz,
                                 float mass, float* canvas,
                                 cudaStream_t stream) {
-    if (n > 0) {
-        const int threads = 256;
-        const long long blocks = (n + threads - 1) / threads;
-        cic_paint_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(
-            x, n, nx, ny, nz, icx, icy, icz, mass, canvas);
-    }
-    return (int)cudaGetLastError();
+    return fastpm_cic::launch_deposit(
+        Deposit{x, nullptr, n, nx, ny, nz, icx, icy, icz, XAxis{0, 0}, mass,
+                nullptr, canvas, nullptr, fastpm_cic::deposit_vec(nz, canvas)},
+        stream);
 }
 
 // Add n particles of mass `mass`, or of masses[i] when masses is not
@@ -90,12 +61,9 @@ extern "C" int fastpm_cic_paint_homed(const float* x, long long n, int nx,
                                       float* canvas, int* bad,
                                       cudaStream_t stream) {
     if (n0 <= 0 || nx < 2) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        const int threads = 256;
-        const long long blocks = (n + threads - 1) / threads;
-        cic_paint_homed_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(
-            x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift}, mass, masses,
-            canvas, bad);
-    }
-    return (int)cudaGetLastError();
+    return fastpm_cic::launch_deposit(
+        Deposit{x, nullptr, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
+                mass, masses, canvas, bad,
+                fastpm_cic::deposit_vec(nz, canvas)},
+        stream);
 }

@@ -14,7 +14,10 @@ JAX names:
 - compute_force (gravity.py:65-158): every other case, such as CDM plus
   ncdm with its mass column. All species are painted into one canvas
   (paint_delta_k; K3 for CIC) and the force is read out per species
-  (Painter.readout3; K4 for CIC). Row order is kept.
+  (Painter.readout3; K4 for CIC). Row order is kept: with the CIC
+  kernels each species' cell order is computed once a step and serves
+  both K3 and K4, which read their rows in it (K4 scatters the values
+  back), so the stores are never permuted.
 
 carry_eligible picks between them, as the JAX solver does.
 """
@@ -45,9 +48,11 @@ def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str):
     return delta_k, pm.c2r_grad3(pot_k, kernels.kernel_orders(kernel_type)[1])
 
 
-def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store]):
+def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
+                  orders=None):
     """Paint all species into one canvas and return the overdensity
     transform delta_k (_fastpm_solver_compute_delta_k, gravity.c:304-356).
+    orders: one CellOrder (or None) per species, handed to the painter.
 
     The canvas entering r2c is 1 + delta: mass per cell over the mean
     mass per cell. The total mass is M0 * N for a scalar-mass species
@@ -55,13 +60,14 @@ def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store]):
     stays on the device (float64)."""
     canvas = None
     total_mass = 0.0
-    for p in stores:
+    for p, order in zip(stores, orders or [None] * len(stores)):
         if p.mass is not None:
             total_mass = total_mass + p.mass.sum(dtype=torch.float64)
-            canvas = painter.paint(p.x, p.mass, canvas)
+            canvas = painter.paint(p.x, p.mass, canvas, order)
         else:
             total_mass = total_mass + p.M0 * p.np_local
-            canvas = painter.paint(p.x, float(np.float32(p.M0)), canvas)
+            canvas = painter.paint(p.x, float(np.float32(p.M0)), canvas,
+                                   order)
     return pm.r2c(canvas / (total_mass / pm.Norm))
 
 
@@ -73,11 +79,13 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
     Returns (stores with acc filled, delta_k). delta_k has the softening
     applied but not the deCIC compensation (the caller applies that for
     the power spectrum event, solver.c:466-471)."""
-    delta_k = paint_delta_k(pm, painter, stores)
+    orders = [cic.cell_order(p.x, pm.Nmesh, pm.InvCellSize)
+              if painter.is_cic else None for p in stores]
+    delta_k = paint_delta_k(pm, painter, stores, orders)
     delta_k, (f0, f1, f2) = _force_fields(pm, delta_k, kernel_type,
                                           softening_type)
-    return ([p.replace(acc=painter.readout3(f0, f1, f2, p.x))
-             for p in stores], delta_k)
+    return ([p.replace(acc=painter.readout3(f0, f1, f2, p.x, order))
+             for p, order in zip(stores, orders)], delta_k)
 
 
 def carry_eligible(painter: Painter, stores: Sequence[Store]) -> bool:

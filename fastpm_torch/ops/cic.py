@@ -13,10 +13,15 @@ PyTorch versions, and the cell sort that prepares the order-free force.
   (make_readout3_from8_homed_fn);
 - K3 cic_paint_into: particles in any order, scalar mass or a mass
   column, added into a canvas the caller owns (replaces
-  paint_pallas.py:_paint_kernel);
+  paint_pallas.py:_paint_kernel): K1's tiled deposit reads the rows in
+  cell order, a CellOrder the caller has or one of its own (cell_order,
+  the counting sort of csrc/cic_bin.cu that replaces the TPU factory's
+  sort);
 - K4 cic_readout3: the three force fields at particles in any order,
   rows in the caller's order (replaces readout_pallas.py:_readout_kernel;
   it launches K2's kernel with three fields, under its own counter);
+  given a CellOrder it reads the rows in that order and scatters the
+  values back;
 - K5 cic_paint4: K1's deposit in two passes of 4 corners, periodic or
   homed (replaces paint_pallas.py:_paint_kernel4, both
   make_paint_from4_fn and make_paint_from4_homed_fn);
@@ -29,7 +34,8 @@ PyTorch versions, and the cell sort that prepares the order-free force.
 The port keeps the TPU kernels' contract, not their mechanism (see
 csrc/*.cu). One kernel, csrc/cic_readout.cu, serves every readout (K2,
 homed K2, K4, K6); it rounds each product and sum as the plain versions
-do, in their order, so on the card the two agree bit for bit.
+do, in their order, so on the card the two agree bit for bit. One
+deposit body, csrc/cic_deposit.cuh, serves K1, homed K1 and K3.
 
 Every function takes positions x (N, 3) float32 in box units and the
 mesh as (Nmesh, InvCellSize). The base cell and fraction follow
@@ -60,7 +66,8 @@ import torch
 
 from .cudalib import launch as _launch
 
-__all__ = ["Slab", "cell_key", "sort_by_cell", "slab_cell", "cic_paint",
+__all__ = ["Slab", "CellOrder", "cell_key", "sort_by_cell", "cell_order",
+           "cell_order_plain", "slab_cell", "cic_paint",
            "cic_readout", "cic_paint_into", "cic_readout3",
            "cic_paint_homed", "cic_readout_homed", "cic_paint4",
            "cic_readout4",
@@ -119,6 +126,73 @@ def sort_by_cell(x: torch.Tensor, nmesh, inv_cell) -> torch.Tensor:
     (the prepare step of make_prepare_carry_fn, paint_pallas.py:440-541);
     apply it to every store column."""
     return torch.sort(cell_key(x, nmesh, inv_cell), stable=True).indices
+
+
+class CellOrder(NamedTuple):
+    """A permutation that puts one set of positions in cell order, as
+    cell_order makes it: index (N,) int64, the rows grouped by the (x, y)
+    line of their base cell, lines ascending. K3 and K4 take it as made
+    (the multi-species force computes one per species and step and hands
+    it to both); a plain index tensor passed as their `order` is first
+    checked to be a permutation, which waits for the device."""
+
+    index: torch.Tensor
+
+
+def _line_key(x, nmesh, inv_cell):
+    base, _ = cell_frac(x, nmesh, inv_cell)
+    return base[:, 0] * nmesh[1] + base[:, 1]
+
+
+def cell_order_plain(x: torch.Tensor, nmesh, inv_cell) -> CellOrder:
+    """Plain cell_order: the stable sort of the rows by line."""
+    return CellOrder(torch.sort(_line_key(x, nmesh, inv_cell),
+                                stable=True).indices)
+
+
+def cell_order(x: torch.Tensor, nmesh, inv_cell) -> CellOrder:
+    """The CellOrder of positions x (N, 3) on a mesh. On CUDA this is a
+    counting sort by line (csrc/cic_bin.cu: count, torch.cumsum, scatter),
+    where the rows of one line come in no fixed order; on the CPU the
+    plain version's stable sort."""
+    _check_positions(x)
+    nmesh = tuple(int(n) for n in nmesh)
+    _check_mesh(nmesh)
+    if x.device.type == "cpu":
+        return cell_order_plain(x, nmesh, inv_cell)
+    x = x.contiguous()
+    head = (x.data_ptr(), x.shape[0], *nmesh, *_inv32(inv_cell))
+    counts = torch.empty(nmesh[0] * nmesh[1], dtype=torch.int32,
+                         device=x.device)
+    _launch("fastpm_cic_bin_count", *head, counts.data_ptr(),
+            device=x.device)
+    cursor = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    order = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    _launch("fastpm_cic_bin_scatter", *head, cursor.data_ptr(),
+            order.data_ptr(), device=x.device)
+    cell_order.launches += 1
+    return CellOrder(order)
+
+
+cell_order.launches = 0
+
+
+def _order_index(order, x):
+    """The (N,) int64 permutation of an `order` argument for the rows of
+    x. Raises on a wrong type, length or device, and on a plain tensor
+    that is not a permutation."""
+    made = isinstance(order, CellOrder)
+    idx = order.index if made else order
+    n = x.shape[0]
+    if (not torch.is_tensor(idx) or idx.dtype != torch.int64
+            or tuple(idx.shape) != (n,) or idx.device != x.device):
+        raise ValueError("order must be a CellOrder or an (N,) int64 "
+                         "permutation of the rows, on the device of the "
+                         "positions")
+    if not made and not torch.equal(
+            torch.sort(idx).values, torch.arange(n, device=idx.device)):
+        raise ValueError("order is not a permutation of the rows")
+    return idx
 
 
 def slab_cell(x: torch.Tensor, nmesh, inv_cell, slab: Slab):
@@ -285,9 +359,10 @@ def _check_canvas(canvas, x, mass):
 def cic_paint(x: torch.Tensor, nmesh, inv_cell, mass=1.0) -> torch.Tensor:
     """Deposit a scalar mass at every particle into a new (nx, ny, nz)
     float32 canvas. On CUDA this launches K1 (csrc/cic_paint.cu). It is
-    right for particles in any order; cell order only buys locality of
-    the atomics (the stale force paints in a carried, no longer sorted
-    order). The canvas differs from run to run in the last bits (f32
+    right for particles in any order; cell order lets a block's rows go
+    through a shared-memory tile (the stale force paints in a carried,
+    no longer sorted order, and takes the tile where its rows still fit
+    one). The canvas differs from run to run in the last bits (f32
     atomics)."""
     _check_positions(x)
     nmesh = tuple(int(n) for n in nmesh)
@@ -310,22 +385,31 @@ cic_paint.launches = 0
 
 
 def cic_paint_into(canvas: torch.Tensor, x: torch.Tensor, inv_cell,
-                   mass=1.0) -> torch.Tensor:
+                   mass=1.0, order=None) -> torch.Tensor:
     """Add mass (a scalar or an (N,) float32 tensor) at every particle,
     in any order, into canvas (a contiguous (nx, ny, nz) float32 tensor
-    on the device of x), in place; returns canvas. On CUDA this launches
-    K3 (csrc/cic_paint_into.cu); the sum differs from run to run in the
-    last bits (f32 atomics)."""
+    on the device of x), in place; returns canvas. order, a CellOrder of
+    x (or an (N,) int64 permutation, checked), is the order the rows are
+    deposited in; on CUDA without one K3 computes it (cell_order), as
+    the TPU kernel sorts its rows first. K3 (csrc/cic_paint_into.cu,
+    K1's tiled deposit) reads the rows through it; the sum differs from
+    run to run in the last bits (f32 atomics)."""
     _check_positions(x)
     nmesh, column = _check_canvas(canvas, x, mass)
+    idx = None if order is None else _order_index(order, x)
     if x.device.type == "cpu":
+        if idx is not None:
+            x = torch.index_select(x, 0, idx)
+            mass = torch.index_select(mass, 0, idx) if column else mass
         return cic_paint_into_plain(canvas, x, inv_cell, mass)
+    idx = (cell_order(x, nmesh, inv_cell).index if idx is None
+           else idx.contiguous())
     x = x.contiguous()
     masses = mass.contiguous() if column else None
     _launch("fastpm_cic_paint_into", x.data_ptr(), x.shape[0], *nmesh,
             *_inv32(inv_cell), 0.0 if column else float(mass),
-            masses.data_ptr() if column else None, canvas.data_ptr(),
-            device=x.device)
+            masses.data_ptr() if column else None, idx.data_ptr(),
+            canvas.data_ptr(), device=x.device)
     cic_paint_into.launches += 1
     return canvas
 
@@ -450,18 +534,33 @@ def cic_readout_homed(fields, x: torch.Tensor, inv_cell,
 cic_readout_homed.launches = 0
 
 
-def cic_readout3(cx, cy, cz, x: torch.Tensor, inv_cell) -> torch.Tensor:
+def cic_readout3(cx, cy, cz, x: torch.Tensor, inv_cell,
+                 order=None) -> torch.Tensor:
     """Interpolate the three (nx, ny, nz) float32 force fields at every
     particle, in any order: (N, 3) float32, row i for particle i. On
     CUDA this launches K4, which is K2's kernel with three fields
     (csrc/cic_readout.cu): on unsorted particles it beat a kernel of its
-    own (PERF.md)."""
+    own (PERF.md). order, a CellOrder of x (or an (N,) int64
+    permutation, checked), makes it read the rows in that order, where
+    neighbouring particles share the corners' cache lines: the positions
+    are gathered into it (index_select) and the values scattered back
+    (an index_put_, which measured faster than index_copy_); a row's
+    value does not depend on the order, so the result is the same bit
+    for bit."""
     fields = _check_readout([cx, cy, cz], x, None)
+    idx = None if order is None else _order_index(order, x)
+    if idx is not None:
+        x = torch.index_select(x, 0, idx)
     if x.device.type == "cpu":
-        return cic_readout_plain(fields, x, inv_cell)
-    out = _readout(fields, x, inv_cell)
-    cic_readout3.launches += 1
-    return out
+        out = cic_readout_plain(fields, x, inv_cell)
+    else:
+        out = _readout(fields, x, inv_cell)
+        cic_readout3.launches += 1
+    if idx is None:
+        return out
+    back = torch.empty_like(out)
+    back[idx] = out
+    return back
 
 
 cic_readout3.launches = 0

@@ -93,7 +93,11 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
     head = [P, L, I, I, I, F, F, F]
     for name, tail in (
             ("fastpm_cic_paint", [F, P, P]),
-            ("fastpm_cic_paint_into", [F, P, P, P]),
+            # mass, masses, order, canvas
+            ("fastpm_cic_paint_into", [F, P, P, P, P]),
+            ("fastpm_cic_bin_count", [P, P]),
+            # cursor, order
+            ("fastpm_cic_bin_scatter", [P, P, P]),
             ("fastpm_cic_paint_homed", [I, I, F, P, P, P, P]),
             ("fastpm_cic_paint4", [I, I, F, P, P, P, P]),
             # two_planes, f0, f1, f2, k, out

@@ -15,7 +15,8 @@ The generic path normalizes kernel weights per-axis to conserve mass
 
 CIC with no diffdir goes through ops/cic.py: paint through K3 (any
 particle order, scalar or per-particle mass, into a given canvas),
-readout through K2 with one field, readout3 through K4. On a CUDA tensor
+readout through K2 with one field, readout3 through K4; paint and
+readout3 take the particles' CellOrder where the caller has one. On a CUDA tensor
 those are the kernels, on the CPU their plain versions. The generic path
 serves quad, lanczos and gradient readouts.
 """
@@ -113,7 +114,9 @@ class Painter:
                                               repeat=3))
 
     @property
-    def _is_cic(self) -> bool:
+    def is_cic(self) -> bool:
+        """Whether paint and readout go through the CIC kernels
+        (ops/cic.py), which take a CellOrder."""
         return self.type == "cic" and self.diffdir < 0
 
     # ---- generic kernel evaluation ----
@@ -157,16 +160,19 @@ class Painter:
 
     # ---- public API ----
 
-    def paint(self, pos, mass=1.0, canvas=None):
+    def paint(self, pos, mass=1.0, canvas=None, order=None):
         """Deposit mass (scalar or (N,) tensor) at pos (N,3) into canvas
         (a contiguous pm.rshape tensor, updated in place; a new zeroed
-        one if None). Returns the accumulated canvas."""
+        one if None). Returns the accumulated canvas. order: the
+        CellOrder of pos for the CIC kernels (K3 sorts by itself
+        without one); the other kernels ignore it."""
         pm = self.pm
         if canvas is None:
             canvas = torch.zeros(pm.rshape, dtype=pm.dtype,
                                  device=pos.device)
-        if self._is_cic:
-            return cic.cic_paint_into(canvas, pos, pm.InvCellSize, mass)
+        if self.is_cic:
+            return cic.cic_paint_into(canvas, pos, pm.InvCellSize, mass,
+                                      order)
         flat = canvas.view(-1)
         ipos, dx, ksum = self._base_and_frac(pos)
         for off in self.offsets:
@@ -177,7 +183,7 @@ class Painter:
 
     def readout(self, canvas, pos):
         """Interpolate canvas at pos (N,3) -> (N,)."""
-        if self._is_cic:
+        if self.is_cic:
             return cic.cic_readout([canvas], pos, self.pm.InvCellSize)[:, 0]
         ipos, dx, ksum = self._base_and_frac(pos)
         flat = canvas.reshape(-1)
@@ -187,9 +193,12 @@ class Painter:
                          * self._corner_weight(dx, ksum, off))
         return out
 
-    def readout3(self, cx, cy, cz, pos):
-        """Three-component force readout (N,3) -- the gravity hot path."""
-        if self._is_cic:
-            return cic.cic_readout3(cx, cy, cz, pos, self.pm.InvCellSize)
+    def readout3(self, cx, cy, cz, pos, order=None):
+        """Three-component force readout (N,3) -- the gravity hot path.
+        order: the CellOrder of pos, in which K4 reads the rows (CIC
+        only; rows come back in the given order either way)."""
+        if self.is_cic:
+            return cic.cic_readout3(cx, cy, cz, pos, self.pm.InvCellSize,
+                                    order)
         return torch.stack([self.readout(f, pos) for f in (cx, cy, cz)],
                            dim=-1)

@@ -6,10 +6,12 @@ make_prepare_fn(base_only=True) bundle, as the JAX force feeds them) and
 against the JAX scatter/gather Painter (K3 and K4's plain versions are
 held against their Pallas kernels in tests/test_torch_ncdm.py, the
 homed kernels' and K5 / K6's in tests/test_torch_parallel.py, the
-readouts' edge cases in tests/test_torch_readout_edges.py). The CUDA
-cases hold K1-K6 against their plain versions on the card (the
-readouts bit for bit on the edge cases of
-fastpm_torch/ops/readout_cases.py) and skip without one; they need no
+readouts' edge cases in tests/test_torch_readout_edges.py, K3 and K4
+given a cell order in tests/test_torch_paint_order.py). The CUDA cases
+hold K1-K6 against their plain versions on the card (the readouts bit
+for bit, the paints K1, homed K1 and K3 within the paints' tolerance,
+on the edge cases of fastpm_torch/ops/readout_cases.py) and skip
+without one; they need no
 JAX, so on a GPU machine without it the file runs as `python -m pytest
 --noconftest tests/test_torch_cic.py -m cuda`.
 """
@@ -230,3 +232,68 @@ def test_readout_edges_on_cuda():
     assert xs.data_ptr() % 16 != 0
     assert torch.equal(cic.cic_readout(fields, xs, inv),
                        cic.cic_readout(fields, x, inv))
+
+
+@pytest.mark.cuda
+def test_paint_edges_on_cuda():
+    """K1, homed K1, K3 (with and without a cell order) and K3's cell
+    order (csrc/cic_bin.cu) against their
+    plain versions on the edge cases of fastpm_torch/ops/readout_cases.py
+    at a 64^3 mesh: in cell order (the tile path), in random order (the
+    direct path), across the x face (a block's rows straddle two planes
+    and take the whole y range), wrapping in y and z, drifted from their
+    sort, and on one rank's extended slab with rows beyond it; the homed
+    overflow count equals the plain version's, and the mass is
+    conserved."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fastpm_torch.ops import readout_cases as cases
+    dev = torch.device("cuda")
+    n, box = 64, 128.0
+    count = n ** 3 // 2 + 99          # a ragged last block
+    nmesh, inv = cases.mesh(n, box)
+    slab, ext = cases.slab_of(n, 16, 2, 1)
+    masses = torch.rand(count, device=dev) + 0.5
+    for kind in cases.PERIODIC:
+        x = torch.from_numpy(cases.periodic_case(kind, n, box, count)).to(dev)
+        got = cic.cic_paint(x, nmesh, inv, 2.0)
+        torch.testing.assert_close(got, cic.cic_paint_plain(x, nmesh, inv,
+                                                            2.0),
+                                   rtol=1e-5, atol=2e-6)
+        assert float(got.double().sum()) == pytest.approx(2.0 * count,
+                                                          rel=1e-6), kind
+        # K3's cell order, the counting sort by line, against its plain
+        # version: a permutation with the same line at every position
+        perm = torch.randperm(count, device=dev)
+        order = cic.cell_order(x[perm], nmesh, inv).index
+        line = cic.cell_key(x[perm], nmesh, inv).long() // n
+        assert torch.equal(torch.sort(order).values,
+                           torch.arange(count, device=dev)), kind
+        assert torch.equal(line[order], line[cic.cell_order_plain(
+            x[perm], nmesh, inv).index]), kind
+        # K3 on the rows, shuffled (it orders them itself), and shuffled
+        # with their cell order given
+        for mass in (2.0, masses):
+            want = cic.cic_paint_into_plain(torch.ones(nmesh, device=dev),
+                                            x, inv, mass)
+            mp = mass[perm] if torch.is_tensor(mass) else mass
+            for xx, m, o in ((x, mass, None), (x[perm], mp, None),
+                             (x[perm], mp, cic.cell_order(x[perm], nmesh,
+                                                          inv))):
+                got = cic.cic_paint_into(torch.ones(nmesh, device=dev), xx,
+                                         inv, m, o)
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+    for kind in cases.SLAB:
+        x = torch.from_numpy(cases.slab_case(kind, n, box, count, slab,
+                                             ext)).to(dev)
+        for mass in (1.5, masses):
+            got, want = (torch.zeros(ext, device=dev) for _ in range(2))
+            bad = cic.cic_paint_homed(got, x, inv, slab, mass)
+            bad_plain = cic.cic_paint_homed_plain(want, x, inv, slab, mass)
+            assert int(bad) == int(bad_plain) > 0, kind
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+            _, _, valid = cic.slab_cell(x, ext, inv, slab)
+            total = (float(mass[valid].double().sum())
+                     if torch.is_tensor(mass) else mass * int(valid.sum()))
+            assert float(got.double().sum()) == pytest.approx(total,
+                                                              rel=1e-6)
