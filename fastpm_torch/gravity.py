@@ -91,8 +91,8 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
 def carry_eligible(painter: Painter, stores: Sequence[Store]) -> bool:
     """Whether compute_force_carry can serve these species: one species
     with a scalar mass, painted with CIC."""
-    return (painter.type == "cic" and painter.diffdir < 0
-            and len(stores) == 1 and stores[0].mass is None)
+    return (painter.is_cic and len(stores) == 1
+            and stores[0].mass is None)
 
 
 def compute_force_carry(pm: PM, painter: Painter, store: Store,

@@ -360,10 +360,9 @@ def cic_paint(x: torch.Tensor, nmesh, inv_cell, mass=1.0) -> torch.Tensor:
     """Deposit a scalar mass at every particle into a new (nx, ny, nz)
     float32 canvas. On CUDA this launches K1 (csrc/cic_paint.cu). It is
     right for particles in any order; cell order lets a block's rows go
-    through a shared-memory tile (the stale force paints in a carried,
-    no longer sorted order, and takes the tile where its rows still fit
-    one). The canvas differs from run to run in the last bits (f32
-    atomics)."""
+    through a shared-memory tile (the stale force paints in a carried
+    order the rows have drifted from, still close enough for the tile).
+    The canvas differs from run to run in the last bits (f32 atomics)."""
     _check_positions(x)
     nmesh = tuple(int(n) for n in nmesh)
     _check_mesh(nmesh)

@@ -16,9 +16,9 @@ The generic path normalizes kernel weights per-axis to conserve mass
 CIC with no diffdir goes through ops/cic.py: paint through K3 (any
 particle order, scalar or per-particle mass, into a given canvas),
 readout through K2 with one field, readout3 through K4; paint and
-readout3 take the particles' CellOrder where the caller has one. On a CUDA tensor
-those are the kernels, on the CPU their plain versions. The generic path
-serves quad, lanczos and gradient readouts.
+readout3 take the particles' CellOrder where the caller has one. On a
+CUDA tensor those are the kernels, on the CPU their plain versions. The
+generic path serves quad, lanczos and gradient readouts.
 """
 
 from __future__ import annotations
