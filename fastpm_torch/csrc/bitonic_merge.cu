@@ -16,29 +16,51 @@
 // bit-identical to it, payload order on ties included. A network does not
 // depend on the data: no atomics, the same result on every run.
 //
-// Design: a tile of kTile elements (key and payloads) fits in shared
-// memory, and a tile holds every pair of the strides below it. The
-// strides j >= kTile run as one launch each over device memory, one
-// thread per compare pair; the first launch reads the input and writes
-// the output, the later ones work in place and write only the pairs they
-// swap. The remaining strides run in one launch: each block loads a
-// tile, sweeps the strides with __syncthreads() between them and writes
-// the tile back. When 2B <= kTile there is only that launch.
-//
 // What bounds it on an H100: device-memory bytes. At the carry sort's
-// B = 32768 and 2^24 rows with 6 payloads one merge moves 28 B a row in
-// and out per launch: 6 device-memory stages plus the tile launch, so
-// 7 passes over the data where the bound counts one. Register-resident
-// networks that merge several strides per pass, and TMA tiles, are left
-// for later work.
+// B = 32768 and 2^24 rows with 6 payloads the bound moves 28 B a row in
+// and out once. The port's first design let the payloads ride every
+// compare-exchange and ran one stride a launch over device memory: 6
+// passes over the 28 B. The design here:
+// 1. Key and offset. The swaps depend on the keys alone, so a row's
+//    offset inside its 2B-run rides the network in place of its
+//    payloads (16 bits where 2B <= 65536, else 32) and undergoes
+//    exactly the permutation they would: the payloads are gathered once
+//    at the end, out_p[i] = in_p[run + off[i]]. The gather's reads stay
+//    inside one 2B-run (256 KB a column at B = 32768), which the blocks
+//    of that run read together through L2.
+// 2. Several strides a pass. The strides a shared-memory tile of
+//    kTile (key, offset) pairs does not hold run in register passes over
+//    device memory: a thread holds 2^k pairs closed under k strides
+//    (k <= 4), applies the k stages in order and writes them back. The
+//    rest run in one tile launch: groups of three strides in registers
+//    between shared-memory exchanges, then each warp's 256 pairs alone
+//    (the strides 128-32 in registers, 16-1 in shuffles), and the tile
+//    writes the keys and gathers the payloads. At B = 32768 that is one
+//    register pass (strides 32768-8192) and the tile (4096-1): 4 + 6
+//    bytes, then 6 + 4 + 24 + 24 a row against the bound's 56. Where 2B
+//    fits a tile, the one launch does it all.
+// The stages run in the network's order, B down to 1, so the network is
+// the same one. The (key, offset) intermediate between launches lives in
+// the outputs: the keys in out[0], the offsets in out[1]'s storage (a
+// tile's 16-bit offsets in the first half of the tile's own floats),
+// which each tile reads before it writes them; so the kernel allocates
+// nothing, and the output payloads must not overlap the inputs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxPayloads = 8;
-constexpr int kTile = 2048;            // elements of a shared-memory tile
-constexpr int kStageThreads = 256;
+constexpr int kTile = 8192;          // (key, offset) pairs of a tile
+constexpr int kPerThread = 8;        // pairs a tile thread holds
+constexpr int kPassThreads = 256;
+constexpr int kMaxPassStrides = 4;   // strides of one register pass
+constexpr unsigned kFull = 0xffffffffu;
 
 // The columns of one side (input or output): the key and P payloads.
 struct Columns {
@@ -46,76 +68,237 @@ struct Columns {
     float* pay[kMaxPayloads];
 };
 
-// The lower index of compare pair t at stride 2^s: t with a zero bit
-// inserted at position s.
-__device__ __forceinline__ long long lower(long long t, int s) {
-    return ((t >> s) << (s + 1)) | (t & ((1LL << s) - 1));
-}
-
-// One stride 2^s over device memory, one thread per compare pair. With
-// src == dst it works in place and writes only swapped pairs.
-__global__ void merge_stage_kernel(Columns src, Columns dst, long long pairs,
-                                   int s, int P) {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= pairs) return;
-    const long long lo = lower(t, s);
-    const long long hi = lo + (1LL << s);
-    const int a = src.key[lo], b = src.key[hi];
-    const bool swap = b < a;
-    if (!swap && src.key == dst.key) return;
-    dst.key[lo] = swap ? b : a;
-    dst.key[hi] = swap ? a : b;
-#pragma unroll
-    for (int p = 0; p < kMaxPayloads; ++p) {
-        if (p < P) {
-            const float u = src.pay[p][lo], w = src.pay[p][hi];
-            dst.pay[p][lo] = swap ? w : u;
-            dst.pay[p][hi] = swap ? u : w;
-        }
+// Compare-exchange of a (lower) and b (upper): the pair swaps only when
+// key b < key a.
+template <bool OFF, typename Off>
+__device__ __forceinline__ void exchange(int& ka, Off& oa, int& kb,
+                                         Off& ob) {
+    const bool s = kb < ka;
+    const int k = ka;
+    ka = s ? kb : ka;
+    kb = s ? k : kb;
+    if (OFF) {
+        const Off o = oa;
+        oa = s ? ob : oa;
+        ob = s ? o : ob;
     }
 }
 
-// The strides 2^smax, ..., 1 of one tile of `tile` elements in shared
-// memory (key, then the P payloads, each `tile` long).
-__global__ void merge_tile_kernel(Columns src, Columns dst, int tile,
-                                  int smax, int P) {
-    extern __shared__ int smem[];
-    int* key = smem;
-    float* pay = reinterpret_cast<float*>(smem + tile);
-    const long long base = (long long)blockIdx.x * tile;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-        key[i] = src.key[base + i];
+// Where the offset of row i lies in out[1]'s storage: a 32-bit offset
+// in its own slot; a 16-bit one in the first half of its tile's floats,
+// so that a tile's offsets and its gathered payload 0 share the tile's
+// own bytes.
+template <typename Off>
+__device__ __forceinline__ long long off_slot(long long i) {
+    return sizeof(Off) == 4 ? i : i + (i & ~(long long)(kTile - 1));
+}
+
+// One register pass over device memory: the K strides 2^top ...
+// 2^(top-K+1), which are all >= kTile. FIRST: the keys come from the
+// input and the offsets are the rows' places in their runs; else both
+// come from the outputs, which the pass updates in place.
+template <int K, bool OFF, typename Off, bool FIRST>
+__global__ void __launch_bounds__(kPassThreads)
+merge_pass_kernel(const int* kin, int* kout, Off* off, long long n,
+                  int run, int top) {
+    constexpr int E = 1 << K;
+    const long long g = (long long)blockIdx.x * kPassThreads + threadIdx.x;
+    if (g >= n / E) return;
+    const int sl = top - (K - 1);   // log2 of the group's lowest stride
+    const long long base =
+        ((g >> sl) << (sl + K)) | (g & ((1LL << sl) - 1));
+    int k[E];
+    Off o[E];
 #pragma unroll
-        for (int p = 0; p < kMaxPayloads; ++p)
-            if (p < P) pay[p * tile + i] = src.pay[p][base + i];
+    for (int m = 0; m < E; ++m) {
+        const long long i = base + ((long long)m << sl);
+        k[m] = kin[i];
+        if (OFF) o[m] = FIRST ? (Off)(i & (run - 1)) : off[off_slot<Off>(i)];
     }
-    __syncthreads();
-    for (int s = smax; s >= 0; --s) {
-        for (int t = threadIdx.x; t < tile / 2; t += blockDim.x) {
-            const int lo = ((t >> s) << (s + 1)) | (t & ((1 << s) - 1));
-            const int hi = lo + (1 << s);
-            const int a = key[lo], b = key[hi];
-            if (b < a) {
-                key[lo] = b;
-                key[hi] = a;
 #pragma unroll
-                for (int p = 0; p < kMaxPayloads; ++p) {
-                    if (p < P) {
-                        const float u = pay[p * tile + lo];
-                        pay[p * tile + lo] = pay[p * tile + hi];
-                        pay[p * tile + hi] = u;
-                    }
-                }
+    for (int b = K - 1; b >= 0; --b) {
+#pragma unroll
+        for (int m = 0; m < E; ++m)
+            if (!(m >> b & 1))
+                exchange<OFF>(k[m], o[m], k[m | 1 << b], o[m | 1 << b]);
+    }
+#pragma unroll
+    for (int m = 0; m < E; ++m) {
+        const long long i = base + ((long long)m << sl);
+        kout[i] = k[m];
+        if (OFF) off[off_slot<Off>(i)] = o[m];
+    }
+}
+
+// The strides 2^s ... 1 of one tile of `tile` rows (tile / 8 threads),
+// then the keys written and the payloads gathered. global: the tile's
+// pairs still lie in device memory (SCRATCH: the keys and offsets in the
+// outputs, after a register pass; else the keys in the input and the
+// offsets the rows' places in their runs); else in skey / soff. A
+// group's pair at slot m of thread t lies at
+// ((t >> sl) << (sl + 3)) | (t & (2^sl - 1)) | m << sl.
+template <bool OFF, typename Off, bool SCRATCH>
+__device__ __forceinline__ void tile_network(const Columns& src,
+                                             const Columns& dst, int* skey,
+                                             Off* soff, long long tb,
+                                             int run, int s, bool global,
+                                             int P) {
+    const int* gkey = SCRATCH ? dst.key : src.key;
+    const Off* goff = reinterpret_cast<const Off*>(dst.pay[0]);
+    const int t = threadIdx.x;
+    int k[kPerThread];
+    Off o[kPerThread];
+    // groups of three strides >= 64 through shared memory
+    for (; s >= 8; s -= 3) {
+        const int sl = s - 2;
+        const int base = ((t >> sl) << (sl + 3)) | (t & ((1 << sl) - 1));
+#pragma unroll
+        for (int m = 0; m < kPerThread; ++m) {
+            const int p = base | m << sl;
+            if (global) {
+                k[m] = gkey[tb + p];
+                if (OFF)
+                    o[m] = SCRATCH ? goff[off_slot<Off>(tb + p)]
+                                   : (Off)((tb + p) & (run - 1));
+            } else {
+                k[m] = skey[p];
+                if (OFF) o[m] = soff[p];
             }
         }
+#pragma unroll
+        for (int b = 2; b >= 0; --b) {
+#pragma unroll
+            for (int m = 0; m < kPerThread; ++m)
+                if (!(m >> b & 1))
+                    exchange<OFF>(k[m], o[m], k[m | 1 << b], o[m | 1 << b]);
+        }
+#pragma unroll
+        for (int m = 0; m < kPerThread; ++m) {
+            const int p = base | m << sl;
+            skey[p] = k[m];
+            if (OFF) soff[p] = o[m];
+        }
+        global = false;
         __syncthreads();
     }
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-        dst.key[base + i] = key[i];
+    // each warp's 256 pairs: slot m of lane l at warp * 256 + m * 32 + l
+    const int lane = t & 31;
+    const int wbase = (t >> 5) * 256 + lane;
 #pragma unroll
-        for (int p = 0; p < kMaxPayloads; ++p)
-            if (p < P) dst.pay[p][base + i] = pay[p * tile + i];
+    for (int m = 0; m < kPerThread; ++m) {
+        const int p = wbase + m * 32;
+        if (global) {
+            k[m] = gkey[tb + p];
+            if (OFF)
+                o[m] = SCRATCH ? goff[off_slot<Off>(tb + p)]
+                               : (Off)((tb + p) & (run - 1));
+        } else {
+            k[m] = skey[p];
+            if (OFF) o[m] = soff[p];
+        }
     }
+    // strides 128, 64, 32: bits 2, 1, 0 of the slot
+#pragma unroll
+    for (int b = 2; b >= 0; --b) {
+        if (b + 5 > s) continue;
+#pragma unroll
+        for (int m = 0; m < kPerThread; ++m)
+            if (!(m >> b & 1))
+                exchange<OFF>(k[m], o[m], k[m | 1 << b], o[m | 1 << b]);
+    }
+    // strides 16 ... 1: the lanes; both lanes of a pair take the same
+    // decision (swap when the upper key is below the lower one)
+#pragma unroll
+    for (int b = 4; b >= 0; --b) {
+        if (b > s) continue;
+        const bool upper = lane >> b & 1;
+#pragma unroll
+        for (int m = 0; m < kPerThread; ++m) {
+            const int pk = __shfl_xor_sync(kFull, k[m], 1 << b);
+            const bool swap = upper ? k[m] < pk : pk < k[m];
+            k[m] = swap ? pk : k[m];
+            if (OFF) {
+                const unsigned po =
+                    __shfl_xor_sync(kFull, (unsigned)o[m], 1 << b);
+                o[m] = swap ? (Off)po : o[m];
+            }
+        }
+    }
+    // (a tile that read the scratch ran a shared group, whose barrier
+    // has passed: no warp still reads what these writes overwrite)
+#pragma unroll
+    for (int m = 0; m < kPerThread; ++m) dst.key[tb + wbase + m * 32] = k[m];
+    if (!OFF) return;
+    // the gather: each row's payloads from its place in its run (a
+    // warp's 256 rows lie in one run: 2B >= 256)
+    const long long rb = (tb + wbase - lane) & ~(long long)(run - 1);
+#pragma unroll
+    for (int q = 0; q < kMaxPayloads; ++q) {
+        if (q >= P) break;
+        const float* in = src.pay[q];
+        float* out = dst.pay[q];
+        float v[kPerThread];
+#pragma unroll
+        for (int m = 0; m < kPerThread; ++m) v[m] = __ldg(in + rb + o[m]);
+#pragma unroll
+        for (int m = 0; m < kPerThread; ++m) out[tb + wbase + m * 32] = v[m];
+    }
+}
+
+// One tile a block: the strides 2^top ... 1.
+template <bool OFF, typename Off, bool SCRATCH>
+__global__ void __launch_bounds__(kTile / kPerThread)
+merge_tile_kernel(Columns src, Columns dst, int tile, int run, int top,
+                  int P) {
+    extern __shared__ int smem[];
+    tile_network<OFF, Off, SCRATCH>(
+        src, dst, smem, reinterpret_cast<Off*>(smem + tile),
+        (long long)blockIdx.x * tile, run, top, true, P);
+}
+
+// A 2B-run over a cluster of 2B / kTile blocks (2-8), each with one tile
+// of the run in its shared memory: the strides B, B/2, B/4 in registers
+// (thread t of block r holds the pairs (r * kTile / 8 + t) + m * 2B / 8
+// of the run, read from the input), each pair written into the shared
+// memory of the block whose tile holds it, then the tile's strides.
+template <bool OFF>
+__global__ void __launch_bounds__(kTile / kPerThread)
+merge_cluster_kernel(Columns src, Columns dst, int run, int sB, int P) {
+    using Off = uint16_t;
+    extern __shared__ int smem[];
+    int* skey = smem;
+    Off* soff = reinterpret_cast<Off*>(smem + kTile);
+    cg::cluster_group cluster = cg::this_cluster();
+    const long long tb = (long long)blockIdx.x * kTile;
+    const long long rb = tb & ~(long long)(run - 1);
+    const int sl = sB - 2;
+    const int lo = (int)((tb - rb) >> 3) + threadIdx.x;
+    int k[kPerThread];
+    Off o[kPerThread];
+#pragma unroll
+    for (int m = 0; m < kPerThread; ++m) {
+        const int p = lo + (m << sl);
+        k[m] = src.key[rb + p];
+        if (OFF) o[m] = (Off)p;
+    }
+#pragma unroll
+    for (int b = 2; b >= 0; --b) {
+#pragma unroll
+        for (int m = 0; m < kPerThread; ++m)
+            if (!(m >> b & 1))
+                exchange<OFF>(k[m], o[m], k[m | 1 << b], o[m | 1 << b]);
+    }
+    cluster.sync();   // every block of the cluster has started
+#pragma unroll
+    for (int m = 0; m < kPerThread; ++m) {
+        const int p = lo + (m << sl);
+        const unsigned owner = (unsigned)(p / kTile);
+        cluster.map_shared_rank(skey, owner)[p % kTile] = k[m];
+        if (OFF) cluster.map_shared_rank(soff, owner)[p % kTile] = o[m];
+    }
+    cluster.sync();
+    tile_network<OFF, Off, false>(src, dst, skey, soff, tb, run, sB - 3,
+                                  false, P);
 }
 
 int log2_exact(long long v) {
@@ -124,18 +307,148 @@ int log2_exact(long long v) {
     return (1LL << s) == v ? s : -1;
 }
 
+template <bool OFF, typename Off, bool FIRST>
+cudaError_t launch_pass(int K, const int* kin, int* kout, Off* off,
+                        long long n, int run, int top, cudaStream_t stream) {
+    const long long threads = n >> K;
+    const unsigned int blocks =
+        (unsigned int)((threads + kPassThreads - 1) / kPassThreads);
+    switch (K) {
+        case 1:
+            merge_pass_kernel<1, OFF, Off, FIRST>
+                <<<blocks, kPassThreads, 0, stream>>>(kin, kout, off, n,
+                                                      run, top);
+            break;
+        case 2:
+            merge_pass_kernel<2, OFF, Off, FIRST>
+                <<<blocks, kPassThreads, 0, stream>>>(kin, kout, off, n,
+                                                      run, top);
+            break;
+        case 3:
+            merge_pass_kernel<3, OFF, Off, FIRST>
+                <<<blocks, kPassThreads, 0, stream>>>(kin, kout, off, n,
+                                                      run, top);
+            break;
+        default:
+            merge_pass_kernel<4, OFF, Off, FIRST>
+                <<<blocks, kPassThreads, 0, stream>>>(kin, kout, off, n,
+                                                      run, top);
+    }
+    return cudaGetLastError();
+}
+
+template <bool OFF, typename Off>
+cudaError_t launch_tile(bool scratch, const Columns& src, const Columns& dst,
+                        long long n, int tile, int run, int top, int P,
+                        cudaStream_t stream) {
+    const void* fn = scratch ? (const void*)merge_tile_kernel<OFF, Off, true>
+                             : (const void*)merge_tile_kernel<OFF, Off, false>;
+    const int smem = tile * (int)(sizeof(int) + (OFF ? sizeof(Off) : 0));
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const unsigned int blocks = (unsigned int)(n / tile);
+    const int threads = tile / kPerThread;
+    if (scratch)
+        merge_tile_kernel<OFF, Off, true><<<blocks, threads, smem, stream>>>(
+            src, dst, tile, run, top, P);
+    else
+        merge_tile_kernel<OFF, Off, false><<<blocks, threads, smem, stream>>>(
+            src, dst, tile, run, top, P);
+    return cudaGetLastError();
+}
+
+// Every launch of one merge, the offsets of type Off (OFF: there are
+// payloads).
+template <bool OFF, typename Off>
+cudaError_t merge(const Columns& src, const Columns& dst, long long n,
+                  int sB, int P, cudaStream_t stream) {
+    const int run = 2 << sB;
+    const long long low = n & -n;      // n's largest power-of-two factor
+    const int tile = (int)(low < kTile ? low : kTile);
+    const int sT = log2_exact(tile);
+    Off* off = reinterpret_cast<Off*>(dst.pay[0]);
+    int s = sB;
+    bool first = true;
+    // the strides a tile does not hold: register passes
+    while (s >= sT) {
+        const int K = s - sT + 1 < kMaxPassStrides ? s - sT + 1
+                                                   : kMaxPassStrides;
+        const cudaError_t e =
+            first ? launch_pass<OFF, Off, true>(K, src.key, dst.key, off, n,
+                                                run, s, stream)
+                  : launch_pass<OFF, Off, false>(K, dst.key, dst.key, off, n,
+                                                 run, s, stream);
+        if (e != cudaSuccess) return e;
+        s -= K;
+        first = false;
+    }
+    return launch_tile<OFF, Off>(!first, src, dst, n, tile, run, s, P,
+                                 stream);
+}
+
+template <bool OFF>
+cudaError_t launch_cluster(const Columns& src, const Columns& dst,
+                           long long n, int sB, int P, cudaStream_t stream) {
+    const int run = 2 << sB;
+    const int smem = kTile * (int)(sizeof(int) + (OFF ? 2 : 0));
+    cudaError_t e = cudaFuncSetAttribute(
+        merge_cluster_kernel<OFF>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned int)(n / kTile));
+    cfg.blockDim = dim3(kTile / kPerThread);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = run / kTile;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, merge_cluster_kernel<OFF>, src, dst, run,
+                           sB, P);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+}
+
 }  // namespace
+
+// The cluster form of one merge, where 2B / 8192 is 2, 4 or 8, with the
+// arguments of fastpm_bitonic_merge (a variant timed against it).
+extern "C" int fastpm_bitonic_merge_cluster(void* const* in,
+                                            void* const* out, int P,
+                                            long long n, int B,
+                                            cudaStream_t stream) {
+    const int sB = log2_exact(B);
+    if (P < 0 || P > kMaxPayloads || sB < 13 || sB > 15 || n <= 0
+        || n % (2LL * B))
+        return (int)cudaErrorInvalidValue;
+    Columns src{}, dst{};
+    src.key = static_cast<int*>(in[0]);
+    dst.key = static_cast<int*>(out[0]);
+    for (int p = 0; p < P; ++p) {
+        src.pay[p] = static_cast<float*>(in[1 + p]);
+        dst.pay[p] = static_cast<float*>(out[1 + p]);
+    }
+    return (int)(P ? launch_cluster<true>(src, dst, n, sB, P, stream)
+                   : launch_cluster<false>(src, dst, n, sB, P, stream));
+}
 
 // Merge every aligned pair of B-runs of n rows: in[0] / out[0] are the
 // int32 keys, in[1..P] / out[1..P] the float32 payloads (host arrays of
-// 1 + P device pointers; out may equal in). B is a power of two, n a
-// multiple of 2B, 0 <= P <= 8. Runs on `stream`; returns
-// cudaGetLastError() or the error of a refused argument.
+// 1 + P device pointers, each 4-byte aligned; out's payloads must not
+// overlap in's, since out holds the network's scratch). B is a power of
+// two >= 128, n a multiple of 2B, 0 <= P <= 8. Runs on `stream`; returns
+// cudaGetLastError() after each launch, or the error of a refused
+// argument.
 extern "C" int fastpm_bitonic_merge(void* const* in, void* const* out, int P,
                                     long long n, int B,
                                     cudaStream_t stream) {
     const int sB = log2_exact(B);
-    if (P < 0 || P > kMaxPayloads || sB < 0 || n < 0 || n % (2LL * B))
+    if (P < 0 || P > kMaxPayloads || sB < 7 || n < 0 || n % (2LL * B))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     Columns src{}, dst{};
@@ -145,24 +458,12 @@ extern "C" int fastpm_bitonic_merge(void* const* in, void* const* out, int P,
         src.pay[p] = static_cast<float*>(in[1 + p]);
         dst.pay[p] = static_cast<float*>(out[1 + p]);
     }
-    const int tile = 2 * B < kTile ? 2 * B : kTile;
-    const int sTile = log2_exact(tile);
-    const long long pairs = n / 2;
-    // the strides a tile does not hold
-    for (int s = sB; s >= sTile; --s) {
-        const long long blocks = (pairs + kStageThreads - 1) / kStageThreads;
-        merge_stage_kernel<<<(unsigned int)blocks, kStageThreads, 0,
-                             stream>>>(src, dst, pairs, s, P);
-        src = dst;
-    }
-    const int smem = (1 + P) * tile * (int)sizeof(int);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            merge_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    merge_tile_kernel<<<(unsigned int)(n / tile), tile / 2, smem, stream>>>(
-        src, dst, tile, sTile - 1, P);
-    return (int)cudaGetLastError();
+    cudaError_t e;
+    if (P == 0)
+        e = merge<false, uint32_t>(src, dst, n, sB, P, stream);
+    else if (2LL * B <= 65536)
+        e = merge<true, uint16_t>(src, dst, n, sB, P, stream);
+    else
+        e = merge<true, uint32_t>(src, dst, n, sB, P, stream);
+    return (int)e;
 }

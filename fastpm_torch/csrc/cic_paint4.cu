@@ -13,50 +13,22 @@
 // Contract: the same function as K1 (cic_paint.cu): the base cell,
 // fraction and corner weights of cic_common.cuh times the mass, added
 // into the canvas; in the homed form a particle beyond the slab deposits
-// nothing and is counted in *bad. Pass dx of particle i is thread i of
-// grid row blockIdx.y = dx: 2N threads with 4 atomics each, where K1 has
-// N threads with 8. The split keeps a thread's atomics on one x plane
-// (two rows of the canvas, 8-16 bytes apart in z); whether that pays
-// against K1 on this card is measured in PERF.md, not assumed.
+// nothing and is counted in *bad, once.
 //
-// What bounds it on an H100: as K1, device-memory bytes and atomic
-// throughput; each pass recomputes the cell and fraction (12 B read per
-// particle per pass, from L2 for the second).
+// What bounds it on an H100: as K1, the reductions the canvas takes in
+// L2 (cic_deposit.cuh). So K5 runs K1's tiled deposit, split by plane:
+// one launch of two blocks a chunk of rows, block p depositing the
+// corners on x plane p of each row's cloud through a footprint of one
+// plane's lines (the TPU kernel's two passes); both blocks compute the
+// rows' cells, and only plane 0 counts the rows beyond the slab.
 //
 // f32 atomics land in an order that changes from run to run, so the
 // result differs in the last bits between runs.
 
-#include "cic_common.cuh"
+#include "cic_deposit.cuh"
 
-namespace {
-
+using fastpm_cic::Deposit;
 using fastpm_cic::XAxis;
-
-__global__ void cic_paint4_kernel(const float* __restrict__ x, long long n,
-                                  int nx, int ny, int nz,
-                                  float icx, float icy, float icz,
-                                  XAxis ax, float mass,
-                                  const float* __restrict__ masses,
-                                  float* __restrict__ canvas,
-                                  int* __restrict__ bad) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const int dx = blockIdx.y;
-    if (i >= n) return;
-    int lo[3], hi[3];
-    float f[3], t[3];
-    if (!fastpm_cic::cell(x + 3 * i, nx, ny, nz, icx, icy, icz, ax, lo,
-                          hi, f, t)) {
-        if (dx == 0) atomicAdd(bad, 1);
-        return;
-    }
-    int idx[4];
-    float w[4];
-    fastpm_cic::plane_corners(dx, lo, hi, f, t, ny, nz, idx, w);
-    const float m = masses ? masses[i] : mass;
-    for (int c = 0; c < 4; ++c) atomicAdd(canvas + idx[c], __fmul_rn(w[c], m));
-}
-
-}  // namespace
 
 // Add n particles (x: n x 3 float32, device) of mass `mass`, or of
 // masses[i] when masses is not null, into canvas (nx*ny*nz float32,
@@ -70,12 +42,9 @@ extern "C" int fastpm_cic_paint4(const float* x, long long n, int nx,
                                  const float* masses, float* canvas,
                                  int* bad, cudaStream_t stream) {
     if (n0 < 0 || (n0 > 0 && nx < 2)) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        const int threads = 256;
-        const dim3 blocks((unsigned int)((n + threads - 1) / threads), 2);
-        cic_paint4_kernel<<<blocks, threads, 0, stream>>>(
-            x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift}, mass, masses,
-            canvas, bad);
-    }
-    return (int)cudaGetLastError();
+    return fastpm_cic::launch_deposit(
+        Deposit{x, nullptr, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
+                mass, masses, canvas, n0 > 0 ? bad : nullptr,
+                fastpm_cic::deposit_vec(nz, canvas), true},
+        stream);
 }

@@ -25,8 +25,11 @@ full sort when the flag is False, so the result is always a sort.
   launches in merge_pairs.launches, one per merge pass.
 
 The block sort, the flips and the full sort are PyTorch calls, as the
-JAX package leaves them to XLA. All payloads ride every compare-exchange:
-the key is int32, the payloads float32 of the same length.
+JAX package leaves them to XLA. The key is int32, the payloads float32
+of the same length. In the plain version every payload rides every
+compare-exchange, as in the TPU kernel; the CUDA kernel runs the same
+network on the key and each row's offset in its run and gathers the
+payloads once (merge_offsets_plain is that form in plain PyTorch).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from . import cic
 from .cudalib import launch
 
 __all__ = ["MAX_PAYLOADS", "merge_pairs", "merge_pairs_plain",
-           "block_sort", "sort_ksorted", "sort_maybe_ksorted", "carry_sort"]
+           "merge_offsets_plain", "gather_by_offsets", "block_sort", "sort_ksorted", "sort_maybe_ksorted", "carry_sort"]
 
 # the payloads K7 takes by value in one launch
 MAX_PAYLOADS = 8
@@ -68,13 +71,11 @@ def _check_merge(key, payloads, B):
                              "length on its device")
 
 
-def merge_pairs_plain(key: torch.Tensor, *payloads: torch.Tensor, B: int):
-    """Plain K7: the bitonic network of merge_pairs, one stride at a time
-    over a (n / 2s, 2, s) view, as _butterfly_rows does it; returns
-    (key, *payloads), new tensors."""
-    _check_merge(key, payloads, B)
-    n = key.shape[0]
-    cols = [key] + list(payloads)
+def _network(cols, B):
+    """The bitonic network of merge_pairs over the columns (cols[0] the
+    key), one stride at a time over a (n / 2s, 2, s) view, as
+    _butterfly_rows does it: new tensors."""
+    n = cols[0].shape[0]
     s = B
     while s >= 1:
         a, b = cols[0].reshape(n // (2 * s), 2, s).unbind(1)
@@ -89,6 +90,33 @@ def merge_pairs_plain(key: torch.Tensor, *payloads: torch.Tensor, B: int):
     return tuple(cols)
 
 
+def merge_pairs_plain(key: torch.Tensor, *payloads: torch.Tensor, B: int):
+    """Plain K7: the bitonic network of merge_pairs with every payload
+    riding every compare-exchange; returns (key, *payloads), new
+    tensors."""
+    _check_merge(key, payloads, B)
+    return _network([key] + list(payloads), B)
+
+
+def merge_offsets_plain(key: torch.Tensor, B: int):
+    """The network of merge_pairs run on the key and each row's offset in
+    its 2B-run (int32), the form K7's kernel runs: returns (key, offset).
+    The swaps depend on the keys alone, so the offsets undergo the
+    permutation the payloads would: payload p of merge_pairs is
+    p.view(-1, 2B).gather(1, offset.view(-1, 2B)) (gather_by_offsets).
+    Nothing on the main path calls it."""
+    _check_merge(key, (), B)
+    off = torch.arange(key.shape[0], dtype=torch.int32,
+                       device=key.device) % (2 * B)
+    return _network([key, off], B)
+
+
+def gather_by_offsets(payload: torch.Tensor, offset: torch.Tensor, B: int):
+    """Each row's payload from its offset in its 2B-run."""
+    return payload.view(-1, 2 * B).gather(
+        1, offset.view(-1, 2 * B).long()).view(-1)
+
+
 def merge_pairs(key: torch.Tensor, *payloads: torch.Tensor, B: int):
     """Merge every aligned pair of B-runs of (key, *payloads) where the
     first run ascends and the second descends, so that every 2B-run
@@ -97,7 +125,8 @@ def merge_pairs(key: torch.Tensor, *payloads: torch.Tensor, B: int):
     B is a power of two >= 128 and n a multiple of 2B. Ties do not swap,
     so the result is bit-identical to the TPU kernel's. Returns (key,
     *payloads), new tensors. On CUDA this launches K7
-    (csrc/bitonic_merge.cu)."""
+    (csrc/bitonic_merge.cu), whose launches use the new tensors as the
+    scratch of its (key, offset) network."""
     _check_merge(key, payloads, B)
     if key.device.type == "cpu":
         return merge_pairs_plain(key, *payloads, B=B)

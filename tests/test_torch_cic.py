@@ -9,9 +9,9 @@ homed kernels' and K5 / K6's in tests/test_torch_parallel.py, the
 readouts' edge cases in tests/test_torch_readout_edges.py, K3 and K4
 given a cell order in tests/test_torch_paint_order.py). The CUDA cases
 hold K1-K6 against their plain versions on the card (the readouts bit
-for bit, the paints K1, homed K1 and K3 within the paints' tolerance,
-on the edge cases of fastpm_torch/ops/readout_cases.py) and skip
-without one; they need no
+for bit, the paints K1, homed K1, K3 and K5 within the paints'
+tolerance, on the edge cases of fastpm_torch/ops/readout_cases.py) and
+skip without one; they need no
 JAX, so on a GPU machine without it the file runs as `python -m pytest
 --noconftest tests/test_torch_cic.py -m cuda`.
 """
@@ -297,3 +297,43 @@ def test_paint_edges_on_cuda():
                      if torch.is_tensor(mass) else mass * int(valid.sum()))
             assert float(got.double().sum()) == pytest.approx(total,
                                                               rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_paint4_edges_on_cuda():
+    """K5 (periodic and homed, a scalar mass and a mass column) against
+    its plain version on the edge cases of
+    fastpm_torch/ops/readout_cases.py at a 64^3 mesh: uniform and
+    clustered rows in cell order, random order, drifted, across the x
+    face and the box faces, wrapping in y and z; on rank 1 of 4's
+    extended slab with rows beyond it, counted once; the mass conserved
+    (the deposited rows' mass)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fastpm_torch.ops import readout_cases as cases
+    dev = torch.device("cuda")
+    n, box = 64, 128.0
+    count = n ** 3 // 2 + 99          # a ragged last block
+    nmesh, inv = cases.mesh(n, box)
+    slab, ext = cases.slab_of(n, 16, 2, 1)
+    masses = torch.rand(count, device=dev) + 0.5
+    runs = [(kind, cases.periodic_case(kind, n, box, count), None, nmesh)
+            for kind in cases.PERIODIC]
+    runs += [(kind, cases.slab_case(kind, n, box, count, slab, ext), slab,
+              ext) for kind in cases.SLAB]
+    for kind, pos, s, shape in runs:
+        x = torch.from_numpy(pos).to(dev)
+        valid = (torch.ones(count, dtype=torch.bool, device=dev)
+                 if s is None else cic.slab_cell(x, shape, inv, s)[2])
+        for mass in (1.5, masses):
+            got, want = (torch.zeros(shape, device=dev) for _ in range(2))
+            bad = cic.cic_paint4(got, x, inv, mass, s)
+            bad_plain = cic.cic_paint4_plain(want, x, inv, mass, s)
+            assert int(bad) == int(bad_plain) == int((~valid).sum()), kind
+            if s is not None:
+                assert int(bad) > 0, kind
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+            total = (float(mass[valid].double().sum())
+                     if torch.is_tensor(mass) else mass * int(valid.sum()))
+            assert float(got.double().sum()) == pytest.approx(
+                total, rel=1e-6), kind

@@ -3,11 +3,16 @@ JAX package's (fastpm_tpu/ops/sort_pallas.py, Pallas in interpret mode).
 
 On the CPU the K7 wrapper takes its plain version, which runs the TPU
 kernel's network with its tie rule, so it is held bit-identical to the
-Pallas merge, payloads included, on duplicate keys. Full sorts order
+Pallas merge, payloads included, on duplicate keys; so is the network
+run on the key and each row's offset in its run with the payloads
+gathered by the offsets after it (merge_offsets_plain), the form the
+CUDA kernel runs. Full sorts order
 equal keys in their own ways, so they are compared per key as multisets
 (as tests/test_sort_pallas.py does). The JAX oracles import JAX inside
-the tests; the CUDA case holds K7 against its plain version on the card,
-skips without one and needs no JAX, so on a GPU machine the file runs as
+the tests; the CUDA cases hold K7 against its plain version on the card
+(fastpm_torch/ops/merge_cases.py: B from 128 to 65536, 0-8 payloads,
+unique, equal and 4-valued keys, unaligned columns), skip without one
+and need no JAX, so on a GPU machine the file runs as
 `python -m pytest --noconftest tests/test_torch_sort.py -m cuda`.
 """
 
@@ -15,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from fastpm_torch.ops import sort
+from fastpm_torch.ops import merge_cases, sort
 
 
 def _bitonic_pairs(rng, n, B, P, high=10000):
@@ -61,6 +66,28 @@ def test_merge_plain_bit_identical_to_pallas(P):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (np.diff(got[0].numpy().reshape(-1, 2 * B), axis=1) >= 0).all()
+
+
+@pytest.mark.parametrize("kind", merge_cases.KINDS)
+def test_merge_offsets_bit_identical_to_pallas(kind):
+    """The offset form of the network: its keys, and the payloads
+    gathered by its offsets, equal the Pallas merge's bit for bit."""
+    import jax.numpy as jnp
+    from fastpm_tpu.ops.sort_pallas import make_merge_pairs_fn
+    n, B, P = 2048, 256, 2
+    keys, pays = merge_cases.bitonic_case(kind, n, B, P)
+    want = make_merge_pairs_fn(n, B, P, interpret=True)(
+        jnp.asarray(keys), *(jnp.asarray(p) for p in pays))
+    key, off = sort.merge_offsets_plain(torch.from_numpy(keys), B)
+    assert off.dtype == torch.int32
+    np.testing.assert_array_equal(key.numpy(), np.asarray(want[0]))
+    for p, w in zip(pays, want[1:]):
+        np.testing.assert_array_equal(
+            sort.gather_by_offsets(torch.from_numpy(p), off, B).numpy(),
+            np.asarray(w))
+    # every offset once in each run
+    assert (np.sort(off.numpy().reshape(-1, 2 * B), axis=1)
+            == np.arange(2 * B)).all()
 
 
 def test_sort_ksorted_bit_identical_on_unique_keys():
@@ -201,3 +228,50 @@ def test_merge_matches_plain_on_cuda():
     b = np.lexsort(xf.cpu().numpy().T)
     np.testing.assert_array_equal(xs.cpu().numpy()[a], xf.cpu().numpy()[b])
     np.testing.assert_array_equal(vs.cpu().numpy()[a], vf.cpu().numpy()[b])
+
+
+@pytest.mark.cuda
+def test_merge_cases_on_cuda():
+    """K7 equal to its plain version, key and every payload, on every case
+    of fastpm_torch/ops/merge_cases.py (B = 128 ... 65536, n = 2B and 8B,
+    0, 1, 6 and 8 payloads, unique, equal and 4-valued keys); on columns
+    whose pointers are 4 bytes past a 16-byte boundary; and through
+    sort_ksorted, whose odd merge takes sliced columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    for B in merge_cases.BLOCKS:
+        for n in (2 * B, 8 * B):
+            for P in merge_cases.PAYLOADS:
+                for kind in merge_cases.KINDS:
+                    keys, pays = merge_cases.bitonic_case(kind, n, B, P)
+                    cols = [torch.from_numpy(keys).to(dev)] + [
+                        torch.from_numpy(p).to(dev) for p in pays]
+                    got = sort.merge_pairs(*cols, B=B)
+                    want = sort.merge_pairs_plain(*cols, B=B)
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (B, n, P, kind)
+    # unaligned columns: one row past a 16-byte boundary
+    n, B, P = 8 * 32768, 32768, 6
+    keys, pays = merge_cases.bitonic_case("four", n, B, P)
+    cols = []
+    for c in [keys] + list(pays):
+        buf = torch.empty(n + 1, dtype=torch.from_numpy(c).dtype,
+                          device=dev)
+        buf[1:] = torch.from_numpy(c).to(dev)
+        cols.append(buf[1:])
+        assert cols[-1].data_ptr() % 16 == 4
+    got = sort.merge_pairs(*cols, B=B)
+    want = sort.merge_pairs_plain(*cols, B=B)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # the k-sorted sort: its odd merge runs on slices of the even merge's
+    # output; the keys and an index column against torch.sort
+    rng = np.random.default_rng(7)
+    for B in (1024, 32768):
+        n = 16 * B
+        key = torch.from_numpy(_ksorted_keys(rng, n, B // 3)).to(dev)
+        idx = torch.arange(n, device=dev, dtype=torch.float32)
+        (k, i), ok = sort.sort_ksorted([key, idx], B)
+        assert bool(ok)
+        assert torch.equal(k, torch.sort(key).values)
+        assert torch.equal(key[i.long()], k)
