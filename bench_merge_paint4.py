@@ -23,17 +23,117 @@ import sys
 import chip_smoke as cs
 
 
-def merge_variant(entry, cols, B):
-    """One merge through the C entry `entry` of the kernel library."""
+def merge_variant(entry, cols, B, lib=None):
+    """One merge through the C entry `entry` of the kernel library (or of
+    lib, a library of one variant)."""
     import ctypes
     import torch
     from fastpm_torch.ops.cudalib import launch
     outs = [torch.empty_like(c) for c in cols]
     pin = (ctypes.c_void_p * len(cols))(*(c.data_ptr() for c in cols))
     pout = (ctypes.c_void_p * len(outs))(*(c.data_ptr() for c in outs))
-    launch(entry, ctypes.addressof(pin), ctypes.addressof(pout),
-           len(cols) - 1, cols[0].shape[0], B, device=cols[0].device)
+    args = (ctypes.addressof(pin), ctypes.addressof(pout), len(cols) - 1,
+            cols[0].shape[0], B)
+    if lib is None:
+        launch(entry, *args, device=cols[0].device)
+    else:
+        rc = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(cols[0].device).cuda_stream)
+        if rc:
+            raise RuntimeError("%s failed: CUDA error %d" % (entry, rc))
     return outs
+
+
+# K7's forms: (pairs a tile, blocks an SM the launch bounds ask for,
+# payloads gathered at once, C entry: the two-pass form or the cluster)
+VARIANTS = ((8192, 1, 1, "fastpm_bitonic_merge"),
+            (4096, 3, 2, "fastpm_bitonic_merge"),
+            (4096, 4, 2, "fastpm_bitonic_merge"),
+            (4096, 3, 3, "fastpm_bitonic_merge"),
+            (4096, 2, 2, "fastpm_bitonic_merge"),
+            (8192, 2, 1, "fastpm_bitonic_merge_cluster"),
+            (8192, 2, 2, "fastpm_bitonic_merge_cluster"))
+
+
+def build_variants():
+    """One library of csrc/bitonic_merge.cu a variant, built in parallel
+    into build/bench_merge/."""
+    import ctypes
+    import os
+    import subprocess
+    from fastpm_torch.ops import cudalib
+    out = os.path.join(cs.ROOT, "build", "bench_merge")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(cs.ROOT, "fastpm_torch", "csrc", "bitonic_merge.cu")
+    paths, procs, name = [], [], None
+    for tile, minb, batch, _ in VARIANTS:
+        path = os.path.join(out, "t%d_m%d_b%d.so" % (tile, minb, batch))
+        paths.append(path)
+        procs.append(subprocess.Popen(
+            [cudalib._nvcc(), *cudalib._ARCH, *cudalib._FLAGS, "-shared",
+             "-DFASTPM_MERGE_TILE=%d" % tile,
+             "-DFASTPM_MERGE_MINB=%d" % minb,
+             "-DFASTPM_MERGE_BATCH=%d" % batch, "-Xptxas", "-v", src, "-o",
+             path], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True))
+    for v, p in zip(VARIANTS, procs):
+        log = p.communicate()[1]
+        if p.returncode:
+            raise SystemExit("K7 variant %s did not build:\n%s" % (v, log))
+        # registers and spills of the tile and cluster kernels
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                name = ("tile" if "merge_tile" in line else "cluster"
+                        if "merge_cluster" in line else None)
+            elif name and ("registers" in line or "spill" in line
+                           and "0 bytes spill stores" not in line):
+                print("K7 variant %s %s: %s" % (v[:3], name,
+                                                line.split(":")[-1].strip()))
+    libs = []
+    for path in paths:
+        lib = ctypes.CDLL(path)
+        for fn in (lib.fastpm_bitonic_merge,
+                   lib.fastpm_bitonic_merge_cluster):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 2 + [
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p]
+        libs.append(lib)
+    return libs
+
+
+def k7_variants(dev, libs, cols, B, reps=20):
+    """Each tile form against the plain version on some cases of
+    merge_cases.py and on cols, then timed on cols in turns (forward,
+    then backward)."""
+    import torch
+    from fastpm_torch.ops import merge_cases, sort
+    want = sort.merge_pairs_plain(*cols, B=B)
+    for v, lib in zip(VARIANTS, libs):
+        blocks = ((128, 4096, 8192, 32768, 65536)
+                  if v[3] == "fastpm_bitonic_merge" else (8192, 32768))
+        for b in blocks:
+            for P in (0, 6):
+                keys, pays = merge_cases.bitonic_case("four", 8 * b, b, P)
+                cc = [torch.from_numpy(keys).to(dev)] + [
+                    torch.from_numpy(p).to(dev) for p in pays]
+                got = merge_variant(v[3], cc, b, lib)
+                if not all(torch.equal(g, w) for g, w in zip(
+                        got, sort.merge_pairs_plain(*cc, B=b))):
+                    raise SystemExit("K7 variant %s disagrees at B %d P %d"
+                                     % (v, b, P))
+        got = merge_variant(v[3], cols, B, lib)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit("K7 variant %s disagrees" % (v,))
+    del got, want
+    order = list(range(len(libs))) + list(range(len(libs)))[::-1]
+    times = {i: [] for i in range(len(libs))}
+    for i in order:
+        times[i].append(cs.time_ms(lambda: merge_variant(
+            VARIANTS[i][3], cols, B, libs[i]), reps))
+    for i, v in enumerate(VARIANTS):
+        print("K7 tile %d, %d blocks an SM asked, %d payloads a batch, %s: "
+              "%.4f / %.4f ms" % (*v, *times[i]))
 
 
 def k7_cases(dev):
@@ -58,7 +158,7 @@ def k7_cases(dev):
     print("K7 cluster form: equal to the plain version on every case")
 
 
-def k7(dev, B=32768, reps=20):
+def k7(dev, libs, B=32768, reps=20):
     import torch
     from fastpm_torch import benchlib
     from fastpm_torch.mesh import PM
@@ -99,6 +199,7 @@ def k7(dev, B=32768, reps=20):
     print("K7 merge pass: two-pass %.4f / cluster %.4f / cluster %.4f / "
           "two-pass %.4f ms; torch.sort of the 2B-runs + 6 gathers %.4f ms"
           % (*t, cs.time_ms(rows_sort, reps)))
+    k7_variants(dev, libs, cols, B)
 
 
 def k5(dev, nc=256, nmesh=512, box=768.0, H=4, reps=20):
@@ -170,8 +271,9 @@ def main():
     print("card: " + cs.card_line())
     from fastpm_torch.ops import cudalib
     cudalib.get_lib()
+    libs = build_variants()
     k7_cases("cuda")
-    k7("cuda")
+    k7("cuda", libs)
     k5("cuda")
     return 0
 

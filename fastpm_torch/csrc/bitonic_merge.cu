@@ -56,7 +56,17 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxPayloads = 8;
-constexpr int kTile = 8192;          // (key, offset) pairs of a tile
+#ifndef FASTPM_MERGE_TILE
+#define FASTPM_MERGE_TILE 8192
+#endif
+#ifndef FASTPM_MERGE_MINB
+#define FASTPM_MERGE_MINB 1
+#endif
+#ifndef FASTPM_MERGE_BATCH
+#define FASTPM_MERGE_BATCH 1
+#endif
+constexpr int kTile = FASTPM_MERGE_TILE;   // (key, offset) pairs of a tile
+constexpr int kBatch = FASTPM_MERGE_BATCH;
 constexpr int kPerThread = 8;        // pairs a tile thread holds
 constexpr int kPassThreads = 256;
 constexpr int kMaxPassStrides = 4;   // strides of one register pass
@@ -233,21 +243,31 @@ __device__ __forceinline__ void tile_network(const Columns& src,
     // warp's 256 rows lie in one run: 2B >= 256)
     const long long rb = (tb + wbase - lane) & ~(long long)(run - 1);
 #pragma unroll
-    for (int q = 0; q < kMaxPayloads; ++q) {
+    for (int q = 0; q < kMaxPayloads; q += kBatch) {
         if (q >= P) break;
-        const float* in = src.pay[q];
-        float* out = dst.pay[q];
-        float v[kPerThread];
+        float v[kBatch][kPerThread];
 #pragma unroll
-        for (int m = 0; m < kPerThread; ++m) v[m] = __ldg(in + rb + o[m]);
+        for (int j = 0; j < kBatch; ++j) {
+            if (q + j < P && q + j < kMaxPayloads) {
 #pragma unroll
-        for (int m = 0; m < kPerThread; ++m) out[tb + wbase + m * 32] = v[m];
+                for (int m = 0; m < kPerThread; ++m)
+                    v[j][m] = __ldg(src.pay[q + j] + rb + o[m]);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+            if (q + j < P && q + j < kMaxPayloads) {
+#pragma unroll
+                for (int m = 0; m < kPerThread; ++m)
+                    dst.pay[q + j][tb + wbase + m * 32] = v[j][m];
+            }
+        }
     }
 }
 
 // One tile a block: the strides 2^top ... 1.
 template <bool OFF, typename Off, bool SCRATCH>
-__global__ void __launch_bounds__(kTile / kPerThread)
+__global__ void __launch_bounds__(kTile / kPerThread, FASTPM_MERGE_MINB)
 merge_tile_kernel(Columns src, Columns dst, int tile, int run, int top,
                   int P) {
     extern __shared__ int smem[];
@@ -262,7 +282,7 @@ merge_tile_kernel(Columns src, Columns dst, int tile, int run, int top,
 // of the run, read from the input), each pair written into the shared
 // memory of the block whose tile holds it, then the tile's strides.
 template <bool OFF>
-__global__ void __launch_bounds__(kTile / kPerThread)
+__global__ void __launch_bounds__(kTile / kPerThread, FASTPM_MERGE_MINB)
 merge_cluster_kernel(Columns src, Columns dst, int run, int sB, int P) {
     using Off = uint16_t;
     extern __shared__ int smem[];
