@@ -58,6 +58,9 @@ A. the homed kernels at the slab force's shapes: rank 0 of one with
    at 64^3 (K2 and homed K2 with 1-3 fields, K4, K6; runs across an x
    face, rows wrapping in y, the last z column, the slab's last plane
    and the rows beyond it), and K2 on the rows shuffled, bit for bit;
+   and K5 on the same geometries, periodic and on the slab, with a
+   scalar mass and a mass column (the rows beyond the slab counted
+   once, the mass conserved);
 B. the homed slab force (fastpm_torch.parallel) at full width on a
    one-rank NCCL process group started on localhost: the main path's
    z = 0 state (phase 7), H from required_halo_planes, the carry and the
@@ -74,6 +77,10 @@ C. K7 at the carry sort's shapes: the cell keys of 2^24 particles
    rows permuted: an index column rides as float32); the times of a
    merge pass, of torch.sort over the merge's rows with the payload
    gathers, and of the full sort with gathers the fresh carry pays;
+   then K7 against its plain version, bit for bit, on the cases of
+   fastpm_torch/ops/merge_cases.py (B = 128 ... 65536, n = 2B and 8B,
+   0-8 payloads; unique, equal and 4-valued keys) and on columns 4
+   bytes past a 16-byte boundary;
 D. the benchlib step at full width (256^3 particles, a 512^3 mesh, box
    256), 5 steps each of base, sb32768 (K7; the full sorts the exact
    flag forced are counted), paint4 (K5) and stale3 (a fresh sort every
@@ -775,6 +782,47 @@ def check_readout_edges(dev, rows, n=64, box=128.0):
             raise SystemExit("%s: the shuffled rows disagree" % kind)
 
 
+def check_paint4_edges(dev, rows, n=64, box=128.0):
+    """Phase A, K5's edge cases: the geometries of
+    fastpm_torch/ops/readout_cases.py at a 64^3 mesh, periodic and on
+    rank 1 of 4's extended slab with H = 2 (rows beyond it), with a
+    scalar mass and a mass column, against the plain version; the
+    overflow count exact, the deposited rows' mass conserved."""
+    import torch
+    from fastpm_torch.ops import cic
+    from fastpm_torch.ops import readout_cases as cases
+
+    count = n ** 3 // 2 + 99          # a ragged last block
+    nmesh, inv = cases.mesh(n, box)
+    slab, ext = cases.slab_of(n, n // 4, 2, 1)
+    g = torch.Generator(device=dev).manual_seed(47)
+    masses = 0.5 + torch.rand(count, generator=g, device=dev)
+    runs = [(kind, cases.periodic_case(kind, n, box, count), None, nmesh)
+            for kind in cases.PERIODIC]
+    runs += [(kind, cases.slab_case(kind, n, box, count, slab, ext), slab,
+              ext) for kind in cases.SLAB]
+    for kind, pos, s, shape in runs:
+        x = torch.from_numpy(pos).to(dev)
+        valid = (torch.ones(count, dtype=torch.bool, device=dev)
+                 if s is None else cic.slab_cell(x, shape, inv, s)[2])
+        for mass, label in ((1.5, "scalar mass"), (masses, "mass column")):
+            got, want = (torch.zeros(shape, device=dev) for _ in range(2))
+            bad = int(cic.cic_paint4(got, x, inv, mass, s))
+            bad_plain = int(cic.cic_paint4_plain(want, x, inv, mass, s))
+            err = check_close("cic_paint4 edge case %s, %s (%d^3%s)"
+                              % (kind, label, n, ", slab" if s else ""),
+                              got, want)
+            rows["cic_paint4"]["err"] = max(rows["cic_paint4"]["err"], err)
+            total = (float(mass[valid].double().sum())
+                     if torch.is_tensor(mass) else mass * int(valid.sum()))
+            if (bad != bad_plain or bad != int((~valid).sum())
+                    or abs(float(got.double().sum()) - total)
+                    > 1e-6 * total):
+                raise SystemExit("cic_paint4 edge case %s: overflow %d "
+                                 "(plain %d) or mass not conserved"
+                                 % (kind, bad, bad_plain))
+
+
 def write_lua(path, text):
     with open(path, "w") as fp:
         fp.write(text)
@@ -1359,7 +1407,49 @@ def check_merge(dev, x0, v0, pm, B=32768, reps=10):
           "%.4f ms; carry_sort with sort_block %d %.4f ms, full %.4f ms"
           % (", full sort" if not bool(step_ok) else "", ksorted_ms, B,
              carry[B], carry[None]))
+    check_merge_cases(dev)
     return {"merge_pairs": row}
+
+
+def check_merge_cases(dev):
+    """Phase C, K7's edge cases: every case of
+    fastpm_torch/ops/merge_cases.py (each launch form: one tile, a
+    cluster, register passes; 16- and 32-bit offsets; no payload to 8;
+    unique keys, all keys equal, 4 values) and columns 4 bytes past a
+    16-byte boundary, against the plain version, bit for bit."""
+    import torch
+    from fastpm_torch.ops import merge_cases, sort
+
+    ncases = 0
+    for B in merge_cases.BLOCKS:
+        for n in (2 * B, 8 * B):
+            for P in merge_cases.PAYLOADS:
+                for kind in merge_cases.KINDS:
+                    keys, pays = merge_cases.bitonic_case(kind, n, B, P)
+                    cols = [torch.from_numpy(keys).to(dev)] + [
+                        torch.from_numpy(p).to(dev) for p in pays]
+                    got = sort.merge_pairs(*cols, B=B)
+                    want = sort.merge_pairs_plain(*cols, B=B)
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise SystemExit("K7 disagrees with its plain version"
+                                         " at B = %d, n = %d, %d payloads, "
+                                         "%s keys" % (B, n, P, kind))
+                    ncases += 1
+    n, B = 8 * 32768, 32768
+    keys, pays = merge_cases.bitonic_case("four", n, B, 6)
+    cols = []
+    for c in [keys] + list(pays):
+        buf = torch.empty(n + 1, dtype=torch.from_numpy(c).dtype,
+                          device=dev)
+        buf[1:] = torch.from_numpy(c).to(dev)
+        cols.append(buf[1:])
+    same = all(torch.equal(g, w) for g, w in zip(
+        sort.merge_pairs(*cols, B=B), sort.merge_pairs_plain(*cols, B=B)))
+    print("K7 merge_pairs edge cases: %d cases of merge_cases.py equal to "
+          "the plain version; columns 4 bytes past a 16-byte boundary "
+          "equal %s" % (ncases, same))
+    if not same:
+        raise SystemExit("K7 disagrees on unaligned columns")
 
 
 def benchlib_path(dev, x0, v0, pm, nstep=5, B=32768, every=3):
@@ -1565,6 +1655,7 @@ def main():
     rows.update(check_kernels_ncdm(dev))
     rows.update(check_kernels_homed(dev))
     check_readout_edges(dev, rows)
+    check_paint4_edges(dev, rows)
     # the benchlib particles and mesh of phases C and D
     from fastpm_torch import benchlib
     from fastpm_torch.mesh import PM

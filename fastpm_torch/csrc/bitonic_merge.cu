@@ -28,23 +28,29 @@
 //    at the end, out_p[i] = in_p[run + off[i]]. The gather's reads stay
 //    inside one 2B-run (256 KB a column at B = 32768), which the blocks
 //    of that run read together through L2.
-// 2. Several strides a pass. The strides a shared-memory tile of
-//    kTile (key, offset) pairs does not hold run in register passes over
-//    device memory: a thread holds 2^k pairs closed under k strides
-//    (k <= 4), applies the k stages in order and writes them back. The
-//    rest run in one tile launch: groups of three strides in registers
-//    between shared-memory exchanges, then each warp's 256 pairs alone
-//    (the strides 128-32 in registers, 16-1 in shuffles), and the tile
-//    writes the keys and gathers the payloads. At B = 32768 that is one
-//    register pass (strides 32768-8192) and the tile (4096-1): 4 + 6
-//    bytes, then 6 + 4 + 24 + 24 a row against the bound's 56. Where 2B
-//    fits a tile, the one launch does it all.
+// 2. Several strides a pass, in registers. A tile of kTile (key,
+//    offset) pairs sits in a block's shared memory; its strides run in
+//    groups of three in registers between shared-memory exchanges, then
+//    each warp's 256 pairs alone (the strides 128-32 in registers, 16-1
+//    in shuffles), and the block writes the keys and gathers the
+//    payloads. Where 2B fits a tile, that one launch does it all.
+// 3. A 2B-run of 2 to 8 tiles (B = 8192 ... 32768, the carry sort's
+//    runs) is one launch on a thread-block cluster (Hopper's distributed
+//    shared memory): each block reads the keys at the run's strides B,
+//    B/2, B/4, applies those three stages in registers and writes each
+//    pair into the shared memory of the block whose tile holds it; then
+//    each block runs its tile. That moves 4 + 4 + 24 + 24 B a row, the
+//    bound's 56. (Its first form, at one block an SM, lost to item 4;
+//    launch bounds of two blocks an SM made it 16 % faster: PERF.md.)
+// 4. Longer runs: the strides a tile does not hold run first in register
+//    passes over device memory, up to four strides a pass (a thread
+//    holds 2^k pairs closed under k strides), then the tile launch.
 // The stages run in the network's order, B down to 1, so the network is
-// the same one. The (key, offset) intermediate between launches lives in
-// the outputs: the keys in out[0], the offsets in out[1]'s storage (a
-// tile's 16-bit offsets in the first half of the tile's own floats),
-// which each tile reads before it writes them; so the kernel allocates
-// nothing, and the output payloads must not overlap the inputs.
+// the same one. The (key, offset) intermediate between the launches of
+// item 4 lives in the outputs: the keys in out[0], the 32-bit offsets in
+// out[1]'s storage, which each tile reads before it writes them; so the
+// kernel allocates nothing, and the output payloads must not overlap
+// the inputs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -56,18 +62,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxPayloads = 8;
-#ifndef FASTPM_MERGE_TILE
-#define FASTPM_MERGE_TILE 8192
-#endif
-#ifndef FASTPM_MERGE_MINB
-#define FASTPM_MERGE_MINB 1
-#endif
-#ifndef FASTPM_MERGE_BATCH
-#define FASTPM_MERGE_BATCH 1
-#endif
-constexpr int kTile = FASTPM_MERGE_TILE;   // (key, offset) pairs of a tile
-constexpr int kBatch = FASTPM_MERGE_BATCH;
+constexpr int kTile = 8192;          // (key, offset) pairs of a tile
 constexpr int kPerThread = 8;        // pairs a tile thread holds
+constexpr int kTileThreads = kTile / kPerThread;
+// two tile blocks an SM: at most 32 registers a thread (PERF.md: against
+// one block an SM, 16 % faster in a cluster, 2 % alone)
+constexpr int kTileBlocksPerSM = 2;
+constexpr int kMaxCluster = 8;       // blocks of a portable cluster
 constexpr int kPassThreads = 256;
 constexpr int kMaxPassStrides = 4;   // strides of one register pass
 constexpr unsigned kFull = 0xffffffffu;
@@ -94,23 +95,16 @@ __device__ __forceinline__ void exchange(int& ka, Off& oa, int& kb,
     }
 }
 
-// Where the offset of row i lies in out[1]'s storage: a 32-bit offset
-// in its own slot; a 16-bit one in the first half of its tile's floats,
-// so that a tile's offsets and its gathered payload 0 share the tile's
-// own bytes.
-template <typename Off>
-__device__ __forceinline__ long long off_slot(long long i) {
-    return sizeof(Off) == 4 ? i : i + (i & ~(long long)(kTile - 1));
-}
-
 // One register pass over device memory: the K strides 2^top ...
 // 2^(top-K+1), which are all >= kTile. FIRST: the keys come from the
 // input and the offsets are the rows' places in their runs; else both
-// come from the outputs, which the pass updates in place.
-template <int K, bool OFF, typename Off, bool FIRST>
+// come from the outputs (the offsets in out[1]'s storage), which the
+// pass updates in place.
+template <int K, bool OFF, bool FIRST>
 __global__ void __launch_bounds__(kPassThreads)
-merge_pass_kernel(const int* kin, int* kout, Off* off, long long n,
+merge_pass_kernel(const int* kin, int* kout, uint32_t* off, long long n,
                   int run, int top) {
+    using Off = uint32_t;
     constexpr int E = 1 << K;
     const long long g = (long long)blockIdx.x * kPassThreads + threadIdx.x;
     if (g >= n / E) return;
@@ -123,7 +117,7 @@ merge_pass_kernel(const int* kin, int* kout, Off* off, long long n,
     for (int m = 0; m < E; ++m) {
         const long long i = base + ((long long)m << sl);
         k[m] = kin[i];
-        if (OFF) o[m] = FIRST ? (Off)(i & (run - 1)) : off[off_slot<Off>(i)];
+        if (OFF) o[m] = FIRST ? (Off)(i & (run - 1)) : off[i];
     }
 #pragma unroll
     for (int b = K - 1; b >= 0; --b) {
@@ -136,15 +130,15 @@ merge_pass_kernel(const int* kin, int* kout, Off* off, long long n,
     for (int m = 0; m < E; ++m) {
         const long long i = base + ((long long)m << sl);
         kout[i] = k[m];
-        if (OFF) off[off_slot<Off>(i)] = o[m];
+        if (OFF) off[i] = o[m];
     }
 }
 
 // The strides 2^s ... 1 of one tile of `tile` rows (tile / 8 threads),
 // then the keys written and the payloads gathered. global: the tile's
-// pairs still lie in device memory (SCRATCH: the keys and offsets in the
-// outputs, after a register pass; else the keys in the input and the
-// offsets the rows' places in their runs); else in skey / soff. A
+// pairs still lie in device memory (SCRATCH: the keys and 32-bit offsets
+// in the outputs, after a register pass; else the keys in the input and
+// the offsets the rows' places in their runs); else in skey / soff. A
 // group's pair at slot m of thread t lies at
 // ((t >> sl) << (sl + 3)) | (t & (2^sl - 1)) | m << sl.
 template <bool OFF, typename Off, bool SCRATCH>
@@ -168,7 +162,7 @@ __device__ __forceinline__ void tile_network(const Columns& src,
             if (global) {
                 k[m] = gkey[tb + p];
                 if (OFF)
-                    o[m] = SCRATCH ? goff[off_slot<Off>(tb + p)]
+                    o[m] = SCRATCH ? goff[tb + p]
                                    : (Off)((tb + p) & (run - 1));
             } else {
                 k[m] = skey[p];
@@ -200,7 +194,7 @@ __device__ __forceinline__ void tile_network(const Columns& src,
         if (global) {
             k[m] = gkey[tb + p];
             if (OFF)
-                o[m] = SCRATCH ? goff[off_slot<Off>(tb + p)]
+                o[m] = SCRATCH ? goff[tb + p]
                                : (Off)((tb + p) & (run - 1));
         } else {
             k[m] = skey[p];
@@ -243,31 +237,21 @@ __device__ __forceinline__ void tile_network(const Columns& src,
     // warp's 256 rows lie in one run: 2B >= 256)
     const long long rb = (tb + wbase - lane) & ~(long long)(run - 1);
 #pragma unroll
-    for (int q = 0; q < kMaxPayloads; q += kBatch) {
+    for (int q = 0; q < kMaxPayloads; ++q) {
         if (q >= P) break;
-        float v[kBatch][kPerThread];
+        const float* in = src.pay[q];
+        float* out = dst.pay[q];
+        float v[kPerThread];
 #pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-            if (q + j < P && q + j < kMaxPayloads) {
+        for (int m = 0; m < kPerThread; ++m) v[m] = __ldg(in + rb + o[m]);
 #pragma unroll
-                for (int m = 0; m < kPerThread; ++m)
-                    v[j][m] = __ldg(src.pay[q + j] + rb + o[m]);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-            if (q + j < P && q + j < kMaxPayloads) {
-#pragma unroll
-                for (int m = 0; m < kPerThread; ++m)
-                    dst.pay[q + j][tb + wbase + m * 32] = v[j][m];
-            }
-        }
+        for (int m = 0; m < kPerThread; ++m) out[tb + wbase + m * 32] = v[m];
     }
 }
 
 // One tile a block: the strides 2^top ... 1.
 template <bool OFF, typename Off, bool SCRATCH>
-__global__ void __launch_bounds__(kTile / kPerThread, FASTPM_MERGE_MINB)
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
 merge_tile_kernel(Columns src, Columns dst, int tile, int run, int top,
                   int P) {
     extern __shared__ int smem[];
@@ -280,9 +264,11 @@ merge_tile_kernel(Columns src, Columns dst, int tile, int run, int top,
 // of the run in its shared memory: the strides B, B/2, B/4 in registers
 // (thread t of block r holds the pairs (r * kTile / 8 + t) + m * 2B / 8
 // of the run, read from the input), each pair written into the shared
-// memory of the block whose tile holds it, then the tile's strides.
+// memory of the block whose tile holds it, then the tile's strides. The
+// pairs of a thread lie in every block of the cluster, so its first
+// barrier also makes sure they have all started.
 template <bool OFF>
-__global__ void __launch_bounds__(kTile / kPerThread, FASTPM_MERGE_MINB)
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
 merge_cluster_kernel(Columns src, Columns dst, int run, int sB, int P) {
     using Off = uint16_t;
     extern __shared__ int smem[];
@@ -327,86 +313,92 @@ int log2_exact(long long v) {
     return (1LL << s) == v ? s : -1;
 }
 
-template <bool OFF, typename Off, bool FIRST>
-cudaError_t launch_pass(int K, const int* kin, int* kout, Off* off,
+template <bool OFF, bool FIRST>
+cudaError_t launch_pass(int K, const int* kin, int* kout, uint32_t* off,
                         long long n, int run, int top, cudaStream_t stream) {
     const long long threads = n >> K;
     const unsigned int blocks =
         (unsigned int)((threads + kPassThreads - 1) / kPassThreads);
     switch (K) {
         case 1:
-            merge_pass_kernel<1, OFF, Off, FIRST>
+            merge_pass_kernel<1, OFF, FIRST>
                 <<<blocks, kPassThreads, 0, stream>>>(kin, kout, off, n,
                                                       run, top);
             break;
         case 2:
-            merge_pass_kernel<2, OFF, Off, FIRST>
+            merge_pass_kernel<2, OFF, FIRST>
                 <<<blocks, kPassThreads, 0, stream>>>(kin, kout, off, n,
                                                       run, top);
             break;
         case 3:
-            merge_pass_kernel<3, OFF, Off, FIRST>
+            merge_pass_kernel<3, OFF, FIRST>
                 <<<blocks, kPassThreads, 0, stream>>>(kin, kout, off, n,
                                                       run, top);
             break;
         default:
-            merge_pass_kernel<4, OFF, Off, FIRST>
+            merge_pass_kernel<4, OFF, FIRST>
                 <<<blocks, kPassThreads, 0, stream>>>(kin, kout, off, n,
                                                       run, top);
     }
     return cudaGetLastError();
 }
 
-template <bool OFF, typename Off>
-cudaError_t launch_tile(bool scratch, const Columns& src, const Columns& dst,
-                        long long n, int tile, int run, int top, int P,
+template <bool OFF, typename Off, bool SCRATCH>
+cudaError_t launch_tile(const Columns& src, const Columns& dst, long long n,
+                        int tile, int run, int top, int P,
                         cudaStream_t stream) {
-    const void* fn = scratch ? (const void*)merge_tile_kernel<OFF, Off, true>
-                             : (const void*)merge_tile_kernel<OFF, Off, false>;
     const int smem = tile * (int)(sizeof(int) + (OFF ? sizeof(Off) : 0));
     cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        merge_tile_kernel<OFF, Off, SCRATCH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     const unsigned int blocks = (unsigned int)(n / tile);
-    const int threads = tile / kPerThread;
-    if (scratch)
-        merge_tile_kernel<OFF, Off, true><<<blocks, threads, smem, stream>>>(
-            src, dst, tile, run, top, P);
-    else
-        merge_tile_kernel<OFF, Off, false><<<blocks, threads, smem, stream>>>(
-            src, dst, tile, run, top, P);
+    const int threads = tile / kPerThread;   // <= kTileThreads
+    merge_tile_kernel<OFF, Off, SCRATCH><<<blocks, threads, smem, stream>>>(
+        src, dst, tile, run, top, P);
     return cudaGetLastError();
 }
 
-// Every launch of one merge, the offsets of type Off (OFF: there are
-// payloads).
-template <bool OFF, typename Off>
-cudaError_t merge(const Columns& src, const Columns& dst, long long n,
-                  int sB, int P, cudaStream_t stream) {
-    const int run = 2 << sB;
+// One merge of 2B-runs that a tile holds: one tile launch, 16-bit
+// offsets (OFF: there are payloads).
+template <bool OFF>
+cudaError_t merge_in_tiles(const Columns& src, const Columns& dst,
+                           long long n, int sB, int P, cudaStream_t stream) {
     const long long low = n & -n;      // n's largest power-of-two factor
     const int tile = (int)(low < kTile ? low : kTile);
-    const int sT = log2_exact(tile);
-    Off* off = reinterpret_cast<Off*>(dst.pay[0]);
+    return launch_tile<OFF, uint16_t, false>(src, dst, n, tile, 2 << sB, sB,
+                                             P, stream);
+}
+
+// One merge of 2B-runs longer than kMaxCluster tiles: register passes
+// over the strides a tile does not hold, then the tile launch, 32-bit
+// offsets.
+template <bool OFF>
+cudaError_t merge_in_passes(const Columns& src, const Columns& dst,
+                            long long n, int sB, int P,
+                            cudaStream_t stream) {
+    const int run = 2 << sB;
+    const int sT = log2_exact(kTile);
+    uint32_t* off = reinterpret_cast<uint32_t*>(dst.pay[0]);
     int s = sB;
     bool first = true;
-    // the strides a tile does not hold: register passes
     while (s >= sT) {
         const int K = s - sT + 1 < kMaxPassStrides ? s - sT + 1
                                                    : kMaxPassStrides;
         const cudaError_t e =
-            first ? launch_pass<OFF, Off, true>(K, src.key, dst.key, off, n,
-                                                run, s, stream)
-                  : launch_pass<OFF, Off, false>(K, dst.key, dst.key, off, n,
-                                                 run, s, stream);
+            first ? launch_pass<OFF, true>(K, src.key, dst.key, off, n, run,
+                                           s, stream)
+                  : launch_pass<OFF, false>(K, dst.key, dst.key, off, n, run,
+                                            s, stream);
         if (e != cudaSuccess) return e;
         s -= K;
         first = false;
     }
-    return launch_tile<OFF, Off>(!first, src, dst, n, tile, run, s, P,
-                                 stream);
+    return launch_tile<OFF, uint32_t, true>(src, dst, n, kTile, run, s, P,
+                                            stream);
 }
 
+// One merge of 2B-runs of 2 to kMaxCluster tiles on clusters.
 template <bool OFF>
 cudaError_t launch_cluster(const Columns& src, const Columns& dst,
                            long long n, int sB, int P, cudaStream_t stream) {
@@ -418,7 +410,7 @@ cudaError_t launch_cluster(const Columns& src, const Columns& dst,
     if (e != cudaSuccess) return e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned int)(n / kTile));
-    cfg.blockDim = dim3(kTile / kPerThread);
+    cfg.blockDim = dim3(kTileThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
@@ -435,27 +427,6 @@ cudaError_t launch_cluster(const Columns& src, const Columns& dst,
 }
 
 }  // namespace
-
-// The cluster form of one merge, where 2B / 8192 is 2, 4 or 8, with the
-// arguments of fastpm_bitonic_merge (a variant timed against it).
-extern "C" int fastpm_bitonic_merge_cluster(void* const* in,
-                                            void* const* out, int P,
-                                            long long n, int B,
-                                            cudaStream_t stream) {
-    const int sB = log2_exact(B);
-    if (P < 0 || P > kMaxPayloads || sB < 13 || sB > 15 || n <= 0
-        || n % (2LL * B))
-        return (int)cudaErrorInvalidValue;
-    Columns src{}, dst{};
-    src.key = static_cast<int*>(in[0]);
-    dst.key = static_cast<int*>(out[0]);
-    for (int p = 0; p < P; ++p) {
-        src.pay[p] = static_cast<float*>(in[1 + p]);
-        dst.pay[p] = static_cast<float*>(out[1 + p]);
-    }
-    return (int)(P ? launch_cluster<true>(src, dst, n, sB, P, stream)
-                   : launch_cluster<false>(src, dst, n, sB, P, stream));
-}
 
 // Merge every aligned pair of B-runs of n rows: in[0] / out[0] are the
 // int32 keys, in[1..P] / out[1..P] the float32 payloads (host arrays of
@@ -479,11 +450,14 @@ extern "C" int fastpm_bitonic_merge(void* const* in, void* const* out, int P,
         dst.pay[p] = static_cast<float*>(out[1 + p]);
     }
     cudaError_t e;
-    if (P == 0)
-        e = merge<false, uint32_t>(src, dst, n, sB, P, stream);
-    else if (2LL * B <= 65536)
-        e = merge<true, uint16_t>(src, dst, n, sB, P, stream);
+    if (2LL * B <= kTile)
+        e = P ? merge_in_tiles<true>(src, dst, n, sB, P, stream)
+              : merge_in_tiles<false>(src, dst, n, sB, P, stream);
+    else if (2LL * B <= (long long)kMaxCluster * kTile)
+        e = P ? launch_cluster<true>(src, dst, n, sB, P, stream)
+              : launch_cluster<false>(src, dst, n, sB, P, stream);
     else
-        e = merge<true, uint32_t>(src, dst, n, sB, P, stream);
+        e = P ? merge_in_passes<true>(src, dst, n, sB, P, stream)
+              : merge_in_passes<false>(src, dst, n, sB, P, stream);
     return (int)e;
 }

@@ -1,6 +1,6 @@
 // The CIC deposit body of the paints K1 (cic_paint.cu: periodic, and
 // homed into one rank's extended x-slab), K3 (cic_paint_into.cu) and K5
-// (cic_paint4.cu, one x plane of the cloud a block):
+// (cic_paint4.cu):
 // add mass m times the 8 corner weights of cic_common.cuh at every row
 // into a canvas, with a scalar mass or a mass column, the rows read in
 // their order or through an index (K3's cell order); on an open x axis
@@ -36,13 +36,6 @@
 // 4. Direct path, for a larger footprint (rows in random order, rows
 //    that straddle an x plane, voids): each row's 8 corners go straight
 //    to the canvas with scalar atomics, from the registers of step 1.
-// 5. Plane split (K5): with `split` each chunk has two blocks, side by
-//    side in the grid so that the second reads the rows from L2, and
-//    block p deposits only the corners on x plane p of each row's cloud
-//    (the base plane, or its +1 neighbour): a chunk's footprint then
-//    covers (x span + 1) x (y span + 2) lines, and the direct path's
-//    limit halves with the 4 corners a row. Only plane 0 counts the
-//    rows beyond an open slab.
 // The result is right whatever the row order: only speed depends on it
 // (the stale force paints rows that have drifted from their sort, K3's
 // callers may hand rows in any order). A row's cell is computed once,
@@ -85,22 +78,19 @@ struct Deposit {
     float* canvas;
     int* bad;                // open x axis only
     bool vec;                // nz % 4 == 0 and canvas 16-byte aligned
-    bool split;              // one x plane a block (blockIdx.x & 1)
 };
 
-// Add the weighted corners of a row (base cell lo, +1 neighbours hi,
-// fraction f) on x planes dx0 ... dx1 times m into the canvas with global
-// atomics.
+// Add the 8 weighted corners of a row (base cell lo, +1 neighbours hi,
+// fraction f) times m into the canvas with global atomics.
 __device__ __forceinline__ void add_corners(float* canvas, const int lo[3],
                                             const int hi[3],
                                             const float f[3], float m,
-                                            int ny, int nz, int dx0,
-                                            int dx1) {
+                                            int ny, int nz) {
     const float t[3] = {__fsub_rn(1.0f, f[0]), __fsub_rn(1.0f, f[1]),
                         __fsub_rn(1.0f, f[2])};
     int idx[4];
     float w[4];
-    for (int dx = dx0; dx <= dx1; ++dx) {
+    for (int dx = 0; dx < 2; ++dx) {
         plane_corners(dx, lo, hi, f, t, ny, nz, idx, w);
         for (int c = 0; c < 4; ++c)
             atomicAdd(canvas + idx[c], __fmul_rn(w[c], m));
@@ -118,13 +108,9 @@ deposit_kernel(const Deposit a) {
     float* tile = reinterpret_cast<float*>(tile4);
     __shared__ int box[4];   // lowest and highest base plane and row
     const int tid = threadIdx.x, lane = tid & 31;
-    // the chunk and the x planes of the cloud this block deposits
-    const long long chunk = a.split ? blockIdx.x >> 1 : blockIdx.x;
-    const int dx0 = a.split ? (int)(blockIdx.x & 1) : 0;
-    const int dx1 = a.split ? dx0 : 1;
-    const long long r = chunk * DEPOSIT_THREADS + tid;
+    const long long r = (long long)blockIdx.x * DEPOSIT_THREADS + tid;
     const int cnt = (int)min((long long)DEPOSIT_THREADS,
-                             a.n - chunk * DEPOSIT_THREADS);
+                             a.n - (long long)blockIdx.x * DEPOSIT_THREADS);
     if (tid == 0) {
         box[0] = INT_MAX;
         box[1] = INT_MIN;
@@ -142,7 +128,7 @@ deposit_kernel(const Deposit a) {
                   OPEN_X ? a.ax : XAxis{0, 0}, lo, hi, f, t);
         if (in) m = a.masses ? a.masses[i] : a.mass;
     }
-    if (OPEN_X && dx0 == 0) {
+    if (OPEN_X) {
         const unsigned out = __ballot_sync(FULL, r < a.n && !in);
         if (lane == 0 && out) atomicAdd(a.bad, __popc(out));
     }
@@ -163,16 +149,14 @@ deposit_kernel(const Deposit a) {
     x0 = box[0];
     y0 = box[2];
     if (x0 == INT_MAX) return;   // every row beyond the slab
-    // tile plane 0 is canvas plane x0 + dx0
-    const int planes = dx1 - dx0 + 1;
     const int py = box[3] - y0 + 2;
-    const long long lines = (long long)(box[1] - x0 + planes) * py;
+    const long long lines = (long long)(box[1] - x0 + 2) * py;
     const int per_pass = TILE_FLOATS / a.nz;   // lines a pass holds
 
-    if (per_pass == 0 || lines * a.nz > (long long)TILE_FLOATS_PER_ROW / 2
-                                            * planes * cnt) {
+    if (per_pass == 0
+        || lines * a.nz > (long long)TILE_FLOATS_PER_ROW * cnt) {
         // 4. direct path
-        if (in) add_corners(a.canvas, lo, hi, f, m, a.ny, a.nz, dx0, dx1);
+        if (in) add_corners(a.canvas, lo, hi, f, m, a.ny, a.nz);
         return;
     }
 
@@ -206,10 +190,10 @@ deposit_kernel(const Deposit a) {
         __syncthreads();
         // the corners on this pass's lines, with the weights of
         // plane_corners (cic_common.cuh)
-        for (int dx = dx0; dx <= dx1; ++dx) {
+        for (int dx = 0; dx < 2; ++dx) {
             const float wx = dx ? f[0] : t[0];
             for (int dy = 0; dy < 2; ++dy) {
-                const long long l = line + (dx - dx0) * py + dy - l0;
+                const long long l = line + dx * py + dy - l0;
                 const bool here = in && l >= 0 && l < nl;
                 const float wxy = __fmul_rn(wx, dy ? f[1] : t[1]);
                 for (int dz = 0; dz < 2; ++dz) {
@@ -230,13 +214,12 @@ deposit_kernel(const Deposit a) {
         }
         __syncthreads();
         // tile line l0 + l = (plane p, row y) -> canvas line
-        // (x0 + dx0 + p, y0 + y), each wrapped once: x0 + dx0 + p <= nx,
-        // y0 + y <= ny
+        // (x0 + p, y0 + y), each wrapped once: x0 + p <= nx, y0 + y <= ny
         const int per_line = vec ? nz / 4 : nz;
         for (int q = tid; q < total / (vec ? 4 : 1); q += DEPOSIT_THREADS) {
             const int l = (int)l0 + q / per_line, z = q % per_line;
             const int p = l / py, y = l - p * py;
-            int cx = x0 + dx0 + p, cy = y0 + y;
+            int cx = x0 + p, cy = y0 + y;
             if (!OPEN_X && cx >= a.nx) cx -= a.nx;
             if (cy >= a.ny) cy -= a.ny;
             float* dst = a.canvas + ((long long)cx * a.ny + cy) * nz;
@@ -253,13 +236,11 @@ deposit_kernel(const Deposit a) {
     }
 }
 
-// Launch the deposit on `stream` (with a.split, two blocks a chunk);
-// returns cudaGetLastError().
+// Launch the deposit on `stream`; returns cudaGetLastError().
 int launch_deposit(const Deposit& a, cudaStream_t stream) {
     if (a.n <= 0) return (int)cudaGetLastError();
     const unsigned int blocks =
-        (unsigned int)((a.n + DEPOSIT_THREADS - 1) / DEPOSIT_THREADS)
-        * (a.split ? 2u : 1u);
+        (unsigned int)((a.n + DEPOSIT_THREADS - 1) / DEPOSIT_THREADS);
     const bool open = a.ax.n0 > 0;
     const void* fn = open ? (const void*)deposit_kernel<true>
                           : (const void*)deposit_kernel<false>;

@@ -1,6 +1,7 @@
-// K5: CIC paint in two passes, one per x plane of the cloud: 4 corners
-// a pass, with a scalar mass or a mass column, added into a canvas the
-// caller owns (a periodic mesh, or one rank's extended x-slab).
+// K5: CIC paint of the TPU's two-pass deposit (4 corners a pass, one per
+// x plane of the cloud), with a scalar mass or a mass column, added into
+// a canvas the caller owns (a periodic mesh, or one rank's extended
+// x-slab).
 //
 // Replaces the TPU kernel fastpm_tpu/ops/paint_pallas.py:_paint_kernel4,
 // the 4-corners-per-pass deposit (pass p = dx scatters the corner
@@ -13,14 +14,17 @@
 // Contract: the same function as K1 (cic_paint.cu): the base cell,
 // fraction and corner weights of cic_common.cuh times the mass, added
 // into the canvas; in the homed form a particle beyond the slab deposits
-// nothing and is counted in *bad, once.
+// nothing and is counted in *bad, once. The two passes only order the
+// additions, and f32 atomics fix no order anyway.
 //
 // What bounds it on an H100: as K1, the reductions the canvas takes in
-// L2 (cic_deposit.cuh). So K5 runs K1's tiled deposit, split by plane:
-// one launch of two blocks a chunk of rows, block p depositing the
-// corners on x plane p of each row's cloud through a footprint of one
-// plane's lines (the TPU kernel's two passes); both blocks compute the
-// rows' cells, and only plane 0 counts the rows beyond the slab.
+// L2. So K5 runs K1's tiled deposit (cic_deposit.cuh) over both planes
+// in one launch, as K6 runs K2's readout. A split by plane (two blocks a
+// chunk, each depositing one plane's 4 corners through a footprint of
+// one plane's lines, the TPU kernel's two passes) was built and timed
+// against it on the same rows: 1.11 against 0.89 ms on the slab force's
+// 16.8 M rows, since each block computes every row's cell and flushes
+// its own footprint (PERF.md).
 //
 // f32 atomics land in an order that changes from run to run, so the
 // result differs in the last bits between runs.
@@ -45,6 +49,6 @@ extern "C" int fastpm_cic_paint4(const float* x, long long n, int nx,
     return fastpm_cic::launch_deposit(
         Deposit{x, nullptr, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
                 mass, masses, canvas, n0 > 0 ? bad : nullptr,
-                fastpm_cic::deposit_vec(nz, canvas), true},
+                fastpm_cic::deposit_vec(nz, canvas)},
         stream);
 }

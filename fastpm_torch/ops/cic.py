@@ -22,9 +22,10 @@ PyTorch versions, and the cell sort that prepares the order-free force.
   it launches K2's kernel with three fields, under its own counter);
   given a CellOrder it reads the rows in that order and scatters the
   values back;
-- K5 cic_paint4: K1's deposit in two passes of 4 corners, periodic or
-  homed (replaces paint_pallas.py:_paint_kernel4, both
-  make_paint_from4_fn and make_paint_from4_homed_fn);
+- K5 cic_paint4: the deposit the TPU kernel makes in two passes of 4
+  corners, periodic or homed (replaces paint_pallas.py:_paint_kernel4,
+  both make_paint_from4_fn and make_paint_from4_homed_fn; it runs K1's
+  tiled deposit over both x planes in one launch);
 - K6 cic_readout4: the three-field readout with the 4 corners of each x
   plane of the cloud summed apart and the two sums added, periodic or
   homed (replaces readout_pallas.py:_readout_kernel4, both
@@ -35,7 +36,7 @@ The port keeps the TPU kernels' contract, not their mechanism (see
 csrc/*.cu). One kernel, csrc/cic_readout.cu, serves every readout (K2,
 homed K2, K4, K6); it rounds each product and sum as the plain versions
 do, in their order, so on the card the two agree bit for bit. One
-deposit body, csrc/cic_deposit.cuh, serves K1, homed K1 and K3.
+deposit body, csrc/cic_deposit.cuh, serves K1, homed K1, K3 and K5.
 
 Every function takes positions x (N, 3) float32 in box units and the
 mesh as (Nmesh, InvCellSize). The base cell and fraction follow
@@ -454,11 +455,12 @@ cic_paint_homed.launches = 0
 
 def cic_paint4(canvas: torch.Tensor, x: torch.Tensor, inv_cell, mass=1.0,
                slab: Slab | None = None) -> torch.Tensor:
-    """K1's deposit in two passes of 4 corners: add mass (a scalar or an
-    (N,) float32 tensor) at every particle into canvas, periodic, or the
-    extended slab canvas when slab is given; returns the count of
+    """The deposit of the TPU's two-pass paint (from4): add mass (a scalar
+    or an (N,) float32 tensor) at every particle into canvas, periodic,
+    or the extended slab canvas when slab is given; returns the count of
     particles beyond the slab (int32, on the device; 0 without one). On
-    CUDA this launches K5 (csrc/cic_paint4.cu)."""
+    CUDA this launches K5 (csrc/cic_paint4.cu, K1's tiled deposit over
+    both x planes in one launch)."""
     _check_positions(x)
     _check_slab(slab, canvas.shape)
     if x.device.type == "cpu":

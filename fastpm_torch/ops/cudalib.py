@@ -107,9 +107,8 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
         fn.argtypes = head + tail
     # (in pointers, out pointers, P, n, B, stream): host arrays of 1 + P
     # device pointers
-    for name in ("fastpm_bitonic_merge", "fastpm_bitonic_merge_cluster"):
-        getattr(lib, name).restype = I
-        getattr(lib, name).argtypes = [P, P, I, L, I, P]
+    lib.fastpm_bitonic_merge.restype = I
+    lib.fastpm_bitonic_merge.argtypes = [P, P, I, L, I, P]
     _lib = lib
     return lib
 
