@@ -40,8 +40,9 @@
 //    B/2, B/4, applies those three stages in registers and writes each
 //    pair into the shared memory of the block whose tile holds it; then
 //    each block runs its tile. That moves 4 + 4 + 24 + 24 B a row, the
-//    bound's 56. (Its first form, at one block an SM, lost to item 4;
-//    launch bounds of two blocks an SM made it 16 % faster: PERF.md.)
+//    bound's 56. (At one block an SM it lost to a register pass and a
+//    tile, item 4's form; two blocks an SM made it 16 % faster than
+//    that form: PERF.md.)
 // 4. Longer runs: the strides a tile does not hold run first in register
 //    passes over device memory, up to four strides a pass (a thread
 //    holds 2^k pairs closed under k strides), then the tile launch.

@@ -43,7 +43,7 @@ from . import cic
 from .cudalib import launch
 
 __all__ = ["MAX_PAYLOADS", "merge_pairs", "merge_pairs_plain",
-           "merge_offsets_plain", "gather_by_offsets", "block_sort", "sort_ksorted", "sort_maybe_ksorted", "carry_sort"]
+           "merge_offsets_plain", "block_sort", "sort_ksorted", "sort_maybe_ksorted", "carry_sort"]
 
 # the payloads K7 takes by value in one launch
 MAX_PAYLOADS = 8
@@ -103,18 +103,12 @@ def merge_offsets_plain(key: torch.Tensor, B: int):
     its 2B-run (int32), the form K7's kernel runs: returns (key, offset).
     The swaps depend on the keys alone, so the offsets undergo the
     permutation the payloads would: payload p of merge_pairs is
-    p.view(-1, 2B).gather(1, offset.view(-1, 2B)) (gather_by_offsets).
-    Nothing on the main path calls it."""
+    p.view(-1, 2B).gather(1, offset.view(-1, 2B)). Nothing on the main
+    path calls it."""
     _check_merge(key, (), B)
     off = torch.arange(key.shape[0], dtype=torch.int32,
                        device=key.device) % (2 * B)
     return _network([key, off], B)
-
-
-def gather_by_offsets(payload: torch.Tensor, offset: torch.Tensor, B: int):
-    """Each row's payload from its offset in its 2B-run."""
-    return payload.view(-1, 2 * B).gather(
-        1, offset.view(-1, 2 * B).long()).view(-1)
 
 
 def merge_pairs(key: torch.Tensor, *payloads: torch.Tensor, B: int):
