@@ -41,8 +41,8 @@
 //    pair into the shared memory of the block whose tile holds it; then
 //    each block runs its tile. That moves 4 + 4 + 24 + 24 B a row, the
 //    bound's 56. (At one block an SM it lost to a register pass and a
-//    tile, item 4's form; two blocks an SM made it 16 % faster than
-//    that form: PERF.md.)
+//    tile, item 4's form; at two blocks an SM it takes 15 % less time
+//    than that form: PERF.md.)
 // 4. Longer runs: the strides a tile does not hold run first in register
 //    passes over device memory, up to four strides a pass (a thread
 //    holds 2^k pairs closed under k strides), then the tile launch.
@@ -67,7 +67,7 @@ constexpr int kTile = 8192;          // (key, offset) pairs of a tile
 constexpr int kPerThread = 8;        // pairs a tile thread holds
 constexpr int kTileThreads = kTile / kPerThread;
 // two tile blocks an SM: at most 32 registers a thread (PERF.md: against
-// one block an SM, 16 % faster in a cluster, 2 % alone)
+// one block an SM, 19 % less time in a cluster, 2 % alone)
 constexpr int kTileBlocksPerSM = 2;
 constexpr int kMaxCluster = 8;       // blocks of a portable cluster
 constexpr int kPassThreads = 256;
