@@ -26,8 +26,9 @@ Phases, in order (any failure ends the script with a nonzero exit):
    its plain version): against the plain versions, the total mass, K4's
    rows bit for bit, and the same timings, the order's apart;
 5. golden: tests/fixtures/nbodykit.lua through fastpm_torch.cli.main
-   writes 1894 FOF objects at a = 0.6667 and 1668 at a = 1.0, and logs
-   the input sigma8 0.815897; the LCDM and ODE broadband series of
+   writes 1894 FOF objects at a = 0.6667 and 1668 at a = 1.0 through
+   the device FOF (its neighbour sweep launched), and logs the input
+   sigma8 0.815897; the LCDM and ODE broadband series of
    tests/test_torch_broadband.py (64^3, 8 steps) on the card: 16 lines,
    each exact or within one unit of its last printed digit;
 6. device agreement: one 32^3 Lua file, and tests/fixtures/ncdm.lua
@@ -91,6 +92,26 @@ D. the benchlib step at full width (256^3 particles, a 512^3 mesh, box
    the stale force against the carry force on the main path's z = 0
    state moved by one more drift: by id, times and profiles, and K1 /
    K2 at that carried order;
+E. halos at full width, on the main path's z = 0 state (16.8 M rows, box
+   768, ll 0.6): the device FOF's labels bit-equal to the host
+   union-find, the device catalog against the host catalog (lengths,
+   minid and ihalo exact; the float columns within atol 1e-4), the
+   neighbour sweep (csrc/fof_link.cu) against neighbor_min_plain on a
+   clustered slab of the state (x < box / 8), bit for bit; the sweep's
+   ms a round, the rounds, and find_halos device against host;
+F. the lightcone goldens: tests/fixtures/lightcone.lua,
+   lightcone-healpix.lua and lightcone-rfof.lua through cli.main on the
+   card; every golden line of tests/test_golden_lightcone.py is logged
+   (usmesh slices, HEALPix pixel counts, z = 0 FOF and RFOF objects);
+G. this slice's path at full width: lightcone.lua's physics and
+   lightcone settings at nc = 256, boxsize = 2048 (its 8 Mpc/h mean
+   separation; 8 steps, 4^3 tiles, the potential and tidal tensor,
+   write_fof, HEALPix maps at nside 32) through run_fastpm: wall s, rows
+   crossed and written, tile-solve ms per interval, device-FOF ms per
+   call, peak memory; the launch counters show the force went through
+   the cell order, K3 and K4 (acc, potential, two tidal triples) and
+   every FOF through the neighbour sweep; every HEALPix device pixel
+   that differs from the float64 host pixel is flagged;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -142,6 +163,10 @@ KERNELS = {
     # make_paint_fn runs before K3's pallas_call
     "cell_order": ("fastpm_torch/csrc/cic_bin.cu",
                    "fastpm_tpu/ops/paint_pallas.py:212"),
+    # the device FOF's neighbour sweep (ops.fof_device.neighbor_min):
+    # XLA code in the JAX package, not a pallas_call
+    "fof_neighbor_min": ("fastpm_torch/csrc/fof_link.cu",
+                         "fastpm_tpu/ops/fof_device.py:103"),
 }
 HOMED = ("cic_paint_homed", "cic_readout_homed", "cic_paint4",
          "cic_readout4")
@@ -198,7 +223,9 @@ def bound_ms(nbytes, nops):
 
 def wrapper(name):
     """The wrapper of a kernel of KERNELS."""
-    from fastpm_torch.ops import cic, sort
+    from fastpm_torch.ops import cic, sort, fof_device
+    if name == "fof_neighbor_min":
+        return fof_device.neighbor_min
     return getattr(sort if name == "merge_pairs" else cic, name)
 
 
@@ -841,11 +868,16 @@ def golden(dev, tmp):
                      src.replace("OUTDIR", out))
     buf = io.StringIO()
     t0 = time.perf_counter()
+    sweeps = wrapper("fof_neighbor_min").launches
     with contextlib.redirect_stdout(buf):
         rc = cli.main([conf], device=dev)
     log = buf.getvalue()
-    print("golden: nbodykit.lua (128^3, 256^3 force mesh) ran in %.1f s"
-          % (time.perf_counter() - t0))
+    sweeps = wrapper("fof_neighbor_min").launches - sweeps
+    print("golden: nbodykit.lua (128^3, 256^3 force mesh) ran in %.1f s; "
+          "the device FOF's neighbour sweep launched %d times"
+          % (time.perf_counter() - t0, sweeps))
+    if sweeps == 0:
+        raise SystemExit("golden: the FOF did not run on the device")
     if rc != 0 or "Input power spectrum sigma8 0.815897" not in log:
         raise SystemExit("golden: sigma8 0.815897 not logged")
     for name, want in (("fastpm_0.6667", 1894), ("fastpm_1.0000", 1668)):
@@ -1633,6 +1665,303 @@ def profile_force(step, top=12):
             for name in ("deposit_kernel", "readout_kernel")}
 
 
+def halos(dev, store, box, nc, ll_frac=0.2, nmin=20, reps=5):
+    """Phase E: the device FOF at full width on the main path's z = 0
+    state (16.8 M rows, box 768): labels bit-equal to the host
+    union-find, the catalog against the host catalog (lengths, minid and
+    ihalo exact; the float columns within atol 1e-4, float32 segment
+    sums in another order), the neighbour sweep against its plain
+    version on a clustered slab of the state (x < box / 8), and the
+    times: the kernel a round, the rounds, find_halos device against
+    host. Returns the kernel's row for the JSON line."""
+    import numpy as np
+    import torch
+    from fastpm_torch import fof
+    from fastpm_torch.ops import fof_device as fd
+
+    ll = ll_frac * box / nc
+    p = store.wrap(box)
+    x = p.x.contiguous()
+    n = x.shape[0]
+    ncell, cs = fd._grid(ll, box)
+    ll2 = ll * ll
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lab_d = fd.fof_labels_device(x, ll, box)
+    torch.cuda.synchronize()
+    labels_ms = (time.perf_counter() - t0) * 1e3
+    rounds = fd.fof_labels_device.rounds
+    t0 = time.perf_counter()
+    lab_h = fof.fof_labels(x.cpu().numpy(), ll, box)
+    host_labels_ms = (time.perf_counter() - t0) * 1e3
+    ndiff = int((lab_d.cpu().numpy() != lab_h).sum())
+    same = ndiff == 0
+    print("halos: %d rows, ll %.3f, %d^3 linking cells: device labels in "
+          "%d rounds, %.1f ms; host union-find %.1f ms; bit-equal %s (%d "
+          "rows differ)" % (n, ll, ncell, rounds, labels_ms, host_labels_ms,
+                            same, ndiff))
+    if not same:
+        raise SystemExit("halos: device labels differ from the host "
+                         "union-find")
+    del lab_d
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cat_d, ih_d = fof.find_halos(p, ll, box, nmin=nmin, backend="device")
+    torch.cuda.synchronize()
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cat_h, ih_h = fof.find_halos(p, ll, box, nmin=nmin, labels=lab_h,
+                                 backend="host")
+    host_ms = host_labels_ms + (time.perf_counter() - t0) * 1e3
+    ok = (cat_d.nhalo == cat_h.nhalo
+          and np.array_equal(cat_d.length, cat_h.length)
+          and np.array_equal(cat_d.minid, cat_h.minid)
+          and np.array_equal(ih_d.cpu().numpy(), ih_h))
+    errs = {k: float(np.abs(getattr(cat_d, k) - getattr(cat_h, k)).max())
+            if cat_d.nhalo == cat_h.nhalo else float("inf")
+            for k in ("x", "v", "rdisp", "vdisp", "rvdisp", "q")}
+    print("halos: %d halos (nmin %d), lengths / minid / ihalo exact %s, "
+          "float columns max |err| %s; find_halos device %.1f ms, host "
+          "%.1f ms (labels + catalog)" % (cat_d.nhalo, nmin, ok, errs,
+                                          dev_ms, host_ms))
+    if not ok or max(errs.values()) > 1e-4:
+        raise SystemExit("halos: the device catalog differs from the host's")
+    del cat_d, ih_d, cat_h, ih_h, lab_h
+
+    # the sweep alone: a round's input, the first labelling
+    cid_s, order = torch.sort(fd._cell_ids(x, ncell, cs), stable=True)
+    x_s = x[order].contiguous()
+    lab0 = torch.arange(n, dtype=torch.int32, device=dev)
+    ms_full = time_ms(lambda: fd.neighbor_min(lab0, x_s, cid_s, ncell, box,
+                                              ll2), reps)
+    del cid_s, order, x_s, lab0
+    # against the plain version on a clustered slab of the state
+    xs = x[x[:, 0] < box / 8].contiguous()
+    ns = xs.shape[0]
+    cid_s, order = torch.sort(fd._cell_ids(xs, ncell, cs), stable=True)
+    x_s = xs[order].contiguous()
+    g = torch.Generator(device=dev).manual_seed(23)
+    lab = torch.randperm(ns, generator=g, device=dev).to(torch.int32)
+    rmax = fd.max_cell_occupancy(xs, ll, box)
+    got = fd.neighbor_min(lab, x_s, cid_s, ncell, box, ll2)
+    want = fd.neighbor_min_plain(lab, x_s, cid_s, ncell, box, ll2, rmax)
+    same = torch.equal(got, want)
+    ms = time_ms(lambda: fd.neighbor_min(lab, x_s, cid_s, ncell, box, ll2),
+                 reps)
+    plain_ms = time_ms(lambda: fd.neighbor_min_plain(
+        lab, x_s, cid_s, ncell, box, ll2, rmax), 1)
+    print("halos: fof_neighbor_min on the clustered slab (%d rows, largest "
+          "cell %d rows) against neighbor_min_plain: equal %s; kernel_ms "
+          "%.4f plain_ms %.2f; at full width %.4f ms a round"
+          % (ns, rmax, same, ms, plain_ms, ms_full))
+    if not same:
+        raise SystemExit("fof_neighbor_min disagrees with its plain version")
+    # bytes: each row's position and int32 label read once, its new
+    # label written once (20 B a row); the pair tests read neighbours'
+    # rows again from cache
+    return {"fof_neighbor_min": dict(
+        err=0.0, ms=ms, plain_ms=plain_ms, bound=bound_ms(20 * ns, 0),
+        rows=ns, largest_cell=rmax, ms_full_round=ms_full,
+        bound_ms_full_round=bound_ms(20 * n, 0)[0], rows_full=n,
+        rounds_full=rounds, labels_ms_full=labels_ms,
+        find_halos_device_ms=dev_ms, find_halos_host_ms=host_ms,
+        library_ms=None)}
+
+
+LIGHTCONE_GOLDENS = {
+    # tests/test_golden_lightcone.py:33-65
+    "lightcone.lua": ["422564", "569931", "622458", "200849", "262144",
+                      "52"],
+    "lightcone-healpix.lua": ["20903", "24576", "61170", "74426", "422564"],
+    "lightcone-rfof.lua": ["27", "422564", "200849"],
+}
+
+
+def lightcone_lua(tmp, fixture, name, subs=()):
+    """A lightcone fixture with its outputs in tmp/name and the power
+    spectrum path pointed at FIXTURES; subs: more (pattern, text)
+    replacements. Returns (path of the Lua file, output directory)."""
+    out = os.path.join(tmp, name)
+    src = open(os.path.join(FIXTURES, fixture)).read()
+    src = re.sub(r'read_powerspectrum = ".*"', 'read_powerspectrum = "%s"'
+                 % os.path.join(FIXTURES, "powerspec.txt"), src)
+    for pattern, text in subs:
+        src, k = re.subn(pattern, text, src)
+        if k != 1:
+            raise SystemExit("lightcone_lua: %r not in %s" % (pattern,
+                                                             fixture))
+    return (write_lua(os.path.join(tmp, name + ".lua"),
+                      src.replace("OUTDIR", out)), out)
+
+
+def lightcone_goldens(dev, tmp):
+    """Phase F: the three lightcone fixtures through cli.main on the
+    card; every golden line of tests/test_golden_lightcone.py must be
+    logged exactly."""
+    from fastpm_torch import cli
+    for fixture, counts in LIGHTCONE_GOLDENS.items():
+        conf, _ = lightcone_lua(tmp, fixture, fixture[:-4])
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([conf], device=dev)
+        lines = buf.getvalue().splitlines()
+        got = [l.split()[1] for l in lines
+               if l.startswith("Writing ") and l.endswith(" objects.")]
+        missing = [c for c in counts
+                   if "Writing %s objects." % c not in lines]
+        print("lightcone golden %s: %.1f s; objects written %s; goldens %s "
+              "%s" % (fixture, time.perf_counter() - t0, got, counts,
+                      "all logged" if not missing else
+                      "MISSING %s" % missing))
+        if rc != 0 or missing:
+            raise SystemExit("lightcone golden %s failed" % fixture)
+
+
+def lightcone_path(dev, tmp, nc=256, box=2048.0):
+    """Phase G, this slice's path at full width: lightcone.lua's physics
+    and lightcone settings at nc = 256, boxsize = 2048 (the fixture's 8
+    Mpc/h mean separation), everything else as the fixture (8 steps, the
+    4^3 tiles, dh_factor 0.1, the potential and tidal tensor, write_fof
+    at z = 0, HEALPix maps at nside 32) through run_fastpm. The launch
+    counters show the force went through the cell order, K3 and K4 and
+    every FOF through the neighbour sweep; every HEALPix device pixel
+    that differs from the float64 host pixel is flagged. Returns the
+    launch counts of the run."""
+    import numpy as np
+    import torch
+    from fastpm_torch import cli, fof, healpix, lightcone
+    from fastpm_torch.config.params import load_params
+    from fastpm_torch.diagnostics import Log
+
+    conf, out = lightcone_lua(tmp, "lightcone.lua", "lightcone_full", (
+        (r"(?m)^nc = .*$", "nc = %d" % nc),
+        (r"(?m)^boxsize = .*$", "boxsize = %r" % box),
+        (r"(?m)^lc_usmesh_fof_padding = .*$",
+         "lc_usmesh_fof_padding = 20.0\nlc_usmesh_healpix_nside = 32")))
+    params = load_params(conf)
+
+    # measurement hooks: the tile solves of each interval, each FOF and
+    # each HEALPix paint, timed with a synchronize on each side
+    solve_ms, fof_ms, flags = [], [], dict(rows=0, flagged=0, unflagged=0)
+    intersect, find_halos = lightcone.USMesh.intersect, cli.find_halos
+    paint = healpix.paint_hpmap_nest_device
+
+    def timed(fn, into):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return r
+        return call
+
+    def checked_paint(x, aemit, v, mass, nside, nslices):
+        pix, risky = healpix.vec2pix_nest_device(nside, x)
+        want = healpix.vec2pix_nest(nside, x.cpu().numpy().astype(
+            np.float64))
+        bad = (pix.cpu().numpy() != want)
+        flags["rows"] += int(x.shape[0])
+        flags["flagged"] += int(risky.sum())
+        flags["unflagged"] += int((bad & ~risky.cpu().numpy()).sum())
+        return paint(x, aemit, v, mass, nside, nslices)
+
+    lightcone.USMesh.intersect = timed(intersect, solve_ms)
+    cli.find_halos = timed(find_halos, fof_ms)
+    healpix.paint_hpmap_nest_device = checked_paint
+    try:
+        reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        log = Log(echo=False)
+        solver = cli.run_fastpm(params, log=log, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        lightcone.USMesh.intersect = intersect
+        cli.find_halos = find_halos
+        healpix.paint_hpmap_nest_device = paint
+    peak = torch.cuda.max_memory_allocated()
+    crossed = [int(l.rsplit("=", 1)[1]) for l in log.lines
+               if l.startswith("Unstructured LightCone ready")]
+    written = [int(l.split()[1]) for l in log.lines
+               if l.startswith("Writing ") and l.endswith(" objects.")]
+    nstep = len(params.time_step)
+    print("lightcone path: %d^3 particles, box %g, %d steps, %d tiles: "
+          "wall %.2f s, max_memory_allocated %.3f GB"
+          % (nc, box, nstep, len(params.lc_usmesh_tiles), wall, peak / 1e9))
+    print("lightcone path: rows crossed per slice %s; objects written "
+          "(HEALPix pixels, FOF halos, usmesh rows, snapshot, z = 0 FOF) %s"
+          % (crossed, written))
+    print("lightcone path: tile solves ms per interval %s"
+          % ["%.1f" % t for t in solve_ms])
+    print("lightcone path: device FOF ms per call, in call order (the "
+          "z = 0 snapshot's, then each lightcone slice's) %s"
+          % ["%.1f" % t for t in fof_ms])
+    print("lightcone path: HEALPix rows %d, flagged %d (%.4f), device "
+          "pixels that differ from the host's and are not flagged %d"
+          % (flags["rows"], flags["flagged"],
+             flags["flagged"] / max(1, flags["rows"]), flags["unflagged"]))
+    print("lightcone path: launches %s" % {k: c for k, c in launches.items()
+                                           if c})
+    if flags["unflagged"] or not flags["rows"]:
+        raise SystemExit("lightcone path: a HEALPix device pixel differs "
+                         "from the host's without a flag")
+    want_zero = ("cic_paint", "cic_readout4", "cic_paint4", "merge_pairs",
+                 "cic_paint_homed", "cic_readout_homed")
+    # the force: the cell order, K3 and K4 (acc, potential, 2 x tidal)
+    # once a force step; the 2LPT readouts through K2
+    if (launches["cell_order"] != nstep
+            or launches["cic_paint_into"] != nstep
+            or launches["cic_readout3"] != 4 * nstep
+            or launches["fof_neighbor_min"] == 0
+            or any(launches[k] for k in want_zero)):
+        raise SystemExit("lightcone path did not run through its kernels: "
+                         "%s" % launches)
+    if not (sum(crossed) > 0 and any(written)):
+        raise SystemExit("lightcone path: no crossings written")
+    from fastpm_torch.io.bigfile import BigFile
+    bf = BigFile(os.path.join(out, "usmesh"))
+    aemit = bf.open_block("1/Aemit").read_all()
+    pos = bf.open_block("1/Position").read_all()
+    size = bf.open_block("1").attrs.get("aemitIndex.size")
+    if not (np.isfinite(pos).all() and (aemit >= 0.1).all()
+            and (aemit <= 1.0).all() and int(np.sum(size)) == len(aemit)
+            and np.isfinite(bf.open_block("HEALPIX/Mass").read_all()).all()):
+        raise SystemExit("lightcone path: bad usmesh output")
+    print("lightcone path: usmesh %d rows, aemit in [%.4f, %.4f]"
+          % (len(aemit), aemit.min(), aemit.max()))
+
+    # the force's kernels at this path's shapes, on its z = 0 state: the
+    # cell order, K3 and K4 with one field (the potential) and three
+    # (acc, a tidal triple) against their plain versions
+    from fastpm_torch.ops import cic
+    pm = solver.find_pm(1.0)
+    mesh, inv = tuple(pm.Nmesh), pm.InvCellSize
+    x = solver.species["cdm"].wrap(pm.BoxSize).x.contiguous()
+    del solver
+    order = cic.cell_order(x, mesh, inv)
+    canvas = torch.zeros(mesh, device=dev)
+    check_close("lightcone path: K3 cic_paint_into given the cell order",
+                cic.cic_paint_into(canvas, x, inv, 1.0, order),
+                cic.cic_paint_into_plain(torch.zeros_like(canvas), x, inv,
+                                         1.0))
+    g = torch.Generator(device=dev).manual_seed(29)
+    fields = [torch.randn(mesh, generator=g, device=dev) for _ in range(3)]
+    for k in (1, 3):
+        got = cic.cic_readout_ordered(fields[:k], x, inv, order)
+        if not torch.equal(got, cic.cic_readout_plain(fields[:k], x, inv)):
+            raise SystemExit("lightcone path: K4 with %d field(s) differs "
+                             "from its plain version" % k)
+        print("lightcone path: K4 cic_readout_ordered with %d field(s) "
+              "given the cell order: equal to its plain version" % k)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1670,7 +1999,10 @@ def main():
         ncdm_agreement(dev, tmp)
         # each path's launches are read from its own run
         launches, solver, pm, more = main_path(dev, tmp)
+        rows.update(halos(dev, solver.species["cdm"], 768.0, 256))
         ncdm_launches, more_ncdm = ncdm_path(dev, tmp)
+        lightcone_goldens(dev, tmp)
+        lc_launches = lightcone_path(dev, tmp)
     homed_launches = homed_force(dev, solver.species["cdm"], pm)
     bench_launches = benchlib_path(dev, x0, v0, bpm)
     del x0, v0
@@ -1685,6 +2017,7 @@ def main():
     for name in HOMED:
         launches[name] = homed_launches[name]
     launches["merge_pairs"] = bench_launches["sb32768"]["merge_pairs"]
+    launches["fof_neighbor_min"] = lc_launches["fof_neighbor_min"]
     rows["cic_paint4"]["launches_periodic"] = (
         bench_launches["paint4"]["cic_paint4"])
 

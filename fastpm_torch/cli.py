@@ -5,9 +5,11 @@
 Port of fastpm_tpu/cli.py: Lua parameter file -> IC pipeline -> 2LPT
 (CDM, and the Fermi-Dirac split ncdm species when m_ncdm is set) ->
 evolution with event handlers for the per-step power spectrum,
-interpolated bigfile snapshots and host FOF catalogs. A parameter this
-slice does not serve stops the run with SystemExit naming it (see
-ROADMAP.md).
+interpolated bigfile snapshots (with the potential and tidal tensor, and
+subsampled, where asked), FOF and RFOF catalogs, and on one rank the
+particle lightcone (prepare_lc: usmesh slices, HEALPix shell maps and
+lightcone halos). A parameter the port does not serve stops the run with
+SystemExit naming it (see ROADMAP.md).
 
 Under torchrun (WORLD_SIZE > 1) main starts the process group, as the
 JAX CLI builds its device mesh (cli.py:817-846): NCCL with one GPU per
@@ -30,39 +32,49 @@ from .config.params import load_params, Params
 from .cosmology import Cosmology
 from .device import resolve_device
 from .solver import Solver, SolverConfig, NCDM
-from .store import lattice_store
+from .store import Store, lattice_store
 from .ncdm import NcdmInitData, split_ncdm
 from .powerspectrum import FuncK, sigma_tophat
 from .diagnostics import attach_standard_handlers, Log
 from . import ic, events as ev, transfers
-from .io.snapshots import write_snapshot, write_halo_catalog
-from .fof import find_halos
+from .io.snapshots import (write_snapshot, write_halo_catalog,
+                           write_snapshot_header)
+from .io.bigfile import BigFile
+from .fof import find_halos, rfof_find_halos
 
 __all__ = ["main", "run_fastpm", "build_cosmology", "build_config",
-           "prepare_deltak", "prepare_ncdm", "SnapshotChecker"]
+           "prepare_deltak", "prepare_ncdm", "prepare_lc", "SnapshotChecker"]
 
-# parameters whose feature is a later slice: each must be unset/false
+# parameters the port does not serve yet, each must be unset / false
+# (ROADMAP.md queue 1): the k-space and white-noise file inputs and
+# outputs, the RunPB / GRAFIC formats, the nonlinear density output,
+# constrained ICs, the neutrino linear response and PGD
 _LATER_PARAMS = (
     "read_lineark", "read_lineark_ncdm", "read_whitenoisek",
     "read_runpbic", "read_grafic", "write_whitenoisek", "write_lineark",
     "write_linearr", "write_runpbic", "write_nonlineark",
-    "write_runpb_snapshot", "write_rfof", "lc_write_usmesh",
-    "constraints", "ncdm_linearresponse", "pgdc",
-    "compute_potential", "compute_tidal")
+    "write_runpb_snapshot", "constraints", "ncdm_linearresponse", "pgdc")
+# served on one rank only: the slab force of several ranks reads out no
+# potential or tidal tensor, and the lightcone and RFOF run on one
+# device's rows
+_ONE_RANK_PARAMS = ("lc_write_usmesh", "write_rfof", "compute_potential",
+                    "compute_tidal")
 
 
-def check_served(p: Params) -> None:
-    """SystemExit naming the first parameter this slice does not serve."""
+def check_served(p: Params, ranks: int = 1) -> None:
+    """SystemExit naming the first parameter the port does not serve
+    (on `ranks` ranks)."""
     bad = [name for name in _LATER_PARAMS if p.get(name, None)]
     if p.f_nl_type != "none":
         bad.append("f_nl_type")
     if p.force_mode == "cola":
         bad.append("force_mode")
-    if p.particle_fraction < 1:
-        bad.append("particle_fraction")
+    if ranks > 1:
+        bad += [name for name in _ONE_RANK_PARAMS if p.get(name, None)]
     if bad:
         raise SystemExit(f"fastpm_torch: parameter {bad[0]!r} is not "
-                         "served by this slice of the port (see ROADMAP.md)")
+                         "served by the port%s (see ROADMAP.md)"
+                         % (" on several ranks" if ranks > 1 else ""))
 
 
 def build_cosmology(p: Params) -> Cosmology:
@@ -92,6 +104,12 @@ def build_config(p: Params) -> SolverConfig:
         painter_type=p.painter_type, painter_support=p.painter_support,
         pm_nc_factor=pm_nc_factor, lpt_nc_factor=p.lpt_nc_factor,
         use_shift=p.shift, za=p.za,
+        compute_potential=bool(p.compute_potential),
+        compute_tidal=bool(p.get("compute_tidal", False)),
+        rand_ntask=int(p.get("rand_ntask", 1)),
+        # rand is read by subsampled snapshots and lightcone subsampling
+        # only (src/fastpm.c:1025-1046, 1453)
+        need_rand=bool(p.particle_fraction < 1 or p.lc_write_usmesh),
         # the reference's pm_check_values runs on every CLI run
         # (gravity.c:350-383)
         check_values=True,
@@ -163,8 +181,12 @@ def prepare_ncdm(solver: Solver, p: Params, a0: float, log: Log):
                        sphere_scheme=p.ncdm_sphere_scheme)
 
     shift0 = p.boxsize / nc_ncdm * 0.5 if p.shift else 0.0
+    # the sites' rand column (the reference's rank-0 stream) subsamples
+    # the ncdm rows of a snapshot under particle_fraction < 1
     sites = lattice_store(solver.lptpm, Nc=nc_ncdm, shift=shift0,
-                          columns=("v", "acc", "id"), name="ncdm")
+                          columns=("v", "acc", "id") + (
+                              ("rand",) if solver.config.need_rand else ()),
+                          name="ncdm")
     # stagger wrt the cdm grid by half a cdm cell (src/fastpm.c:785-792)
     stag = float(np.float32(p.boxsize / p.nc * 0.5))
     sites = sites.replace(x=sites.x + stag,
@@ -279,7 +301,8 @@ class SnapshotChecker:
                 rsd = write_snapshot(path, s.cosmology, snapshot,
                                      p.nc, p.boxsize, param_text=p.source,
                                      sort_by_id=p.sort_snapshot,
-                                     n_writers=self.n_writers)
+                                     n_writers=self.n_writers,
+                                     particle_fraction=p.particle_fraction)
                 log.info("RSD factor %e", rsd)
                 log.info("Writing %d objects.", snapshot["cdm"].np_local)
 
@@ -293,6 +316,300 @@ class SnapshotChecker:
             write_halo_catalog(path, dataset, cat, s.cosmology,
                                aout, p.nc, p.boxsize, M0=cdm.M0)
             log.info("Writing %d objects.", cat.nhalo)
+        if p.write_rfof:
+            sep = p.boxsize / p.nc
+            cat, _ = rfof_find_halos(
+                cdm, p.boxsize, 1.0 / aout - 1.0, s.cosmology,
+                nmin=int(p.rfof_nmin),
+                linkinglength=p.rfof_linkinglength * sep,
+                l1=p.rfof_l1 * sep, l6=p.rfof_l6 * sep,
+                A1=p.rfof_a1 * sep, A2=p.rfof_a2 * sep,
+                B1=p.rfof_b1, B2=p.rfof_b2)
+            path = "%s_%0.04f" % (p.write_rfof, aout)
+            log.info("Writing a catalog to %s [RFOF]", path)
+            write_halo_catalog(path, "RFOF", cat, s.cosmology,
+                               aout, p.nc, p.boxsize, M0=cdm.M0)
+            log.info("Writing %d objects.", cat.nhalo)
+
+
+def prepare_lc(solver: Solver, p: Params, log: Log):
+    """Set up the particle lightcone (prepare_lc, src/fastpm.c:860-975)
+    and its ready handler (usmesh_ready_handler, src/fastpm.c:982-1140)
+    on the solver's device; None when the run writes no lightcone.
+
+    Each ready event drains the crossings (on the device), paints the
+    HEALPix shell maps from them, runs the lightcone FOF and RFOF with
+    their tails carried to the next batch, subsamples (ell-limited or
+    uniform, in host float64 as the reference), sorts by aemit and
+    appends the slice to the usmesh file. Only what is written, the
+    small host-exact columns and a few scalars cross to the host."""
+    import torch
+    from .lightcone import LightCone, USMesh, volume_density_from_ell
+    from .healpix import paint_hpmap_nest_device, nside2npix
+
+    if not p.lc_write_usmesh:
+        return None
+
+    octants = [False] * 8
+    for o in (p.lc_octants or []):
+        octants[int(o) % 8] = True
+        log.info("Using Octant %d", int(o))
+
+    lc = LightCone(cosmology=solver.cosmology,
+                   glmatrix=np.asarray(p.lc_glmatrix, dtype=np.float64),
+                   fov=p.lc_fov, octants=tuple(octants),
+                   dh_factor=p.dh_factor)
+
+    lc_amin = p.lc_amin if p.lc_amin else p.time_step[0]
+    lc_amax = p.lc_amax if p.lc_amax else p.time_step[-1]
+    log.info("Unstructured Lightcone amin= %g amax=%g", lc_amin, lc_amax)
+
+    tiles = np.asarray(p.lc_usmesh_tiles, dtype=np.float64) * p.boxsize
+    # capacity = lc_usmesh_alloc * (CDM np_upper = nc^3 *
+    # np_alloc_factor); sets the ready-flush threshold
+    # (lightcone-usmesh.c:584 checks np > 0.5 np_upper)
+    nupper = int(p.lc_usmesh_alloc_factor * p.np_alloc_factor * p.nc ** 3)
+    mesh = USMesh(lc, lambda: solver.species["cdm"], tiles,
+                  amin=lc_amin, amax=lc_amax,
+                  target_volume=p.lc_usmesh_alloc_factor * p.boxsize ** 3,
+                  np_upper=nupper)
+
+    nslices = int(p.lc_usmesh_nslices)
+    log.info("Generating an AemitIndex with %d layers for usmesh. ",
+             nslices)
+    edges = np.linspace(0.0, 1.0, nslices + 1)
+    counts = {k: np.zeros(nslices + 2, dtype=np.int64)
+              for k in ("usmesh", "fof", "rfof", "healpix")}
+    state = {"first": True, "tail_fof": None, "tail_rfof": None,
+             "first_fof": True, "first_rfof": True}
+    filebase = p.lc_write_usmesh
+    density = (p.nc / p.boxsize) ** 3
+    dev = solver.device
+
+    def index_attrs(block, kind, aemit):
+        """Add rows of aemit to the kind's aemitIndex and set the
+        block's attributes (io.c:1001-1050)."""
+        idx = np.searchsorted(edges, aemit, side="right")
+        counts[kind] += np.bincount(idx, minlength=nslices + 2)
+        block.attrs.set("aemitIndex.edges", edges, "f8")
+        block.attrs.set("aemitIndex.size", counts[kind][:nslices + 2], "i8")
+        block.attrs.set("aemitIndex.offset",
+                        np.concatenate([[0], np.cumsum(counts[kind])]), "i8")
+
+    def write_blocks(bf, dataset, blocks, first):
+        for name, arr in blocks:
+            if first:
+                bf.create_block(f"{dataset}/{name}", arr)
+            else:
+                bf.open_block(f"{dataset}/{name}").append(arr)
+
+    def lightcone_fof(rec_d, af, kind):
+        """usmesh FOF with tail carry-over (run_usmesh_fof,
+        src/fastpm.c:1334-1400, _halos_ready:1211-1260); kind "rfof" runs
+        the relaxed finder. Each finder keeps its own tail (the
+        reference shares one between the two, which matters only when
+        both are on). The batch and the tail stay on the device: only
+        the halo catalog, the rows at risk on the tail cut (host float64
+        patch) and a few scalars cross to the host."""
+        cols = ("x", "v", "id", "aemit")
+        parts = [rec_d] if rec_d is not None else []
+        if state["tail_" + kind] is not None:
+            parts.append(state["tail_" + kind])
+        if not parts:
+            return
+        comb = {k: torch.cat([b[k] for b in parts]) for k in cols}
+        if comb["aemit"].shape[0] == 0:
+            return
+        st = Store(x=comb["x"], v=comb["v"], id=comb["id"],
+                   aemit=comb["aemit"])
+        if kind == "rfof":
+            # "Use the average redshift -- this is bad if the slices
+            # are large!" (src/fastpm.c:1319): the mean aemit of the
+            # batch, the reference's meta.a_x of the usmesh store
+            a_avg = float(np.mean(comb["aemit"].cpu().numpy()))
+            sep = p.boxsize / p.nc
+            cat, ihalo = rfof_find_halos(
+                st, p.boxsize, 1.0 / a_avg - 1.0, solver.cosmology,
+                nmin=int(p.rfof_nmin),
+                linkinglength=p.rfof_linkinglength * sep,
+                l1=p.rfof_l1 * sep, l6=p.rfof_l6 * sep,
+                A1=p.rfof_a1 * sep, A2=p.rfof_a2 * sep,
+                B1=p.rfof_b1, B2=p.rfof_b2, periodic=False)
+        else:
+            ll = p.fof_linkinglength * p.boxsize / p.nc
+            cat, ihalo = find_halos(st, ll, p.boxsize,
+                                    nmin=int(p.fof_nmin), periodic=False)
+        padding = p.lc_usmesh_fof_padding
+        rmin = float(lc.horizon.distance(af))
+        established = lc.distance_of(cat.x) > rmin + 0.5 * padding
+
+        # the tail cut on the device radius, with the rows within an
+        # error margin of the threshold decided in host float64 (the
+        # float32 |x| can put a row on the other side)
+        thresh = rmin + padding
+        x = comb["x"]
+        r_p = (x[:, 2] if lc.fov <= 0
+               else torch.sqrt(torch.sum(x * x, dim=-1)))
+        near_tail = r_p <= float(np.float32(thresh))
+        eps = float(np.float32(max(4e-7 * abs(thresh), 1e-4)))
+        ridx = torch.nonzero(torch.abs(r_p - float(np.float32(thresh)))
+                             < eps).reshape(-1)
+        if ridx.shape[0]:
+            xr = x[ridx].cpu().numpy().astype(np.float64)
+            near_tail[ridx] = torch.from_numpy(
+                lc.distance_of(xr) <= thresh).to(x.device)
+        ih = torch.as_tensor(ihalo, device=x.device)
+        in_est = torch.zeros_like(near_tail)
+        if len(established):
+            est = torch.from_numpy(established).to(x.device)
+            in_est = (ih >= 0) & est[ih.clamp(min=0)]
+        tidx = torch.nonzero(near_tail & ~in_est).reshape(-1)
+        state["tail_" + kind] = {k: v[tidx] for k, v in comb.items()}
+        log.info("%d particles will be reused in next batch for "
+                 "usmesh FOF", int(tidx.shape[0]))
+
+        rows = np.flatnonzero(established)
+        order = rows[np.argsort(cat.aemit[rows], kind="stable")] \
+            if cat.aemit is not None else rows
+        dataset = "RFOF" if kind == "rfof" \
+            else "LL-%05.3f" % p.fof_linkinglength
+        bf = BigFile(filebase, create=True)
+        write_blocks(bf, dataset, (
+            ("Length", cat.length[order].astype(np.int32)),
+            ("Position", cat.x[order].astype(np.float32)),
+            ("Velocity", cat.v[order].astype(np.float32)),
+            ("MinID", cat.minid[order].astype(np.int64)),
+            ("Aemit", (cat.aemit[order] if cat.aemit is not None
+                       else np.zeros(len(order))).astype(np.float32))),
+            state["first_" + kind])
+        state["first_" + kind] = False
+        index_attrs(bf.open_block(dataset), kind,
+                    cat.aemit[order] if cat.aemit is not None
+                    else np.zeros(0))
+        log.info("Writing a catalog to %s [%s]", filebase, dataset)
+        log.info("Writing %d objects.", len(order))
+
+    def slice_sort_compact(rec_d, keep):
+        """The kept rows sorted by aemit (stable), on the device; the
+        written columns fetched to the host."""
+        idx = torch.nonzero(torch.from_numpy(keep).to(dev)).reshape(-1)
+        order = idx[torch.sort(rec_d["aemit"][idx], stable=True)[1]]
+        return {k: rec_d[k][order].cpu().numpy()
+                for k in ("x", "v", "id", "aemit", "rand") if k in rec_d}
+
+    def ready(event):
+        rec_d = event.mesh.drain_device()
+        n = 0 if rec_d is None else rec_d["n"]
+        log.info("Unstructured LightCone ready : ai = %g af = %g, n = %d",
+                 event.ai, event.af, n)
+        # host copies of the small columns the subsample reads (float64
+        # fractions as the reference's doubles); x and v stay on the
+        # device for the FOF tail and the HEALPix maps
+        rec = {k: (rec_d[k].cpu().numpy() if rec_d is not None
+                   else np.zeros(0, np.float32)) for k in ("aemit", "rand")}
+
+        # HEALPix shell maps from the crossings before the subsample
+        # (src/fastpm.c:1009-1012; io.c:1105-1227): NEST pixels, mass and
+        # radial momentum per (slice, pixel)
+        nside = int(p.lc_usmesh_healpix_nside)
+        if nside > 0 and n > 0:
+            ids, mass_map, rmom_map, amid = paint_hpmap_nest_device(
+                rec_d["x"], rec_d["aemit"], rec_d["v"],
+                solver.species["cdm"].M0, nside, nslices)
+            bf = BigFile(filebase, create=True)
+            write_blocks(bf, "HEALPIX", (
+                ("ID", ids.astype(np.int64)),
+                ("Aemit", amid.astype(np.float32)),
+                ("Mass", mass_map.astype(np.float32)),
+                ("Rmom", rmom_map.astype(np.float32))),
+                not bf.has_block("HEALPIX/ID"))
+            mroot = bf.open_block("HEALPIX")
+            mroot.attrs.set("healpix.nside", np.int64(nside), "i8")
+            mroot.attrs.set("healpix.npix", np.int64(nside2npix(nside)),
+                            "i8")
+            mroot.attrs.set("healpix.nslices", np.int64(nslices), "i8")
+            mroot.attrs.set("healpix.scheme", "NEST")
+            index_attrs(mroot, "healpix", amid)
+            log.info("Writing a catalog to %s [HEALPIX]", filebase)
+            log.info("Writing %d objects.", len(ids))
+
+        for kind, want in (("fof", p.write_fof), ("rfof", p.write_rfof)):
+            tail = state["tail_" + kind]
+            flush = (event.whence == ev.TIMESTEP_END and tail is not None
+                     and tail["aemit"].shape[0])
+            if want and (n > 0 or flush):
+                lightcone_fof(rec_d, event.af, kind)
+
+        # subsample (ell-limited or uniform; src/fastpm.c:1025-1046): the
+        # keep mask in host float64, as the reference's per-particle
+        # doubles; the reference keeps on rand <= fraction (store.c:993)
+        if p.lc_usmesh_ell_limit > 0:
+            # volume_density_from_ell vectorized, op for op the scalar
+            # formula (horizon.c:150-158) so the float64 rounding matches
+            m = np.maximum(rec["aemit"].astype(np.float64), 1e-3)
+            z = 1.0 / m - 1.0
+            r = lc.horizon.distance(1.0 / (1 + z))
+            s_lim = r * (np.pi / p.lc_usmesh_ell_limit)
+            with np.errstate(divide="ignore"):
+                dens = (1.0 / s_lim) ** 3
+            frac = np.minimum(1.0, dens / density)
+            if len(frac):
+                log.info("Subsampling to density %g (a = %06.4f) ~ %g "
+                         "(a = %06.4f), ",
+                         min(1.0, volume_density_from_ell(
+                             p.lc_usmesh_ell_limit,
+                             1 / max(event.ai, 1e-3) - 1,
+                             lc.horizon) / density),
+                         event.ai,
+                         min(1.0, volume_density_from_ell(
+                             p.lc_usmesh_ell_limit,
+                             1 / max(event.af, 1e-3) - 1,
+                             lc.horizon) / density),
+                         event.af)
+            keep = rec["rand"] <= frac
+        elif p.particle_fraction < 1:
+            keep = rec["rand"] <= p.particle_fraction
+        else:
+            keep = np.ones(n, dtype=bool)
+
+        if rec_d is not None:
+            out = slice_sort_compact(rec_d, keep)
+        else:
+            out = dict(x=np.zeros((0, 3), np.float32),
+                       v=np.zeros((0, 3), np.float32),
+                       id=np.zeros(0, np.int64),
+                       aemit=np.zeros(0, np.float32),
+                       rand=np.zeros(0, np.float32))
+        bf = BigFile(filebase, create=True)
+        if state["first"]:
+            log.info("Creating usmesh catalog in %s", filebase)
+            write_snapshot_header(bf, solver.cosmology, p.time_step[-1],
+                                  p.nc, p.boxsize, solver.species)
+            bf.open_block("Header").attrs.set("ParamFile", p.source)
+        else:
+            log.info("Appending usmesh catalog to %s", filebase)
+        write_blocks(bf, "1", (
+            ("Position", out["x"].astype("f4")),
+            ("Velocity", out["v"].astype("f4")),
+            ("ID", out["id"].astype("i8")),
+            ("Aemit", out["aemit"].astype("f4")),
+            ("Rand", out.get("rand", np.zeros(0, np.float32)).astype("f4"))),
+            state["first"])
+        state["first"] = False
+        root = (bf.open_block("1") if bf.has_block("1")
+                else bf.create_block("1"))
+        index_attrs(root, "usmesh", out["aemit"])
+        log.info("Writing %d objects.", len(out["aemit"]))
+
+    mesh.event_handlers.on(ev.EVENT_LIGHTCONE_READY, ev.STAGE_AFTER, ready)
+
+    def check_lightcone(event):
+        mesh.intersect(event.drift, event.kick, event.a1, event.a2,
+                       event.whence)
+
+    solver.event_handlers.on(ev.EVENT_INTERPOLATION, ev.STAGE_BEFORE,
+                             check_lightcone)
+    return mesh
 
 
 def run_fastpm(p: Params, log=None, n_writers: int = 0,
@@ -301,7 +618,11 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     first CUDA device; raises when there is none), over the ranks of
     the process group `group` when one is given."""
     device = resolve_device(device)
-    check_served(p)
+    if group is None:
+        check_served(p)
+    else:
+        import torch.distributed as dist
+        check_served(p, dist.get_world_size(group))
     if log is None:
         log = Log()
     solver = Solver(build_config(p), build_cosmology(p), device=device,
@@ -321,6 +642,7 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
                              print_transition)
     checker = SnapshotChecker(solver, p, log, n_writers=n_writers)
     solver.event_handlers.on(ev.EVENT_INTERPOLATION, ev.STAGE_BEFORE, checker)
+    prepare_lc(solver, p, log)
 
     try:
         dk, _pk = prepare_deltak(solver, p, log)

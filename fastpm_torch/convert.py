@@ -4,8 +4,9 @@ solvers can start from the same state.
 
 - field_from_numpy: a real field (float32) or k-space field such as the
   IC delta_k (complex64, the same (Nx, Ny, Nz//2+1) layout);
-- store_from_numpy: particle columns x, v, dv1 (N, 3), id (N,) and the
-  per-particle mass (N,) with their a_x / a_v stamps and store metadata.
+- store_from_numpy: particle columns x, v, dv1 (N, 3), id (N,), the
+  per-particle mass, rand and aemit (N,), potential (N,) and tidal
+  (N, 6) with their a_x / a_v stamps and store metadata.
 """
 
 from __future__ import annotations
@@ -28,19 +29,23 @@ def field_from_numpy(a, device) -> torch.Tensor:
 
 def store_from_numpy(x, v=None, id=None, a_x: float = 0.0,
                      a_v: float = 0.0, device="cpu", mass=None, dv1=None,
+                     rand=None, aemit=None, potential=None, tidal=None,
                      **meta) -> Store:
-    """Particle columns as a port Store on device: positions, velocities,
-    dv1 and masses float32, ids int64. A column given as None stays
-    unallocated. meta sets Store metadata (M0, q_shift, q_scale, q_nc,
-    name)."""
+    """Particle columns as a port Store on device: every float column
+    float32, ids int64. A column given as None stays unallocated. meta
+    sets Store metadata (M0, q_shift, q_scale, q_nc, name)."""
     def f32(a):
         if a is None:
             return None
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
+    def f32_rows(a):
+        return None if a is None else f32(a).reshape(-1)
+
     return Store(
-        x=f32(x), v=f32(v), dv1=f32(dv1),
-        mass=None if mass is None else f32(mass).reshape(-1),
+        x=f32(x), v=f32(v), dv1=f32(dv1), mass=f32_rows(mass),
+        rand=f32_rows(rand), aemit=f32_rows(aemit),
+        potential=f32_rows(potential), tidal=f32(tidal),
         id=None if id is None else torch.from_numpy(
             np.array(id, dtype=np.int64).reshape(-1)).to(device),
         a_x=float(a_x), a_v=float(a_v), **meta)

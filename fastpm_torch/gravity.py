@@ -12,12 +12,15 @@ JAX names:
   its sort, for a store still in the order of an earlier carry force
   (stale-order stepping, SolverConfig.stale_every).
 - compute_force (gravity.py:65-158): every other case, such as CDM plus
-  ncdm with its mass column. All species are painted into one canvas
-  (paint_delta_k; K3 for CIC) and the force is read out per species
-  (Painter.readout3; K4 for CIC). Row order is kept: with the CIC
-  kernels each species' cell order is computed once a step and serves
-  both K3 and K4, which read their rows in it (K4 scatters the values
-  back), so the stores are never permuted.
+  ncdm with its mass column, or a run that asks for the potential or
+  the tidal tensor at the particles. All species are painted into one
+  canvas (paint_delta_k; K3 for CIC) and the force is read out per
+  species (Painter.readout3; K4 for CIC), then the potential (one c2r,
+  one K4 launch of one field) and the tidal tensor (six c2r, two K4
+  launches of three fields) where asked. Row order is kept: with the
+  CIC kernels each species' cell order is computed once a step and
+  serves K3 and every K4 launch, which read their rows in it (K4
+  scatters the values back), so the stores are never permuted.
 
 carry_eligible picks between them, as the JAX solver does.
 """
@@ -72,9 +75,14 @@ def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
 
 
 def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
-                  kernel_type: str = "1_4", softening_type: str = "none"):
+                  kernel_type: str = "1_4", softening_type: str = "none",
+                  compute_potential: bool = False,
+                  compute_tidal: bool = False):
     """Accelerations of every species (fastpm_solver_compute_force,
-    gravity.c:457-529), in row order.
+    gravity.c:457-529), in row order; with compute_potential /
+    compute_tidal also the potential and the six tidal components
+    (xx yy zz xy yz zx) at the particles of each species that has the
+    column allocated (gravity.py:127-156).
 
     Returns (stores with acc filled, delta_k). delta_k has the softening
     applied but not the deCIC compensation (the caller applies that for
@@ -84,15 +92,41 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
     delta_k = paint_delta_k(pm, painter, stores, orders)
     delta_k, (f0, f1, f2) = _force_fields(pm, delta_k, kernel_type,
                                           softening_type)
-    return ([p.replace(acc=painter.readout3(f0, f1, f2, p.x, order))
-             for p, order in zip(stores, orders)], delta_k)
+    out = [p.replace(acc=painter.readout3(f0, f1, f2, p.x, order))
+           for p, order in zip(stores, orders)]
+    del f0, f1, f2
+    if compute_potential and any(p.potential is not None for p in out):
+        pot = pm.c2r(kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
+                                                   "potential"))
+        out = [p if p.potential is None else p.replace(
+                   potential=painter.readout_fields([pot], p.x, o)[:, 0])
+               for p, o in zip(out, orders)]
+        del pot
+    if compute_tidal and any(p.tidal is not None for p in out):
+        # three fields at a time: the readout takes at most three
+        parts = [[] for _ in out]
+        for m0 in (0, 3):
+            tid = [pm.c2r(kernels.apply_kernel_transfer(
+                pm, delta_k, kernel_type, "tidal", m))
+                for m in range(m0, m0 + 3)]
+            for part, p, o in zip(parts, out, orders):
+                if p.tidal is not None:
+                    part.append(painter.readout_fields(tid, p.x, o))
+            del tid
+        out = [p if p.tidal is None else p.replace(tidal=torch.cat(part, 1))
+               for p, part in zip(out, parts)]
+    return out, delta_k
 
 
-def carry_eligible(painter: Painter, stores: Sequence[Store]) -> bool:
+def carry_eligible(painter: Painter, stores: Sequence[Store],
+                   compute_potential: bool = False,
+                   compute_tidal: bool = False) -> bool:
     """Whether compute_force_carry can serve these species: one species
-    with a scalar mass, painted with CIC."""
+    with a scalar mass, painted with CIC, and neither the potential nor
+    the tidal tensor asked for (gravity.py:177-186)."""
     return (painter.is_cic and len(stores) == 1
-            and stores[0].mass is None)
+            and stores[0].mass is None
+            and not compute_potential and not compute_tidal)
 
 
 def compute_force_carry(pm: PM, painter: Painter, store: Store,

@@ -10,8 +10,9 @@ Layout (bigfile, MP-Gadget-compatible):
   MassTable, TotNumPart, unit system (io.c:288-320); ParamFile attr holds
   the full parameter file text for provenance (src/fastpm.c:97-116).
 - per-species datasets named "0" (baryon) "1" (cdm) "2" (ncdm) with
-  columns Position f4, Velocity f4 (peculiar km/s), ID i8, and Mass f4
-  for a species with a per-particle mass (ncdm) (io.c:389-420).
+  columns Position f4, Velocity f4 (peculiar km/s), ID i8, and where
+  the store has them Aemit, Potential, Tidal (compute_potential /
+  compute_tidal) and Mass f4 (ncdm) (io.c:389-420).
 - per-dataset attrs persist the store metadata (q.strides/scale/shift/
   size, a.x, a.v, M0) making restart exact (io.c:446-456).
 """
@@ -41,6 +42,9 @@ COLUMN_BLOCKS = [
     ("dx2", "DX2", "f4"),
     ("v", "Velocity", "f4"),
     ("id", "ID", "i8"),
+    ("aemit", "Aemit", "f4"),
+    ("potential", "Potential", "f4"),
+    ("tidal", "Tidal", "f4"),
     ("mass", "Mass", "f4"),
 ]
 
@@ -108,15 +112,19 @@ def _dataset_attrs(block, p: Store):
 
 
 def write_species(bf: BigFile, dataset: str, p: Store,
-                  sort_by_id: bool = True, n_writers: int = 0):
+                  sort_by_id: bool = True, n_writers: int = 0,
+                  keep_mask=None):
     """Write a species store as dataset columns (fastpm_store_write),
-    sorted by ID. Each column's permute + serialize + write runs on a
-    writer pool (the io.c Nwriters-throttled aggregated-IO analog,
+    sorted by ID; with keep_mask (a host boolean array) only the rows it
+    keeps. Each column's permute + serialize + write runs on a writer
+    pool (the io.c Nwriters-throttled aggregated-IO analog,
     io.c:349-360); n_writers bounds the threads (0 = one per column up
     to 8)."""
     cols = [(name, dtype, _host(getattr(p, attr)))
             for attr, name, dtype in COLUMN_BLOCKS
             if getattr(p, attr, None) is not None]
+    if keep_mask is not None:
+        cols = [(name, dtype, arr[keep_mask]) for name, dtype, arr in cols]
 
     root = bf.create_block(dataset)
     _dataset_attrs(root, p)
@@ -148,18 +156,24 @@ def write_species(bf: BigFile, dataset: str, p: Store,
 def write_snapshot(path: str, c: Cosmology, species: Dict[str, Store],
                    nc: int, boxsize: float,
                    param_text: str = "", sort_by_id: bool = True,
-                   n_writers: int = 0) -> float:
+                   n_writers: int = 0,
+                   particle_fraction: float = 1.0) -> float:
     """Full snapshot write. Species stores must already be in snapshot
     units (peculiar km/s velocity; see Solver.set_snapshot). Returns the
-    RSD factor. n_writers: concurrent writer threads (CLI -W; 0=auto)."""
+    RSD factor. n_writers: concurrent writer threads (CLI -W; 0=auto).
+    particle_fraction < 1 writes the rows with rand <= particle_fraction
+    of a species that has the rand column (store.c:977)."""
     bf = BigFile(path, create=True)
     cdm = species["cdm"]
     rsd = write_snapshot_header(bf, c, cdm.a_x, nc, boxsize, species)
     if param_text:
         bf.open_block("Header").attrs.set("ParamFile", param_text)
     for name, p in species.items():
+        keep = None
+        if particle_fraction < 1.0 and p.rand is not None:
+            keep = _host(p.subsample_mask(particle_fraction))
         write_species(bf, SPECIES_DATASET[name], p, sort_by_id=sort_by_id,
-                      n_writers=n_writers)
+                      n_writers=n_writers, keep_mask=keep)
     return rsd
 
 
@@ -201,3 +215,6 @@ def write_halo_catalog(path: str, dataset: str, cat, c: Cosmology,
     if cat.q is not None:
         bf.create_block(f"{dataset}/InitialPosition",
                         np.asarray(cat.q)[order].astype(np.float32))
+    if cat.aemit is not None:
+        bf.create_block(f"{dataset}/Aemit",
+                        np.asarray(cat.aemit)[order].astype(np.float32))

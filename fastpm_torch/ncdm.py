@@ -198,7 +198,8 @@ def split_ncdm(nid: NcdmInitData, src: Store, name: str = "ncdm") -> Store:
     """Split each source site into n_split thermal-velocity particles
     (fastpm_split_ncdm). Call BEFORE setup_lpt for ncdm: the split sets
     v = v_thermal; LPT velocities are added on top. Split ids are
-    s_idx * q_size + site id (store.c:669), int64."""
+    s_idx * q_size + site id (store.c:669), int64; a rand column, where
+    the sites have one, is repeated for every split of a site."""
     n = src.np_local
     nsplit = nid.n_split
     c = nid.cosmology
@@ -230,6 +231,8 @@ def split_ncdm(nid: NcdmInitData, src: Store, name: str = "ncdm") -> Store:
         x=x, v=vthm,
         acc=torch.zeros_like(x) if src.acc is not None else None,
         id=ids, mass=mass.repeat(n) * float(np.float32(M0)),
+        rand=(None if src.rand is None
+              else src.rand.repeat_interleave(nsplit)),
         a_x=src.a_x, a_v=src.a_v, M0=0.0,
         q_shift=src.q_shift, q_scale=src.q_scale, q_nc=src.q_nc,
         name=name)

@@ -70,6 +70,7 @@ from .cudalib import launch as _launch
 __all__ = ["Slab", "CellOrder", "cell_key", "sort_by_cell", "cell_order",
            "cell_order_plain", "slab_cell", "cic_paint",
            "cic_readout", "cic_paint_into", "cic_readout3",
+           "cic_readout_ordered",
            "cic_paint_homed", "cic_readout_homed", "cic_paint4",
            "cic_readout4",
            "cic_paint_plain", "cic_paint_into_plain", "cic_readout_plain",
@@ -548,7 +549,16 @@ def cic_readout3(cx, cy, cz, x: torch.Tensor, inv_cell,
     (an index_put_, which measured faster than index_copy_); a row's
     value does not depend on the order, so the result is the same bit
     for bit."""
-    fields = _check_readout([cx, cy, cz], x, None)
+    return cic_readout_ordered([cx, cy, cz], x, inv_cell, order)
+
+
+def cic_readout_ordered(fields, x: torch.Tensor, inv_cell,
+                        order=None) -> torch.Tensor:
+    """K4 with 1 to 3 fields: cic_readout3's body, (N, k) float32. The
+    force's potential (one field) and tidal tensor (two launches of
+    three) read out through it in the force's cell order; its launches
+    count under cic_readout3."""
+    fields = _check_readout(fields, x, None)
     idx = None if order is None else _order_index(order, x)
     if idx is not None:
         x = torch.index_select(x, 0, idx)

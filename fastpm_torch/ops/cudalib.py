@@ -85,8 +85,8 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
             print("fastpm_torch: built %s in %.1f s"
                   % (path, time.perf_counter() - t0))
     lib = ctypes.CDLL(path)
-    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_float
+    P, I, L, F, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_float, ctypes.c_double)
     # (x, n, nx, ny, nz, icx, icy, icz, ...); the homed, two-pass and
     # readout entries then take the x axis (n0, shift); all end with the
     # stream
@@ -109,6 +109,9 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
     # device pointers
     lib.fastpm_bitonic_merge.restype = I
     lib.fastpm_bitonic_merge.argtypes = [P, P, I, L, I, P]
+    # (x, cid, lab, n, ncell, L, ll2, out, stream)
+    lib.fastpm_fof_neighbor_min.restype = I
+    lib.fastpm_fof_neighbor_min.argtypes = [P, P, P, L, L, D, D, P, P]
     _lib = lib
     return lib
 

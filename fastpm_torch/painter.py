@@ -193,12 +193,16 @@ class Painter:
                          * self._corner_weight(dx, ksum, off))
         return out
 
+    def readout_fields(self, fields, pos, order=None):
+        """1 to 3 fields at pos, (N, k): K4 in the given CellOrder for
+        CIC, one readout a field otherwise."""
+        if self.is_cic:
+            return cic.cic_readout_ordered(fields, pos, self.pm.InvCellSize,
+                                           order)
+        return torch.stack([self.readout(f, pos) for f in fields], dim=-1)
+
     def readout3(self, cx, cy, cz, pos, order=None):
         """Three-component force readout (N,3) -- the gravity hot path.
         order: the CellOrder of pos, in which K4 reads the rows (CIC
         only; rows come back in the given order either way)."""
-        if self.is_cic:
-            return cic.cic_readout3(cx, cy, cz, pos, self.pm.InvCellSize,
-                                    order)
-        return torch.stack([self.readout(f, pos) for f in (cx, cy, cz)],
-                           dim=-1)
+        return self.readout_fields([cx, cy, cz], pos, order)

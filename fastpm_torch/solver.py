@@ -9,7 +9,8 @@ ranks of a torch.distributed process group.
 
 On one rank the force step is gravity.compute_force_carry for one
 scalar-mass species and gravity.compute_force (every species into one
-canvas) otherwise. With stale_every = N > 1, N - 1 of every N carry
+canvas) otherwise, or when the potential or the tidal tensor is asked
+for (SolverConfig.compute_potential / compute_tidal; one rank only). With stale_every = N > 1, N - 1 of every N carry
 forces are stale (gravity.compute_force_stale: the carried order, no
 sort; solver.py:548-572). On several, each rank holds a contiguous block of
 every species' rows (Store.shard) and the force is the homed slab force
@@ -50,7 +51,7 @@ from .parallel.comm import Ring
 from .parallel.pfft import SlabPM
 from .parallel import psolver
 from . import transfers, events as ev
-from .units import RHO_CRIT, HUBBLE_CONSTANT
+from .units import RHO_CRIT, HUBBLE_CONSTANT, HUBBLE_DISTANCE
 
 __all__ = ["SolverConfig", "Solver", "CDM", "BARYON", "NCDM",
            "SPECIES_ORDER"]
@@ -99,6 +100,15 @@ class SolverConfig:
     # (pm_check_values, gravity.c:350-383), fetched one force later
     check_values: bool = False
     stale_every: int = 0
+    # the potential and tidal tensor at the particles, scaled to the
+    # reference's units in snapshots (solver.py:1582-1588); either one
+    # routes the force through compute_force
+    compute_potential: bool = False
+    compute_tidal: bool = False
+    # the rand column (subsampled snapshots, lightcone subsampling),
+    # emulating the reference's streams of rand_ntask ranks
+    need_rand: bool = False
+    rand_ntask: int = 1
     rehome: bool = False
     pgdc: bool = False
 
@@ -153,10 +163,19 @@ class Solver:
         self.vpm_list = [(a_start, PM(int(nc * f), box, device=dev))
                          for a_start, f in config.vpm_table]
 
+        if self.ring.nproc > 1:
+            for name in ("compute_potential", "compute_tidal"):
+                if getattr(config, name):
+                    raise NotImplementedError(
+                        f"{name} on several ranks {_LATER}")
         shift = 0.5 * box / nc if config.use_shift else 0.0
+        columns = (("v", "acc", "id")
+                   + (("rand",) if config.need_rand else ())
+                   + (("potential",) if config.compute_potential else ())
+                   + (("tidal",) if config.compute_tidal else ()))
         self.species: Dict[str, Store] = {CDM: lattice_store(
-            self.basepm, Nc=nc, shift=shift, columns=("v", "acc", "id"),
-            name="cdm").shard(self.ring)}
+            self.basepm, Nc=nc, shift=shift, columns=columns, name="cdm",
+            rand_ntask=config.rand_ntask).shard(self.ring)}
         # deferred check_values flag of the last force (_settle_cv)
         self._cv_pending = None
         # the slab engines and measured halo widths, per force mesh
@@ -268,12 +287,15 @@ class Solver:
         if self.sharded:
             stores, delta_k = self._sharded_force(pm, painter, stores)
             kpm = self._slab_pm(pm).kpm
-        elif carry_eligible(painter, stores):
+        elif carry_eligible(painter, stores, cfg.compute_potential,
+                            cfg.compute_tidal):
             stores, delta_k = self._carry_force(pm, painter, stores.pop())
         else:
             stores, delta_k = compute_force(pm, painter, stores,
                                             cfg.kernel_type,
-                                            cfg.softening_type)
+                                            cfg.softening_type,
+                                            cfg.compute_potential,
+                                            cfg.compute_tidal)
             self.force_paths["multi"] += 1
         self.species.update(zip(names, stores))
         if cfg.check_values:
@@ -473,15 +495,21 @@ class Solver:
 
     def set_snapshot(self, p: Store, drift: DriftFactor, kick: KickFactor,
                      aout: float) -> Store:
-        """Interpolate a species to aout and convert the internal velocity
-        to peculiar km/s (fastpm_set_species_snapshot)."""
+        """Interpolate a species to aout and convert units: internal
+        velocity -> peculiar km/s, potential and tidal tensor ->
+        dimensionless (fastpm_set_species_snapshot)."""
         po = p.compact()
         if drift is not None:
             po = self.drift_one(po, drift, aout)   # uses the OLD velocity
         if kick is not None:
             po = self.kick_one(po, kick, aout)
-        po = po.replace(v=po.v * _f32(HUBBLE_CONSTANT / aout))
-        return po.wrap(self.basepm.BoxSize)
+        potfactor = _f32(1.5 * self.cosmology.Omega_source(1.0)
+                         / HUBBLE_DISTANCE ** 2 / aout)
+        updates = dict(v=po.v * _f32(HUBBLE_CONSTANT / aout))
+        for name in ("potential", "tidal"):
+            if getattr(po, name) is not None:
+                updates[name] = getattr(po, name) * potfactor
+        return po.replace(**updates).wrap(self.basepm.BoxSize)
 
 
 @lru_cache(maxsize=4096)

@@ -11,6 +11,10 @@ Port of fastpm_tpu/store.py. Column semantics follow the reference:
   from it via the q_* metadata (store.c:664-692)
 - alive (N,) u8  liveness of padded rows (None = every row is a particle)
 - mass (N,) f32  per-particle mass (ncdm); None = every particle has M0
+- rand (N,) f32  per-particle uniform for subsampling (store.c:695-720)
+- aemit (N,) f32  emission scale factor (lightcone rows)
+- potential (N,) f32, tidal (N,6) f32  the force's potential and tidal
+  tensor at each particle (compute_potential / compute_tidal)
 
 Row order carries no meaning: the force step returns the store in
 cell-sorted order, and writers sort by id.
@@ -26,11 +30,13 @@ import numpy as np
 import torch
 
 from .mesh import PM
+from . import native
 
 __all__ = ["Store", "lattice_store"]
 
 # the per-particle tensor columns, in declaration order
-COLUMNS = ("x", "v", "acc", "dx1", "dx2", "dv1", "id", "alive", "mass")
+COLUMNS = ("x", "v", "acc", "dx1", "dx2", "dv1", "id", "alive", "mass",
+           "rand", "aemit", "potential", "tidal")
 
 
 @dataclass
@@ -47,6 +53,10 @@ class Store:
     id: Optional[torch.Tensor] = None
     alive: Optional[torch.Tensor] = None
     mass: Optional[torch.Tensor] = None
+    rand: Optional[torch.Tensor] = None
+    aemit: Optional[torch.Tensor] = None
+    potential: Optional[torch.Tensor] = None
+    tidal: Optional[torch.Tensor] = None
 
     a_x: float = 0.0
     a_v: float = 0.0
@@ -81,6 +91,15 @@ class Store:
         shift = torch.tensor(self.q_shift, dtype=torch.float32,
                              device=q.device)
         return q * scale + shift
+
+    def subsample_mask(self, fraction: float) -> torch.Tensor:
+        """Boolean keep-mask from the rand column
+        (store.c:fill_subsample): the reference keeps on rand <=
+        fraction (store.c:977)."""
+        if fraction >= 1.0:
+            return torch.ones(self.np_local, dtype=torch.bool,
+                              device=self.x.device)
+        return self.rand <= fraction
 
     def wrap(self, boxsize) -> "Store":
         """Periodic wrap of positions into [0, L) (store.c:447-475)."""
@@ -146,11 +165,60 @@ class Store:
         return self.replace(**cols) if ring.rank == 0 else None
 
 
+def _pencil_procmesh(ntask: int):
+    """The reference's near-square 2D process mesh factorization
+    (pm_init, pmpfft.c:118-134): smallest Ny with Ny^2 >= NTask, backed
+    off to a divisor."""
+    ny = 1
+    while ny * ny < ntask:
+        ny += 1
+    while ny >= 1:
+        if ntask % ny == 0:
+            break
+        ny -= 1
+    return ntask // ny, ny
+
+
+def _rank_emulated_rand(Nc, seed: int, ntask: int) -> np.ndarray:
+    """The reference's rand column, _fastpm_store_fill_rand
+    (store.c:693-718): rank 0 seeds ranlxd1 with `seed` directly; rank
+    k draws 8k uniforms from a seed-seeded generator and re-seeds with
+    0x7fffffff * (the last draw). Each rank fills its (x, y) PENCIL of
+    the lattice (the default PFFT 2D decomposition, rank = cx*Ny + cy)
+    in row-major (ix, iy, iz) order, so emulating ntask ranks
+    reproduces the rand values of an ntask-process reference run
+    exactly. ntask=1 is the plain stream. Returns the values (float64)
+    in global x-major lattice order."""
+    n = int(np.prod(Nc))
+    if ntask <= 1:
+        return native.ranlxd_uniform(seed, n)
+    nx_p, ny_p = _pencil_procmesh(ntask)
+    n0, n1, n2 = Nc
+    out = np.empty(n, dtype=np.float64)
+    view = out.reshape(n0, n1, n2)
+    for r in range(ntask):
+        if r == 0:
+            seed_r = seed
+        else:
+            u = native.ranlxd_uniform(seed, 8 * r)
+            seed_r = int(0x7fffffff * u[-1])
+        cx, cy = r // ny_p, r % ny_p
+        x0, x1 = cx * n0 // nx_p, (cx + 1) * n0 // nx_p
+        y0, y1 = cy * n1 // ny_p, (cy + 1) * n1 // ny_p
+        nr = (x1 - x0) * (y1 - y0) * n2
+        view[x0:x1, y0:y1, :] = native.ranlxd_uniform(
+            seed_r, nr).reshape(x1 - x0, y1 - y0, n2)
+    return out
+
+
 def lattice_store(pm: PM, Nc=None, shift=0.0, columns=("v", "acc", "id"),
-                  M0: float = 1.0, name: str = "1") -> Store:
+                  M0: float = 1.0, name: str = "1",
+                  rand_seed: int = 1231584, rand_ntask: int = 1) -> Store:
     """Uniform Lagrangian lattice of Nc^3 particles on pm.device
     (fastpm_store_fill, store.c:723-805): id = raveled lattice index,
-    x = q = index * scale + shift."""
+    x = q = index * scale + shift. columns may also name "rand" (the
+    reference's rank-emulated ranlxd stream of rand_ntask ranks, built
+    on the host and copied over), "potential" and "tidal" (zeros)."""
     if Nc is None:
         Nc = pm.Nmesh
     if np.isscalar(Nc):
@@ -179,4 +247,12 @@ def lattice_store(pm: PM, Nc=None, shift=0.0, columns=("v", "acc", "id"),
         kw["acc"] = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     if "id" in columns:
         kw["id"] = i
+    if "rand" in columns:
+        # the rows are in x-major lattice order, the order of the stream
+        kw["rand"] = torch.from_numpy(_rank_emulated_rand(
+            Nc, rand_seed, rand_ntask).astype(np.float32)).to(dev)
+    if "potential" in columns:
+        kw["potential"] = torch.zeros(n, dtype=torch.float32, device=dev)
+    if "tidal" in columns:
+        kw["tidal"] = torch.zeros((n, 6), dtype=torch.float32, device=dev)
     return Store(**kw)

@@ -66,14 +66,25 @@ def test_entry_points_raise_without_cuda(tmp_path):
 
 
 def test_unserved_parameter_stops_the_cli(tmp_path):
-    from fastpm_torch.cli import main
+    from fastpm_torch.cli import main, check_served
+    from fastpm_torch.config.params import load_params
+    base = ("nc = 8\nboxsize = 16.0\ntime_step = {0.1, 1.0}\n"
+            "pm_nc_factor = 1\nnp_alloc_factor = 1.0\n"
+            "h = 0.7\nOmega_m = 0.3\n")
     conf = tmp_path / "p.lua"
-    conf.write_text("nc = 8\nboxsize = 16.0\ntime_step = {0.1, 1.0}\n"
-                    "pm_nc_factor = 1\nnp_alloc_factor = 1.0\n"
-                    "h = 0.7\nOmega_m = 0.3\n"
-                    'lc_write_usmesh = "lc"\n')
-    with pytest.raises(SystemExit, match="lc_write_usmesh"):
+    conf.write_text(base + 'write_nonlineark = "nlk"\n')
+    with pytest.raises(SystemExit, match="write_nonlineark"):
         main([str(conf)], device="cpu")
+    # the lightcone, RFOF, potential and tidal are served on one rank and
+    # stop a run of several
+    for line in ('lc_write_usmesh = "lc"', 'write_rfof = "rfof"',
+                 "compute_potential = true", "compute_tidal = true"):
+        one = tmp_path / "one.lua"
+        one.write_text(base + line + "\n")
+        params = load_params(str(one))
+        check_served(params)
+        with pytest.raises(SystemExit, match=line.split()[0]):
+            check_served(params, ranks=2)
     with pytest.raises(SystemExit, match="restart"):
         main(["-r", str(tmp_path / "snapshot"), str(conf)], device="cpu")
     with pytest.raises(SystemExit, match="NprocY"):
