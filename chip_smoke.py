@@ -112,6 +112,24 @@ G. this slice's path at full width: lightcone.lua's physics and
    the cell order, K3 and K4 (acc, potential, two tidal triples) and
    every FOF through the neighbour sweep; every HEALPix device pixel
    that differs from the float64 host pixel is flagged;
+H. the force modes at the main path's width: phase 7's physics at nc =
+   256, boxsize = 768 on a 512^3 force mesh, 5 steps, once each in
+   cola, za and 2lpt and once in cola with PGD (alpha0 0.8, A 4, B 8,
+   kl 2, ks 10): each run's force actions (CUDA events), wall s, peak
+   memory and launches (K1 once a step, K2 once a step and once more for
+   PGD); the carry force step alone on each z = 0 state, and PGD's step
+   with its three c2r and its K2 launch apart; first, cola with PGD at
+   32^3 on the CPU and on the card agree by id;
+I. the neutrino linear response: tests/test_lra.py's LRA_RUN physics at
+   nc = 256 (box 1024) on a 512^3 force mesh, 5 steps, through
+   run_fastpm; the force step with the response against the plain one,
+   its host part (the measure_power fetch, update_from_power) apart,
+   the idle share over 2 steps; then at 64^3 a straight run and a run
+   restarted from its a = 0.6 snapshot agree by id and in history;
+J. the 10 cross-mode broadband lines of tests/test_modes.py (64^3, 8
+   steps) on the card, each exact or within one unit of its last printed
+   digit; fNL-local and two peak constraints through cli.prepare_deltak
+   at 64^3 on the card against the CPU, and timed at 256^3;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -1962,6 +1980,378 @@ def lightcone_path(dev, tmp, nc=256, box=2048.0):
     return launches
 
 
+# the PGD parameters of BASELINE.md's config ladder (COLA + PGD)
+PGD_LUA = ("pgdc = true\npgdc_alpha0 = 0.8\npgdc_A = 4.0\npgdc_B = 8.0\n"
+           "pgdc_kl = 2.0\npgdc_ks = 10.0\n")
+
+
+def load_test_module(name):
+    """A tests/ module (one that imports no JAX at its top) by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tests", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def timed_forces():
+    """Every Solver's force action timed with CUDA events while the
+    block runs; yields the list the (start, end) pairs go into."""
+    import torch
+    from fastpm_torch.solver import Solver
+    pairs, do_force = [], Solver.do_force
+
+    def timed(self, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        do_force(self, *args)
+        end.record()
+        pairs.append((start, end))
+    Solver.do_force = timed
+    try:
+        yield pairs
+    finally:
+        Solver.do_force = do_force
+
+
+def modes_agreement(dev, tmp, nc=32, box=96.0):
+    """Phase H, first part: cola with PGD at 32^3 through cli.main on the
+    CPU and on the card agree by id (phase 6's bounds), pgdc too (1e-4
+    of its largest value)."""
+    import numpy as np
+    from fastpm_torch import cli
+    res = {}
+    for where in ("cpu", dev):
+        out = os.path.join(tmp, "cola_agree_" + str(where))
+        conf = write_lua(os.path.join(tmp, "cola_agree_%s.lua" % where),
+                         SMALL_LUA.replace('"fastpm"', '"cola"') % dict(
+                             nc=nc, box=box, nstep=3, zout="0.0", out=out,
+                             ps=os.path.join(FIXTURES, "powerspec.txt"))
+                         + PGD_LUA)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main([conf], device=where)
+        res[where] = read_by_id(os.path.join(out, "fastpm_1.0000"))
+    (ia, xa, va), (ib, xb, vb) = res["cpu"], res[dev]
+    dx = xb - xa
+    dx -= np.round(dx / box) * box
+    ex = float(np.abs(dx).max()) / (box / nc)
+    ev = float(np.abs(vb - va).max() / va.std())
+    print("modes: cola + PGD 32^3 CPU against the card: max |dx| %.3g "
+          "cell, max |dv| %.3g rms" % (ex, ev))
+    if not (np.array_equal(ia, ib) and ex < 1e-4 and ev < 1e-4):
+        raise SystemExit("cola + PGD device agreement failed")
+
+
+def modes_path(dev, tmp, nc=256, box=768.0, nstep=5):
+    """Phase H: the main path's physics and width (phase 7) in force
+    modes cola, za and 2lpt, then cola with PGD (BASELINE.md's ladder):
+    each run's force actions (CUDA events, the P(k) handler and PGD
+    included), particle-steps/s, wall s, peak memory and launches; then
+    on each z = 0 state the carry force step alone (its sort carries
+    dx1 and dx2, and pgdc), and PGD's step with its three c2r and its
+    K2 launch apart. Returns the PGD run's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from fastpm_torch import cli, gravity, transfers
+    from fastpm_torch.config.params import load_params
+    from fastpm_torch.diagnostics import Log, attach_standard_handlers
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.solver import Solver
+    from fastpm_torch.ops import cic
+
+    modes_agreement(dev, tmp)
+    text = SMALL_LUA % dict(nc=nc, box=box, nstep=nstep, zout="0.0",
+                            out=os.path.join(tmp, "modes"),
+                            ps=os.path.join(FIXTURES, "powerspec.txt"))
+    # no files: the runs' outputs are the log and the final state
+    text = "\n".join(l for l in text.splitlines()
+                     if not l.startswith("write_"))
+    params = load_params(write_lua(os.path.join(tmp, "modes.lua"), text))
+    launches = None
+    for mode, pgd in (("cola", False), ("za", False), ("2lpt", False),
+                      ("cola", True)):
+        name = mode + (" + PGD" if pgd else "")
+        cfg = dataclasses.replace(
+            cli.build_config(params), force_mode=mode, pgdc=pgd,
+            pgdc_alpha0=0.8, pgdc_A=4.0, pgdc_B=8.0, pgdc_kl=2.0,
+            pgdc_ks=10.0)
+        reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        solver = Solver(cfg, cli.build_cosmology(params), device=dev)
+        log = attach_standard_handlers(solver, Log(echo=False))
+        dk, _ = cli.prepare_deltak(solver, params, log)
+        solver.setup_lpt(dk, params.time_step[0])
+        del dk
+        with timed_forces() as pairs:
+            solver.evolve(cfg.time_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        force_ms = [s.elapsed_time(e) for s, e in pairs]
+        p = solver.species["cdm"]
+        print("modes %s: %d^3, %d force actions %s ms (CUDA events; P(k) "
+              "handler%s included), wall %.2f s, max_memory_allocated "
+              "%.3f GB" % (name, nc, len(force_ms),
+                           ["%.2f" % t for t in force_ms],
+                           " and PGD" if pgd else "", wall, peak / 1e9))
+        print("modes %s: launches %s; last log line: %s"
+              % (name, {k: c for k, c in run_launches.items() if c},
+                 log.lines[-1]))
+        # K1 once and K2 once a force step (and once more for PGD), K2
+        # for the 2LPT readouts
+        want = dict({k: 0 for k in KERNELS}, cic_paint=nstep,
+                    cic_readout=nstep * (2 if pgd else 1) + 6)
+        if run_launches != want:
+            raise SystemExit("modes %s did not run through K1 / K2: %s"
+                             % (name, run_launches))
+        x = p.x
+        if not (bool(torch.isfinite(x).all()) and p.dx1 is not None
+                and p.dx2 is not None and (p.pgdc is not None) == pgd):
+            raise SystemExit("modes %s: bad final state" % name)
+        pm = solver.find_pm(1.0)
+        painter = Painter(pm, "cic")
+        store = p.wrap(pm.BoxSize)
+        step = lambda: gravity.compute_force_carry(pm, painter, store)
+        ms = time_ms(step, reps=5)
+        print("modes %s: force step %.2f ms (sort carrying x, v, id, dx1, "
+              "dx2%s + K1 + FFTs + K2) = %.4g particle-steps/s"
+              % (name, ms, ", pgdc" if pgd else "", nc ** 3 / ms * 1e3))
+        if pgd:
+            launches = run_launches
+            q, dk = step()
+            alpha = solver.pgd.alpha(1.0)
+            pgd_ms = time_ms(lambda: solver.pgd.compute_with_alpha(
+                pm, q.x, dk, alpha), reps=5)
+            pot = solver.pgd._pot_transfer_alpha(pm, dk, alpha)
+            c2r_ms = time_ms(lambda: [pm.c2r(transfers.apply_diff(
+                pm, pot, d, order=1)) for d in range(3)], reps=5)
+            fields = [pm.c2r(transfers.apply_diff(pm, pot, d, order=1))
+                      for d in range(3)]
+            k2_ms = time_ms(lambda: cic.cic_readout(fields, q.x,
+                                                    pm.InvCellSize), reps=5)
+            check_close("modes cola + PGD: K2 of PGD's three fields",
+                        cic.cic_readout(fields, q.x, pm.InvCellSize),
+                        cic.cic_readout_plain(fields, q.x, pm.InvCellSize))
+            print("modes cola + PGD: PGD %.2f ms a step: three gradient "
+                  "c2r %.2f ms, one K2 launch of three fields %.4f ms"
+                  % (pgd_ms, c2r_ms, k2_ms))
+            del q, dk, pot, fields
+        del solver, p, store, x
+    return launches
+
+
+def lra_path(dev, tmp, nc=256, box=1024.0):
+    """Phase I: tests/test_lra.py's LRA_RUN physics (m_ncdm 0.2, n_shell
+    0, z_transfer 4, ODE growth, T_cmb 2.725; 5 steps from a = 0.2) at nc
+    = 256 with its 4 Mpc/h mean separation on a 512^3 force mesh through
+    run_fastpm: wall, launches, peak memory; the force step with the
+    response against the plain carry force, the host part (the
+    measure_power fetch, update_from_power) apart, and the device's idle
+    share over 2 steps. Then at 64^3 a straight run and a run restarted
+    from its a = 0.6 snapshot: the history resumed, and the final
+    positions and velocities by id at tests/test_lra.py's tolerances."""
+    import numpy as np
+    import torch
+    from fastpm_torch import cli, gravity, transfers
+    from fastpm_torch.config.params import load_params_from_string
+    from fastpm_torch.diagnostics import Log
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.powerspectrum import measure_power
+
+    lra = load_test_module("test_torch_lra")
+
+    def text(n, b, pmf, out):
+        src = lra.LRA_RUN % dict(out=out, ps=os.path.join(
+            FIXTURES, "powerspec.txt"))
+        for pat, rep in ((r"(?m)^nc = .*$", "nc = %d" % n),
+                         (r"(?m)^boxsize = .*$", "boxsize = %r" % b),
+                         (r"(?m)^pm_nc_factor = .*$",
+                          "pm_nc_factor = %d" % pmf)):
+            src = re.sub(pat, rep, src)
+        return src
+
+    full = "\n".join(l for l in text(nc, box, 2, tmp).splitlines()
+                     if not l.startswith(("write_", "aout")))
+    # in-run hooks: each force action (CUDA events), each step's table
+    # (host clock from a synchronise: the measure_power fetch, the
+    # response update and the table's upload) and its update alone
+    from fastpm_torch.neutrinos_lra import DeltaTotTable
+    from fastpm_torch.solver import Solver
+    table_ms, update_ms = [], []
+    lra_table = Solver._lra_table
+    update = DeltaTotTable.update_from_power
+
+    def host_clock(fn, into):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return r
+        return call
+
+    Solver._lra_table = host_clock(lra_table, table_ms)
+    DeltaTotTable.update_from_power = host_clock(update, update_ms)
+    try:
+        reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        log = Log(echo=False)
+        with timed_forces() as pairs:
+            solver = cli.run_fastpm(load_params_from_string(full), log=log,
+                                    device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        Solver._lra_table = lra_table
+        DeltaTotTable.update_from_power = update
+    peak = torch.cuda.max_memory_allocated()
+    nforce = 5
+    print("lra path: %d^3, box %g, %d^3 force mesh, %d force steps: wall "
+          "%.2f s (the host's first Fermi-Dirac table included), "
+          "max_memory_allocated %.3f GB, history %d entries"
+          % (nc, box, 2 * nc, nforce, wall, peak / 1e9,
+             len(solver.lra.scalefact)))
+    print("lra path: force actions %s ms (CUDA events; the P(k) handler "
+          "included); the step's table %s ms, of it update_from_power %s "
+          "ms (host clock)" % (
+              ["%.2f" % s_.elapsed_time(e) for s_, e in pairs],
+              ["%.2f" % t for t in table_ms], ["%.2f" % t for t in update_ms]))
+    if launches != dict({k: 0 for k in KERNELS}, cic_paint=nforce,
+                        cic_readout=nforce + 6):
+        raise SystemExit("lra path did not run through K1 / K2: %s"
+                         % launches)
+    pm = solver.find_pm(1.0)
+    painter = Painter(pm, "cic")
+    store = solver.species["cdm"].wrap(pm.BoxSize)
+    # steps past the run's end at a new time each, so that each one
+    # adds a history entry as a step of the run does
+    times = iter(1.0 + 0.01 * np.arange(1, 100))
+
+    def transfer(dk):
+        a = float(next(times))
+        return transfers.apply_fk_interp(pm, dk,
+                                         *solver._lra_table(pm, dk, a))
+
+    lra_step = lambda: gravity.compute_force_carry(pm, painter, store,
+                                                   delta_transfer=transfer)
+    ms = time_ms(lra_step, reps=5)
+    plain_ms = time_ms(lambda: gravity.compute_force_carry(pm, painter,
+                                                           store), reps=5)
+    _, dk = gravity.compute_force_carry(pm, painter, store)
+    pk_ms = time_ms(lambda: measure_power(pm, dk), reps=5)
+    del dk
+    print("lra path: force step %.2f ms with the response (a new history "
+          "entry each) against %.2f ms without (CUDA events) = %.4g "
+          "particle-steps/s; measure_power of the 512^3 delta_k with its "
+          "fetch %.2f ms" % (ms, plain_ms, nc ** 3 / ms * 1e3, pk_ms))
+    profile_force(lra_step)
+    del solver, store
+
+    # restart equivalence at 64^3
+    outs = {}
+    for name in ("straight", "restart"):
+        out = os.path.join(tmp, "lra64_" + name)
+        restart = (os.path.join(outs["straight"][1], "fastpm_0.6000")
+                   if name == "restart" else None)
+        rlog = Log(echo=False)
+        s = cli.run_fastpm(load_params_from_string(text(64, 256.0, 1, out)),
+                           log=rlog, device=dev, restart=restart)
+        outs[name] = (s, out)
+        if restart and not rlog.contains("Restored neutrino linear-response"
+                                         " state"):
+            raise SystemExit("lra restart: the history was not restored")
+    (s1, o1), (s2, o2) = outs["straight"], outs["restart"]
+    a = read_by_id(os.path.join(o1, "fastpm_1.0000"))
+    b = read_by_id(os.path.join(o2, "fastpm_1.0000"))
+    ex, ev = (float(np.abs(a[i] - b[i]).max()) for i in (1, 2))
+    dt = float(np.abs(np.asarray(s2.lra.delta_tot)
+                      / np.asarray(s1.lra.delta_tot) - 1).max())
+    print("lra restart 64^3: history %d / %d entries, max |dx| %.3g, "
+          "max |dv| %.3g km/s, history rel %.3g"
+          % (len(s2.lra.scalefact), len(s1.lra.scalefact), ex, ev, dt))
+    if not (len(s2.lra.scalefact) == len(s1.lra.scalefact)
+            and np.array_equal(a[0], b[0]) and ex <= 2e-3 and ev <= 2e-1
+            and dt <= 0.03
+            and not os.path.exists(os.path.join(o2, "fastpm_0.6000"))):
+        raise SystemExit("lra restart equivalence failed")
+    return launches
+
+
+def goldens_and_ics(dev, nc=64, nc_full=256):
+    """Phase J: the 10 cross-mode broadband lines of tests/test_modes.py
+    (pm, cola, zola, za, 2lpt at 64^3, 8 steps) on the card, each exact
+    or within one unit of its last printed digit; fNL-local and two
+    constraints through cli.prepare_deltak at 64^3 on the card against
+    the CPU (relative max |d delta_k| <= 1e-5), and timed at 256^3."""
+    import numpy as np
+    import torch
+    from fastpm_torch import cli
+    from fastpm_torch.config.params import load_params_from_string
+    from fastpm_torch.solver import Solver
+
+    modes = load_test_module("test_torch_modes")
+    exact = total = 0
+    for mode, lines in modes.GOLDENS.items():
+        t0 = time.perf_counter()
+        log = modes.run_mode(mode, dev)
+        for golden in lines:
+            got = modes.check_line(log, golden)
+            total += 1
+            exact += got == "exact"
+            line = next(l for l in log.lines
+                        if l.startswith(golden.split(" = ")[0] + " = "))
+            print("modes golden %s: %s (%s)" % (mode, line, got))
+            if got is None:
+                raise SystemExit("modes golden %s: want %s" % (mode, golden))
+        print("modes golden %s: 64^3, 8 steps in %.1f s"
+              % (mode, time.perf_counter() - t0))
+    print("modes golden: %d of %d lines exact, the rest within one unit "
+          "of the last printed digit" % (exact, total))
+
+    ics = load_test_module("test_torch_ic_png")
+
+    class Quiet:
+        def info(self, *a):
+            pass
+
+    for case, extra in ics.EXTRA.items():
+        res = {}
+        for where, n, b in (("cpu", nc, 256.0), (dev, nc, 256.0),
+                            (dev, nc_full, 1024.0)):
+            p = load_params_from_string(ics.LUA % dict(
+                nc=n, box=b, ps=os.path.join(FIXTURES, "powerspec.txt"))
+                + extra)
+            s = Solver(cli.build_config(p), cli.build_cosmology(p),
+                       device=where)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dk, _ = cli.prepare_deltak(s, p, Quiet())
+            if where != "cpu":
+                torch.cuda.synchronize()
+            res[(str(where), n)] = (dk.cpu().numpy(),
+                                    (time.perf_counter() - t0) * 1e3)
+            del s, dk
+        want, got = res[("cpu", nc)][0], res[(str(dev), nc)][0]
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        print("ics %s: %d^3 card against CPU relative max |d delta_k| "
+              "%.3g; prepare_deltak %.1f ms at %d^3 on the card (host "
+              "clock)" % (case, nc, rel, res[(str(dev), nc_full)][1],
+                          nc_full))
+        if not rel <= 1e-5 or not np.isfinite(res[(str(dev), nc_full)][0]
+                                               ).all():
+            raise SystemExit("ics %s: the card disagrees with the CPU"
+                             % case)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2003,6 +2393,9 @@ def main():
         ncdm_launches, more_ncdm = ncdm_path(dev, tmp)
         lightcone_goldens(dev, tmp)
         lc_launches = lightcone_path(dev, tmp)
+        modes_path(dev, tmp)
+        lra_path(dev, tmp)
+        goldens_and_ics(dev)
     homed_launches = homed_force(dev, solver.species["cdm"], pm)
     bench_launches = benchlib_path(dev, x0, v0, bpm)
     del x0, v0

@@ -2,11 +2,14 @@
 `python -m fastpm_torch.cli <file.lua>` on one GPU, or as
 `torchrun --nproc-per-node P -m fastpm_torch.cli <file.lua>` on P.
 
-Port of fastpm_tpu/cli.py: Lua parameter file -> IC pipeline -> 2LPT
-(CDM, and the Fermi-Dirac split ncdm species when m_ncdm is set) ->
-evolution with event handlers for the per-step power spectrum,
-interpolated bigfile snapshots (with the potential and tidal tensor, and
-subsampled, where asked), FOF and RFOF catalogs, and on one rank the
+Port of fastpm_tpu/cli.py: Lua parameter file -> IC pipeline (gadget
+white noise, fNL-local non-Gaussianity, peak constraints) -> 2LPT (CDM,
+and the Fermi-Dirac split ncdm species when m_ncdm is set), or a restart
+from a snapshot (-r) -> evolution in any force mode, with PGD and the
+neutrino linear response where asked, and event handlers for the
+per-step power spectrum, interpolated bigfile snapshots (with the
+potential and tidal tensor, subsampled, and with the linear response's
+history, where asked), FOF and RFOF catalogs, and on one rank the
 particle lightcone (prepare_lc: usmesh slices, HEALPix shell maps and
 lightcone halos). A parameter the port does not serve stops the run with
 SystemExit naming it (see ROADMAP.md).
@@ -38,37 +41,34 @@ from .powerspectrum import FuncK, sigma_tophat
 from .diagnostics import attach_standard_handlers, Log
 from . import ic, events as ev, transfers
 from .io.snapshots import (write_snapshot, write_halo_catalog,
-                           write_snapshot_header)
+                           write_snapshot_header, read_snapshot_header,
+                           read_species)
 from .io.bigfile import BigFile
 from .fof import find_halos, rfof_find_halos
 
 __all__ = ["main", "run_fastpm", "build_cosmology", "build_config",
-           "prepare_deltak", "prepare_ncdm", "prepare_lc", "SnapshotChecker"]
+           "prepare_deltak", "prepare_ncdm", "prepare_lc", "SnapshotChecker",
+           "restore_species"]
 
 # parameters the port does not serve yet, each must be unset / false
 # (ROADMAP.md queue 1): the k-space and white-noise file inputs and
-# outputs, the RunPB / GRAFIC formats, the nonlinear density output,
-# constrained ICs, the neutrino linear response and PGD
+# outputs, the RunPB / GRAFIC formats and the nonlinear density output
 _LATER_PARAMS = (
     "read_lineark", "read_lineark_ncdm", "read_whitenoisek",
     "read_runpbic", "read_grafic", "write_whitenoisek", "write_lineark",
     "write_linearr", "write_runpbic", "write_nonlineark",
-    "write_runpb_snapshot", "constraints", "ncdm_linearresponse", "pgdc")
+    "write_runpb_snapshot")
 # served on one rank only: the slab force of several ranks reads out no
-# potential or tidal tensor, and the lightcone and RFOF run on one
-# device's rows
+# potential or tidal tensor and takes no delta_k transfer or PGD, and
+# the lightcone and RFOF run on one device's rows
 _ONE_RANK_PARAMS = ("lc_write_usmesh", "write_rfof", "compute_potential",
-                    "compute_tidal")
+                    "compute_tidal", "pgdc", "ncdm_linearresponse")
 
 
 def check_served(p: Params, ranks: int = 1) -> None:
     """SystemExit naming the first parameter the port does not serve
     (on `ranks` ranks)."""
     bad = [name for name in _LATER_PARAMS if p.get(name, None)]
-    if p.f_nl_type != "none":
-        bad.append("f_nl_type")
-    if p.force_mode == "cola":
-        bad.append("force_mode")
     if ranks > 1:
         bad += [name for name in _ONE_RANK_PARAMS if p.get(name, None)]
     if bad:
@@ -110,6 +110,8 @@ def build_config(p: Params) -> SolverConfig:
         # rand is read by subsampled snapshots and lightcone subsampling
         # only (src/fastpm.c:1025-1046, 1453)
         need_rand=bool(p.particle_fraction < 1 or p.lc_write_usmesh),
+        pgdc=bool(p.pgdc), pgdc_alpha0=p.pgdc_alpha0, pgdc_A=p.pgdc_A,
+        pgdc_B=p.pgdc_B, pgdc_kl=p.pgdc_kl, pgdc_ks=p.pgdc_ks,
         # the reference's pm_check_values runs on every CLI run
         # (gravity.c:350-383)
         check_values=True,
@@ -118,8 +120,10 @@ def build_config(p: Params) -> SolverConfig:
 
 def prepare_deltak(solver: Solver, p: Params, log: Log):
     """The IC pipeline (src/fastpm.c:prepare_deltak) from the power
-    spectrum file and the gadget white noise: delta_k normalized at z=0
-    on the lptpm mesh, and the (sigma8-corrected) input P(k)."""
+    spectrum file and the gadget white noise, with fNL-local
+    non-Gaussianity (f_nl_type) and peak constraints (constraints) where
+    asked: delta_k normalized at z=0 on the lptpm mesh, and the
+    (sigma8-corrected) input P(k)."""
     pm = solver.lptpm
     c = solver.cosmology
     if not p.read_powerspectrum:
@@ -154,11 +158,31 @@ def prepare_deltak(solver: Solver, p: Params, log: Log):
     variance = pm.compute_variance(dk)
     log.info("Variance of input white noise is %0.8f, expectation is %0.8f",
              variance, 1.0 - 1.0 / pm.Norm)
-    log.info("Inducing correlation to the white noise.")
-    dk = ic.induce_correlation(pm, dk, pk)
+    if p.f_nl_type != "none":
+        from .png import PNGaussian
+        kmax = (p.nc / 2.0 * 2.0 * np.pi / p.boxsize
+                * p.kmax_primordial_over_knyquist)
+        log.info("Will set Phi_Gaussian(k)=0 for k>=%f.", kmax)
+        log.info("Inducing non gaussian correlation to the white noise.")
+        png = PNGaussian(fNL=p.f_nl, kmax_primordial=kmax, pk=pk,
+                         h=p.h, scalar_amp=p.scalar_amp,
+                         scalar_pivot=p.scalar_pivot,
+                         scalar_spectral_index=p.scalar_spectral_index,
+                         type=p.f_nl_type)
+        dk = png.induce_correlation(pm, dk)
+    else:
+        log.info("Inducing correlation to the white noise.")
+        dk = ic.induce_correlation(pm, dk, pk)
     dk = ic.rescale_linear(pm, dk, c, 1.0, p.linear_density_redshift)
     # set the mean to 1.0 (src/fastpm.c:561-565)
     dk = transfers.set_mode(pm, dk, (0, 0, 0, 0), 1.0, "override")
+    if p.constraints:
+        from .constrained import apply_constraints
+        log.info("Applying %d constraints.", len(p.constraints))
+        for i, cns in enumerate(p.constraints):
+            log.info("Constraint %d : %g %g %g peak-sigma = %g", i,
+                     cns[0], cns[1], cns[2], cns[3])
+        dk = apply_constraints(pm, dk, p.constraints, pk, log)
     return dk, pk
 
 
@@ -293,6 +317,14 @@ class SnapshotChecker:
         if p.write_snapshot:
             path = "%s_%0.04f" % (p.write_snapshot, aout)
             log.info("Writing a snapshot header to %s", path)
+            if s.lra is not None and s.lra.init_done:
+                # the linear response's history goes with every snapshot,
+                # so that a restart resumes it (ncdm_lr_save_neutrinos,
+                # io.c:591-596); written now, as the history grows while
+                # the particle columns are written in the background
+                s.lra.save(BigFile(path, create=True))
+                log.info("Saved neutrino linear-response state "
+                         "(%d history entries)", len(s.lra.scalefact))
             snapshot = {name: sp.replace(
                 **{c: t.cpu() for c, t in sp.columns()})
                 for name, sp in species.items()}
@@ -612,21 +644,101 @@ def prepare_lc(solver: Solver, p: Params, log: Log):
     return mesh
 
 
+def _prepare_time_step(all_steps, a0):
+    """Truncate the timestep list for a restart at a0
+    (prepare_time_step, src/fastpm.c:593-613)."""
+    i = -1
+    for j, a in enumerate(all_steps):
+        if a > a0 + 1e-7:
+            break
+        i = j
+    return [a0] + [a for a in all_steps[i + 1:] if a > a0 + 1e-7]
+
+
+def restore_species(solver: Solver, path: str, dataset: str, log: Log):
+    """Read the CDM species back from a snapshot on the solver's device,
+    inverting the unit conversion (prepare_cdm's restart path,
+    src/fastpm.c:616-648); returns (store, a0). The snapshot's velocity
+    is peculiar km/s, the internal one v * a / 100; ids come back as
+    int64 from either package's snapshots. The LPT displacements are
+    restored where the snapshot has them (force modes cola, za, 2lpt)."""
+    import torch
+    data = read_species(path, dataset)
+    attrs = data["_attrs"]
+    a_x = float(np.ravel(attrs["a.x"])[0])
+    a_v = float(np.ravel(attrs["a.v"])[0])
+    if abs(a_x - a_v) > 1e-12:
+        raise SystemExit("restart snapshot must be synced (a_x == a_v)")
+    dev = solver.device
+
+    def column(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    updates = dict(
+        x=column(data["x"].astype(np.float32)),
+        v=column((data["v"] * a_x / 100.0).astype(np.float32)),
+        id=column(data["id"].reshape(-1)))
+    for name in ("dx1", "dx2"):
+        if solver._keep_lpt and name in data:
+            updates[name] = column(data[name].astype(np.float32))
+    p = solver.species["cdm"]
+    n = updates["x"].shape[0]
+    for name in ("acc", "pgdc"):
+        if getattr(p, name) is not None:
+            updates[name] = torch.zeros((n, 3), dtype=torch.float32,
+                                        device=dev)
+    store = p.replace(a_x=a_x, a_v=a_v,
+                      M0=float(np.ravel(attrs["M0"])[0]),
+                      q_scale=tuple(np.ravel(attrs["q.scale"])),
+                      q_shift=tuple(np.ravel(attrs["q.shift"])), **updates)
+    log.info("Restarted species %s at a = %0.4f with %d particles",
+             dataset, a_x, store.np_local)
+    return store, a_x
+
+
+def _check_restart(p: Params, ranks: int = 1) -> None:
+    """SystemExit when a restart cannot be served: on several ranks (the
+    port's), with subsampling or with the lightcone (the JAX package's
+    two refusals, cli.py:856-858, 898-902)."""
+    if ranks > 1:
+        raise SystemExit("fastpm_torch: restart (-r) is not served by "
+                         "the port on several ranks (see ROADMAP.md)")
+    if p.particle_fraction != 1:
+        raise SystemExit("Cannot restart because subsampling of "
+                         "particles is enabled.")
+    if p.lc_write_usmesh:
+        raise SystemExit("FIXME: Restarting and lightcone are "
+                         "currently incompatible.")
+
+
 def run_fastpm(p: Params, log=None, n_writers: int = 0,
-               device=None, group=None) -> Solver:
+               device=None, group=None, restart: str = None) -> Solver:
     """The full run (src/fastpm.c:run_fastpm) on `device` (default: the
     first CUDA device; raises when there is none), over the ranks of
-    the process group `group` when one is given."""
+    the process group `group` when one is given; from the snapshot at
+    `restart` when one is given (one rank)."""
     device = resolve_device(device)
-    if group is None:
-        check_served(p)
-    else:
+    ranks = 1
+    if group is not None:
         import torch.distributed as dist
-        check_served(p, dist.get_world_size(group))
+        ranks = dist.get_world_size(group)
+    check_served(p, ranks)
     if log is None:
         log = Log()
-    solver = Solver(build_config(p), build_cosmology(p), device=device,
-                    group=group)
+    cfg = build_config(p)
+    if restart:
+        _check_restart(p, ranks)
+        a0 = float(np.ravel(read_snapshot_header(restart)["ScalingFactor"])[0])
+        cfg.time_step = _prepare_time_step(list(p.time_step), a0)
+        log.info("Restarting from %s at a = %0.4f", restart, a0)
+    solver = Solver(cfg, build_cosmology(p), device=device, group=group)
+    if p.ncdm_linearresponse:
+        z_t = (p.ncdm_transfer_redshift
+               if p.ncdm_transfer_redshift is not None
+               else 1.0 / p.time_step[0] - 1)
+        solver.setup_linear_response(z_t, p.ncdm_transfer_nu_file)
+        log.info("Neutrino linear response enabled at z_transfer = %g",
+                 z_t)
     attach_standard_handlers(solver, log,
                              write_powerspectrum=p.write_powerspectrum,
                              enforce_broadband_kmax=p.enforce_broadband_kmax)
@@ -645,10 +757,30 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     prepare_lc(solver, p, log)
 
     try:
-        dk, _pk = prepare_deltak(solver, p, log)
-        solver.setup_lpt(dk, p.time_step[0])
-        del dk
-        prepare_ncdm(solver, p, p.time_step[0], log)
+        if restart:
+            solver.species["cdm"], a0 = restore_species(solver, restart, "1",
+                                                        log)
+            # do not rewrite snapshots at or before the restart time
+            checker.iout = sum(1 for a in checker.aout if a <= a0 + 1e-7)
+            if solver.lra is not None:
+                # resume the linear response's history: re-seeding
+                # delta_nu from the transfer input is wrong past
+                # z_transfer (io.c:591-596; neutrinos_lra.c:329-473)
+                bf = BigFile(restart)
+                if bf.has_block("Neutrino"):
+                    solver.lra.load(bf)
+                    log.info("Restored neutrino linear-response state "
+                             "(%d history entries)",
+                             len(solver.lra.scalefact))
+                else:
+                    log.info("WARNING: LRA restart without a Neutrino "
+                             "block; delta_nu history re-seeds from the "
+                             "transfer input")
+        else:
+            dk, _pk = prepare_deltak(solver, p, log)
+            solver.setup_lpt(dk, p.time_step[0])
+            del dk
+            prepare_ncdm(solver, p, p.time_step[0], log)
         solver.evolve(solver.config.time_step)
     finally:
         # join in-flight background snapshot writes even when evolve
@@ -685,7 +817,7 @@ def main(argv=None, device=None):
                     "several under torchrun (PyTorch/CUDA port)")
     ap.add_argument("-W", type=int, default=0, help="number of IO writers")
     ap.add_argument("-r", dest="restart", default=None,
-                    help="restart from snapshot path (not in this slice)")
+                    help="restart from snapshot path (one rank)")
     ap.add_argument("-y", dest="nprocy", type=int, default=1,
                     help="ranks along y of a 2D (pencil) decomposition "
                     "(not in this slice: only 1)")
@@ -693,9 +825,6 @@ def main(argv=None, device=None):
     ap.add_argument("args", nargs="*", help="extra arguments exposed as "
                     "`args` in the parameter file")
     ns = ap.parse_args(argv)
-    if ns.restart:
-        raise SystemExit("fastpm_torch: restart (-r) is not served by this "
-                         "slice of the port (see ROADMAP.md)")
     if ns.nprocy > 1:
         raise SystemExit("fastpm_torch: -y NprocY > 1 (the pencil "
                          "decomposition) is not served by this slice of "
@@ -703,12 +832,12 @@ def main(argv=None, device=None):
     p = load_params(ns.params, ns.args)
     device, group = start_ranks(device)
     if group is None:
-        run_fastpm(p, n_writers=ns.W, device=device)
+        run_fastpm(p, n_writers=ns.W, device=device, restart=ns.restart)
         return 0
     import torch.distributed as dist
     try:
         run_fastpm(p, log=Log(echo=dist.get_rank() == 0), n_writers=ns.W,
-                   device=device, group=group)
+                   device=device, group=group, restart=ns.restart)
         # the ranks end together: rank 0 is done writing when any exits
         dist.barrier()
     finally:

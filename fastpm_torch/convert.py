@@ -4,9 +4,9 @@ solvers can start from the same state.
 
 - field_from_numpy: a real field (float32) or k-space field such as the
   IC delta_k (complex64, the same (Nx, Ny, Nz//2+1) layout);
-- store_from_numpy: particle columns x, v, dv1 (N, 3), id (N,), the
-  per-particle mass, rand and aemit (N,), potential (N,) and tidal
-  (N, 6) with their a_x / a_v stamps and store metadata.
+- store_from_numpy: particle columns x, v, dx1, dx2, dv1, pgdc (N, 3),
+  id (N,), the per-particle mass, rand and aemit (N,), potential (N,)
+  and tidal (N, 6) with their a_x / a_v stamps and store metadata.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def field_from_numpy(a, device) -> torch.Tensor:
 def store_from_numpy(x, v=None, id=None, a_x: float = 0.0,
                      a_v: float = 0.0, device="cpu", mass=None, dv1=None,
                      rand=None, aemit=None, potential=None, tidal=None,
-                     **meta) -> Store:
+                     dx1=None, dx2=None, pgdc=None, **meta) -> Store:
     """Particle columns as a port Store on device: every float column
     float32, ids int64. A column given as None stays unallocated. meta
     sets Store metadata (M0, q_shift, q_scale, q_nc, name)."""
@@ -43,7 +43,8 @@ def store_from_numpy(x, v=None, id=None, a_x: float = 0.0,
         return None if a is None else f32(a).reshape(-1)
 
     return Store(
-        x=f32(x), v=f32(v), dv1=f32(dv1), mass=f32_rows(mass),
+        x=f32(x), v=f32(v), dx1=f32(dx1), dx2=f32(dx2), dv1=f32(dv1),
+        pgdc=f32(pgdc), mass=f32_rows(mass),
         rand=f32_rows(rand), aemit=f32_rows(aemit),
         potential=f32_rows(potential), tidal=f32(tidal),
         id=None if id is None else torch.from_numpy(

@@ -23,6 +23,13 @@ JAX names:
   scatters the values back), so the stores are never permuted.
 
 carry_eligible picks between them, as the JAX solver does.
+
+Each takes an optional delta_transfer(delta_k) -> delta_k, applied to
+the softened delta_k before the potential kernel, and returns the
+transferred delta_k: the neutrino linear response (solver.py) goes in
+there. It is the JAX package's split of the force around the response's
+host round trip (jit_pre / jit_post, solver.py:912-955) as one eager
+call.
 """
 
 from __future__ import annotations
@@ -42,10 +49,14 @@ __all__ = ["paint_delta_k", "compute_force", "carry_eligible",
            "compute_force_carry", "compute_force_stale"]
 
 
-def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str):
+def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str,
+                  delta_transfer=None):
     """(softened delta_k, the three acceleration fields) from the
-    overdensity transform (gravity.c:457-529)."""
+    overdensity transform (gravity.c:457-529); delta_transfer, when
+    given, maps the softened delta_k before the potential kernel."""
     delta_k = kernels.apply_softening(pm, delta_k, softening_type)
+    if delta_transfer is not None:
+        delta_k = delta_transfer(delta_k)
     pot_k = kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
                                           "potential")
     return delta_k, pm.c2r_grad3(pot_k, kernels.kernel_orders(kernel_type)[1])
@@ -77,7 +88,7 @@ def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
 def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
                   kernel_type: str = "1_4", softening_type: str = "none",
                   compute_potential: bool = False,
-                  compute_tidal: bool = False):
+                  compute_tidal: bool = False, delta_transfer=None):
     """Accelerations of every species (fastpm_solver_compute_force,
     gravity.c:457-529), in row order; with compute_potential /
     compute_tidal also the potential and the six tidal components
@@ -91,7 +102,7 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
               if painter.is_cic else None for p in stores]
     delta_k = paint_delta_k(pm, painter, stores, orders)
     delta_k, (f0, f1, f2) = _force_fields(pm, delta_k, kernel_type,
-                                          softening_type)
+                                          softening_type, delta_transfer)
     out = [p.replace(acc=painter.readout3(f0, f1, f2, p.x, order))
            for p, order in zip(stores, orders)]
     del f0, f1, f2
@@ -131,7 +142,7 @@ def carry_eligible(painter: Painter, stores: Sequence[Store],
 
 def compute_force_carry(pm: PM, painter: Painter, store: Store,
                         kernel_type: str = "1_4",
-                        softening_type: str = "none"):
+                        softening_type: str = "none", delta_transfer=None):
     """The order-free force of one scalar-mass species
     (compute_force_carry, gravity.py:188-257); the caller checks
     carry_eligible first.
@@ -142,12 +153,13 @@ def compute_force_carry(pm: PM, painter: Painter, store: Store,
     # every column but acc (overwritten below) rides the sort
     store = store.replace(acc=None).take(
         cic.sort_by_cell(store.x, pm.Nmesh, pm.InvCellSize))
-    return _force_in_order(pm, store, kernel_type, softening_type)
+    return _force_in_order(pm, store, kernel_type, softening_type,
+                           delta_transfer)
 
 
 def compute_force_stale(pm: PM, painter: Painter, store: Store,
                         kernel_type: str = "1_4",
-                        softening_type: str = "none"):
+                        softening_type: str = "none", delta_transfer=None):
     """The stale-order force (compute_force_stale, gravity.py:378-416):
     for a store already in the cell order of an earlier
     compute_force_carry, the carry force without the sort. K1 and K2 run
@@ -161,11 +173,11 @@ def compute_force_stale(pm: PM, painter: Painter, store: Store,
     are no movers and no overflow, and the result is exact whatever the
     drift; only the kernels' locality decays with it."""
     return _force_in_order(pm, store.replace(acc=None), kernel_type,
-                           softening_type)
+                           softening_type, delta_transfer)
 
 
 def _force_in_order(pm: PM, store: Store, kernel_type: str,
-                    softening_type: str):
+                    softening_type: str, delta_transfer=None):
     """The body of the carry and stale forces: K1, the force fields and
     K2 on the store's rows in their order."""
     canvas = cic.cic_paint(store.x, pm.Nmesh, pm.InvCellSize,
@@ -174,6 +186,6 @@ def _force_in_order(pm: PM, store: Store, kernel_type: str,
     delta_k = pm.r2c(canvas / mean_mass_per_cell)
     del canvas
     delta_k, fields = _force_fields(pm, delta_k, kernel_type,
-                                    softening_type)
+                                    softening_type, delta_transfer)
     acc = cic.cic_readout(fields, store.x, pm.InvCellSize)
     return store.replace(acc=acc), delta_k

@@ -1,5 +1,5 @@
-"""Snapshot and halo catalog writers (reference: libfastpmio/io.c:229-640,
-src/fastpm.c:take_a_snapshot).
+"""Snapshot and halo catalog writers, and the snapshot reader of a
+restart (reference: libfastpmio/io.c:229-640, src/fastpm.c:take_a_snapshot).
 
 Port of fastpm_tpu/io/snapshots.py: the same files on disk. Store
 columns may be tensors on any device; they are copied to host numpy
@@ -28,8 +28,8 @@ from ..store import Store
 from ..cosmology import Cosmology
 from ..units import HUBBLE_CONSTANT
 
-__all__ = ["write_snapshot", "write_halo_catalog", "SPECIES_DATASET",
-           "LIBFASTPM_VERSION"]
+__all__ = ["write_snapshot", "write_halo_catalog", "read_snapshot_header",
+           "read_species", "SPECIES_DATASET", "LIBFASTPM_VERSION"]
 
 LIBFASTPM_VERSION = "fastpm-torch 0.1"
 
@@ -218,3 +218,22 @@ def write_halo_catalog(path: str, dataset: str, cat, c: Cosmology,
     if cat.aemit is not None:
         bf.create_block(f"{dataset}/Aemit",
                         np.asarray(cat.aemit)[order].astype(np.float32))
+
+
+def read_snapshot_header(path: str) -> Dict:
+    """The Header block's attributes of a snapshot."""
+    return BigFile(path).open_block("Header").attrs.asdict()
+
+
+def read_species(path: str, dataset: str = "1") -> Dict[str, np.ndarray]:
+    """The column arrays of a species dataset as host numpy arrays, under
+    the store's column names, with its attributes under "_attrs"; ids
+    come back as int64, whatever width the writer gave them."""
+    bf = BigFile(path)
+    out = {"_attrs": bf.open_block(dataset).attrs.asdict()}
+    for attr, name, _dtype in COLUMN_BLOCKS:
+        if bf.has_block(f"{dataset}/{name}"):
+            out[attr] = bf.open_block(f"{dataset}/{name}").read_all()
+    if "id" in out:
+        out["id"] = out["id"].astype(np.int64)
+    return out

@@ -20,8 +20,9 @@ x @ M.T runs in full float32 (torch.backends.cuda.matmul.allow_tf32
 stays False, its default); for the identity glmatrix of the fixtures it
 is exact.
 
-Force modes fastpm and pm; cola, za and 2lpt are not in the port yet
-(ROADMAP.md).
+Every force mode: fastpm and pm drift with v, za and 2lpt with the LPT
+displacements, cola with both; the PGD displacement rides the drift
+when the store has it (lightcone.py:213-256 of the JAX package).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from . import events as ev
 
 __all__ = ["Horizon", "LightCone", "USMesh", "volume_density_from_ell"]
 
-_MODES = ("fastpm", "pm")
+_MODES = ("fastpm", "pm", "cola", "za", "2lpt")
 _OCTANT_SIGNS = [(1, 1, 1), (1, 1, -1), (1, -1, 1), (1, -1, -1),
                  (-1, 1, 1), (-1, 1, -1), (-1, -1, 1), (-1, -1, -1)]
 
@@ -151,42 +152,75 @@ def _interp_table(samples, ai, a, dai):
 
 def _check_mode(mode: str):
     if mode not in _MODES:
-        raise NotImplementedError(
-            f"the lightcone of force mode {mode!r} is not in the port yet "
-            "(see ROADMAP.md)")
+        raise ValueError(f"unknown force mode {mode!r}")
+
+
+def _table(a, device):
+    return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
 
 
 def _drift_args(drift: DriftFactor, a_x: float, device):
-    """A DriftFactor's tables (float32 tensors on device) and scalars
-    (float32-exact host floats) for _drift_position_args."""
+    """A DriftFactor's tables (float32 tensors on device), scalars
+    (float32-exact host floats) and force mode for
+    _drift_position_args."""
     _check_mode(drift.force_mode)
     off = drift.lookup(a_x)
-    return dict(dyyy=torch.from_numpy(drift.dyyy.astype(np.float32)).to(
-                    device),
+    return dict(mode=drift.force_mode, dyyy=_table(drift.dyyy, device),
+                da1=_table(drift.da1, device), da2=_table(drift.da2, device),
                 ai=_f32(drift.ai), dai=_f32(float(drift.af) - float(drift.ai)),
-                o0=_f32(off[0]))
+                o0=_f32(off[0]), o1=_f32(off[1]), o2=_f32(off[2]),
+                Dv1=_f32(drift.Dv1), Dv2=_f32(drift.Dv2),
+                dyyy_end=_f32(drift.dyyy[-1]))
 
 
 def _kick_args(kick: KickFactor, a_v: float, device):
     _check_mode(kick.force_mode)
     off = kick.lookup(a_v)
-    return dict(dda=torch.from_numpy(kick.dda.astype(np.float32)).to(device),
+    return dict(mode=kick.force_mode, dda=_table(kick.dda, device),
+                Dv1=_table(kick.Dv1, device), Dv2=_table(kick.Dv2, device),
                 ai=_f32(kick.ai), dai=_f32(float(kick.af) - float(kick.ai)),
-                o0=_f32(off[0]))
+                o0=_f32(off[0]), o1=_f32(off[1]), o2=_f32(off[2]),
+                q1=_f32(kick.q1), q2=_f32(kick.q2))
 
 
 def _drift_position_args(d, p: Store, a):
-    """x(a) for every particle (fastpm_drift_one, modes fastpm and pm);
+    """x(a) for every particle (fastpm_drift_one, the PGD term included);
     d = _drift_args(...). a is a float32 tensor of the rows' length, or
     of length 1 for every row at one time."""
+    mode = d["mode"]
     dyyy = _interp_table(d["dyyy"], d["ai"], a, d["dai"]) - d["o0"]
-    return p.x + p.v * dyyy[:, None]
+    if mode in ("fastpm", "pm"):
+        x = p.x + p.v * dyyy[:, None]
+    else:
+        da1 = _interp_table(d["da1"], d["ai"], a, d["dai"]) - d["o1"]
+        da2 = _interp_table(d["da2"], d["ai"], a, d["dai"]) - d["o2"]
+        if mode == "za":
+            x = p.x + p.dx1 * da1[:, None]
+        elif mode == "2lpt":
+            x = (p.x + p.dx1 * da1[:, None]) + p.dx2 * da2[:, None]
+        else:   # cola
+            v = p.v - (p.dx1 * d["Dv1"] + p.dx2 * d["Dv2"])
+            x = p.x + v * dyyy[:, None]
+            x = (x + p.dx1 * da1[:, None]) + p.dx2 * da2[:, None]
+    if p.pgdc is not None and d["dai"] != 0:
+        x = x + (0.5 * (dyyy / d["dyyy_end"]))[:, None] * p.pgdc
+    return x
 
 
 def _kick_velocity_args(k, p: Store, a):
-    """v(a) for every particle (fastpm_kick_one, modes fastpm and pm)."""
+    """v(a) for every particle (fastpm_kick_one)."""
     dda = _interp_table(k["dda"], k["ai"], a, k["dai"]) - k["o0"]
+    if k["mode"] == "cola":
+        Dv1 = _interp_table(k["Dv1"], k["ai"], a, k["dai"]) - k["o1"]
+        Dv2 = _interp_table(k["Dv2"], k["ai"], a, k["dai"]) - k["o2"]
+        acc = (p.acc + p.dx1 * k["q1"]) + p.dx2 * k["q2"]
+        return (((p.v + acc * dda[:, None]) + p.dx1 * Dv1[:, None])
+                + p.dx2 * Dv2[:, None])
     return p.v + p.acc * dda[:, None]
+
+
+# the columns a lightcone step reads (its drift and kick in every mode)
+_SOLVE_COLUMNS = ("x", "v", "acc", "dx1", "dx2", "pgdc")
 
 
 class USMesh:
@@ -284,7 +318,8 @@ class USMesh:
         del has_root
         if idx.shape[0] == 0:
             return None
-        sub = Store(x=p.x[idx], v=p.v[idx], acc=p.acc[idx],
+        sub = Store(**{c: getattr(p, c)[idx] for c in _SOLVE_COLUMNS
+                       if getattr(p, c) is not None},
                     a_x=p.a_x, a_v=p.a_v)
         flo = flo[idx]
         lo = ta1.expand(idx.shape[0]).clone()

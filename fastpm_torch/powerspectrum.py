@@ -160,12 +160,47 @@ class PowerSpectrum:
         return plin / nm
 
 
+# a field of at most this many modes is binned on the host (a fetch of
+# at most 8 MB): float32 sums in mode order, the order of the JAX
+# package's bincount on the CPU, whose printed goldens depend on it.
+# A larger field is binned on its device into _COPIES copies of the bins
+# (mode i into copy i % _COPIES), so that the atomics of neighbouring
+# modes hit different addresses, and the copies are summed after.
+_HOST_BIN_MODES = 1 << 20
+_COPIES = 1024
+
+
+def _on_host(t) -> bool:
+    return t.device.type == "cpu" or t.numel() <= _HOST_BIN_MODES
+
+
+def _bin_index(b, nbins: int):
+    """The index _bin_sum scatters by: the bin itself where the field is
+    binned on the host, else the bin in the mode's copy."""
+    if _on_host(b):
+        return b
+    copy = torch.arange(b.numel(), device=b.device) % _COPIES
+    return (b + (nbins + 1) * copy).to(torch.int32)
+
+
+def _bin_sum(index, values, nbins: int):
+    """Float32 sums of values (flat, per mode) into nbins + 1 bins by
+    index (_bin_index): on the host in mode order for a small field,
+    else on values' device through the copies."""
+    if _on_host(values):
+        return torch.zeros(nbins + 1, dtype=torch.float32).index_add_(
+            0, index.cpu(), values.cpu())
+    copies = torch.zeros(_COPIES * (nbins + 1), dtype=torch.float32,
+                         device=values.device).index_add_(0, index, values)
+    return copies.view(_COPIES, nbins + 1).sum(0)
+
+
 def _shell_bins(pm: PM):
     """Delta-independent shell binning of one PM (or one rank's k shard,
-    parallel.pfft.KShard), cached on it: flat bin index per mode
-    (overflow bin = nbins), the hermitian weights with DC and
-    out-of-range modes zeroed, and the per-bin mode counts and k sums
-    ((2, nbins) float64 on the device)."""
+    parallel.pfft.KShard), cached on it: the flat bin index per mode
+    (overflow bin = nbins) as _bin_index gives it, the hermitian weights
+    with DC and out-of-range modes zeroed, and the per-bin mode counts
+    and k sums ((2, nbins) float64, summed by _bin_sum)."""
     def make():
         nbins = pm.Nmesh[0] // 2
         k0 = 2 * math.pi / pm.BoxSize[0]
@@ -181,15 +216,15 @@ def _shell_bins(pm: PM):
         in_range = (b < nbins) & (kk.expand(pm.kshape).reshape(-1) > 0)
         b = torch.where(in_range, b, torch.full_like(b, nbins))
         w = torch.where(in_range, w, torch.zeros_like(w))
-        kmode = (torch.sqrt(kk.to(torch.float64)) * k0).expand(
+        kmode = (torch.sqrt(kk.to(torch.float32)) * k0).expand(
             pm.kshape).reshape(-1)
-        zeros = torch.zeros(nbins + 1, dtype=torch.float64,
-                            device=pm.device)
-        Nmodes = zeros.clone().index_add_(0, b, w.double())[:nbins]
-        ksum = zeros.clone().index_add_(0, b, w * kmode)[:nbins]
-        # int32 bins and float32 weights (0, 1, 2: exact) halve the
+        index = _bin_index(b.to(torch.int32), nbins)
+        # the weights are 0, 1, 2: the counts are exact in float32
+        counts = torch.stack([_bin_sum(index, w, nbins)[:nbins],
+                              _bin_sum(index, w * kmode, nbins)[:nbins]])
+        # int32 indices and float32 weights (0, 1, 2: exact) halve the
         # cached bytes
-        return b.to(torch.int32), w, torch.stack([Nmodes, ksum])
+        return index, w, counts.double()
     return pm._const("shell_bins", make)
 
 
@@ -198,7 +233,12 @@ def measure_power(pm: PM, delta1_k, delta2_k=None, ring=None) -> PowerSpectrum:
 
     Shell binning: bin index is the integer part of |ik| (isqrt of the
     integer |ik|^2), bins of width k0 = 2 pi / L, hermitian weight 2 except
-    on the kz = 0 / Nyquist planes, DC excluded.
+    on the kz = 0 / Nyquist planes, DC excluded. The per-mode products
+    and the bin sums are float32, as the JAX package's bincount
+    (powerspectrum.py:188-232 there); a small field is summed on the
+    host in mode order, as XLA sums on the CPU, so that the JAX
+    package's printed goldens reproduce on the card too; a large one on
+    the device through copies of the bins (_bin_sum).
 
     With a ring (parallel.comm.Ring), pm is the rank's k shard and the
     fields are its shards: the bin sums are all-reduced, so every rank
@@ -209,15 +249,12 @@ def measure_power(pm: PM, delta1_k, delta2_k=None, ring=None) -> PowerSpectrum:
     nbins = pm.Nmesh[0] // 2
     k0 = 2 * math.pi / pm.BoxSize[0]
     b, w, counts = _shell_bins(pm)
-    # per-mode products in float32 (as the reference), sums in float64
     value = (delta1_k.real * delta2_k.real
              + delta1_k.imag * delta2_k.imag).reshape(-1)
-    psum = torch.zeros(nbins + 1, dtype=torch.float64,
-                       device=value.device).index_add_(
-                           0, b, (w * value).double())
-    sums = torch.cat([psum[None, :nbins], counts])
+    psum = _bin_sum(b, w * value, nbins)[:nbins]
+    sums = torch.cat([psum[None].double(), counts.to(psum.device)])
     if ring is not None:
-        sums = ring.psum(sums)
+        sums = ring.psum(sums.to(value.device))
     psum, Nmodes, ksum = sums.cpu().numpy()
 
     good = Nmodes > 0

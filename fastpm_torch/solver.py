@@ -1,11 +1,12 @@
 """The FastPM solver: species, time evolution, events
 (reference: libfastpm/solver.c, vpm.c).
 
-Port of fastpm_tpu/solver.py: the CDM and ncdm species, force modes
-fastpm and pm, the variable-resolution force mesh (VPM) table, and the
-reference's event architecture (events fire between the kick / drift /
-force actions), on one device or on the slab decomposition over the
-ranks of a torch.distributed process group.
+Port of fastpm_tpu/solver.py: the CDM and ncdm species, every force mode
+(fastpm, pm, cola, za, 2lpt; zola is fastpm), the PGD correction, the
+neutrino linear response, the variable-resolution force mesh (VPM)
+table, and the reference's event architecture (events fire between the
+kick / drift / force actions), on one device or on the slab
+decomposition over the ranks of a torch.distributed process group.
 
 On one rank the force step is gravity.compute_force_carry for one
 scalar-mass species and gravity.compute_force (every species into one
@@ -21,9 +22,18 @@ width is measured, kept while it holds, and measured again when a force
 finds a particle beyond it; that force is then run again, so no result
 with a particle beyond the halo is ever used (solver.py:1332-1368).
 
-Not in this slice (NotImplementedError; see ROADMAP.md): force modes
-cola, za and 2lpt, rehome, PGD, the neutrino linear response, baryons,
-and the pencil (2D) decomposition.
+The force modes cola, za and 2lpt keep the LPT columns dx1 and dx2 in
+the store, which every row permutation carries. With the neutrino linear
+response on, each force measures P(k) of the softened delta_k (one small
+fetch of its bins to the host), updates the response history
+(neutrinos_lra.DeltaTotTable) and multiplies delta_k by the transfer
+before the potential kernel (the forces' delta_transfer hook). PGD reads
+the force's softened (and transferred) delta_k and fills the pgdc
+column, which the next drift consumes.
+
+Not in this slice (NotImplementedError; see ROADMAP.md): rehome,
+baryons, the pencil (2D) decomposition, and PGD and the linear response
+on several ranks.
 """
 
 from __future__ import annotations
@@ -74,8 +84,8 @@ def _f32(a: float) -> float:
 class SolverConfig:
     """Mirror of FastPMConfig (api/fastpm/solver.h) with lua-schema
     defaults (src/lua-runtime-fastpm.lua), restricted to what this
-    slice serves. rehome and pgdc keep the JAX package's names so that
-    asking for them fails loudly.
+    slice serves. rehome keeps the JAX package's name so that asking for
+    it fails loudly.
 
     stale_every: with N > 1, on one device, N - 1 of every N carry forces
     reuse the carried order of the one before (no environment default,
@@ -85,7 +95,8 @@ class SolverConfig:
     nc: int
     boxsize: float
     time_step: Sequence[float] = (1.0,)
-    force_mode: str = "fastpm"        # fastpm | pm (zola = fastpm)
+    force_mode: str = "fastpm"        # fastpm | pm | cola | za | 2lpt
+    #                                   (zola = fastpm)
     kernel_type: str = "1_4"
     softening_type: str = "none"      # dealiasing_type in lua
     painter_type: str = "cic"
@@ -110,7 +121,13 @@ class SolverConfig:
     need_rand: bool = False
     rand_ntask: int = 1
     rehome: bool = False
+    # PGD correction (pgdcorrection.c)
     pgdc: bool = False
+    pgdc_alpha0: float = 0.8
+    pgdc_A: float = 4.0
+    pgdc_B: float = 8.0
+    pgdc_kl: float = 2.0
+    pgdc_ks: float = 10.0
 
     def __post_init__(self):
         if self.force_mode == "zola":
@@ -119,12 +136,10 @@ class SolverConfig:
             self.force_mode = "fastpm"
         if self.za:
             self.use_dx1_only = True
-        if self.force_mode not in ("fastpm", "pm"):
-            raise NotImplementedError(
-                f"force_mode {self.force_mode!r} {_LATER}")
-        for name, on in (("rehome", self.rehome), ("PGD", self.pgdc)):
-            if on:
-                raise NotImplementedError(f"{name} {_LATER}")
+        if self.force_mode not in ("fastpm", "pm", "cola", "za", "2lpt"):
+            raise ValueError(f"unknown force_mode {self.force_mode!r}")
+        if self.rehome:
+            raise NotImplementedError(f"rehome {_LATER}")
 
     @property
     def vpm_table(self) -> List[Tuple[float, float]]:
@@ -150,8 +165,11 @@ class Solver:
         self.ring = Ring(group)
         self.config = config
         self.cosmology = cosmology if cosmology is not None else FIDUCIAL
-        if self.cosmology.ncdm_linearresponse:
-            raise NotImplementedError(f"the neutrino linear response {_LATER}")
+        if self.ring.nproc > 1:
+            for name in ("pgdc", "compute_potential", "compute_tidal"):
+                if getattr(config, name):
+                    raise NotImplementedError(
+                        f"{name} on several ranks {_LATER}")
         self.event_handlers = ev.EventHandlers()
 
         nc = config.nc
@@ -163,11 +181,9 @@ class Solver:
         self.vpm_list = [(a_start, PM(int(nc * f), box, device=dev))
                          for a_start, f in config.vpm_table]
 
-        if self.ring.nproc > 1:
-            for name in ("compute_potential", "compute_tidal"):
-                if getattr(config, name):
-                    raise NotImplementedError(
-                        f"{name} on several ranks {_LATER}")
+        # cola drifts and kicks with dx1 and dx2, za and 2lpt drift with
+        # them (solver.py:173-174)
+        self._keep_lpt = config.force_mode in ("cola", "za", "2lpt")
         shift = 0.5 * box / nc if config.use_shift else 0.0
         columns = (("v", "acc", "id")
                    + (("rand",) if config.need_rand else ())
@@ -176,6 +192,18 @@ class Solver:
         self.species: Dict[str, Store] = {CDM: lattice_store(
             self.basepm, Nc=nc, shift=shift, columns=columns, name="cdm",
             rand_ntask=config.rand_ntask).shard(self.ring)}
+        # the neutrino linear-response state (setup_linear_response)
+        self.lra = None
+        self.pgd = None
+        if config.pgdc:
+            from .pgd import PGDCorrection
+            self.pgd = PGDCorrection(
+                alpha0=config.pgdc_alpha0, A=config.pgdc_A, B=config.pgdc_B,
+                kl=config.pgdc_kl, ks=config.pgdc_ks,
+                painter_type=config.painter_type,
+                painter_support=config.painter_support)
+            p = self.species[CDM]
+            self.species[CDM] = p.replace(pgdc=torch.zeros_like(p.x))
         # deferred check_values flag of the last force (_settle_cv)
         self._cv_pending = None
         # the slab engines and measured halo widths, per force mesh
@@ -245,7 +273,9 @@ class Solver:
         if cfg.use_dx1_only and p.dx2 is not None:
             p = p.replace(dx2=torch.zeros_like(p.dx2))
         p = lpt_evolve(self.cosmology, a0, p, za_only=False)
-        self.species[species] = p.replace(dx1=None, dx2=None, dv1=None)
+        if not self._keep_lpt:
+            p = p.replace(dx1=None, dx2=None, dv1=None)
+        self.species[species] = p
         # new particles: no carried order to reuse (solver.py:299-302)
         self._stale_since.clear()
         self.event_handlers.emit(ev.EVENT_LPT, ev.STAGE_AFTER,
@@ -284,18 +314,26 @@ class Solver:
         names = list(self.iter_species())
         stores = [self.species.pop(n).wrap(pm.BoxSize) for n in names]
         kpm = pm
+        transfer = None
+        if self.lra is not None and self.cosmology.ncdm_linearresponse:
+            # the linear response between the softening and the potential
+            # kernel (gravity.c:431-455, 494-522)
+            def transfer(dk, a_f=trans.a_f):
+                logk, vals = self._lra_table(pm, dk, a_f)
+                return transfers.apply_fk_interp(pm, dk, logk, vals)
         if self.sharded:
             stores, delta_k = self._sharded_force(pm, painter, stores)
             kpm = self._slab_pm(pm).kpm
         elif carry_eligible(painter, stores, cfg.compute_potential,
                             cfg.compute_tidal):
-            stores, delta_k = self._carry_force(pm, painter, stores.pop())
+            stores, delta_k = self._carry_force(pm, painter, stores.pop(),
+                                                transfer)
         else:
             stores, delta_k = compute_force(pm, painter, stores,
                                             cfg.kernel_type,
                                             cfg.softening_type,
                                             cfg.compute_potential,
-                                            cfg.compute_tidal)
+                                            cfg.compute_tidal, transfer)
             self.force_paths["multi"] += 1
         self.species.update(zip(names, stores))
         if cfg.check_values:
@@ -305,6 +343,14 @@ class Solver:
                 ok = ok & torch.isfinite(p.acc).all()
             self._cv_pending = (self.ring.psum((~ok).to(torch.int32)),
                                 trans.a_f)
+
+        # the PGD correction from the softened, pre-decic delta_k
+        # (solver.c:458-464), at the store's rows in their order after
+        # the force
+        if self.pgd is not None:
+            p = self.species[CDM]
+            self.species[CDM] = p.replace(pgdc=self.pgd.compute_with_alpha(
+                pm, p.x, delta_k, self.pgd.alpha(trans.a_f)))
 
         # compensate the CIC window so the event sees a de-aliased
         # spectrum (solver.c:466-471); skipped when nobody listens. On
@@ -317,7 +363,42 @@ class Solver:
             ev.EVENT_FORCE, ev.STAGE_AFTER, solver=self, pm=kpm,
             a_f=trans.a_f, a_n=a_n, N=N, delta_k=delta_k_decic)
 
-    def _carry_force(self, pm: PM, painter: Painter, store: Store):
+    # ---- the neutrino linear response (gravity.c:457-529) ----
+
+    def setup_linear_response(self, transfer_redshift: float,
+                              transfer_file=None) -> None:
+        """Enable the grid-based neutrino linear response: its transfer
+        inputs are given at z = transfer_redshift, the neutrino to CDM
+        transfer ratio read from transfer_file when one is given."""
+        if self.sharded:
+            raise NotImplementedError(
+                f"the neutrino linear response on several ranks {_LATER}")
+        from .neutrinos_lra import DeltaTotTable
+        from .powerspectrum import FuncK
+        t_init = FuncK.from_file(transfer_file) if transfer_file else None
+        self.lra = DeltaTotTable(
+            cosmology=self.cosmology,
+            time_transfer=1.0 / (1 + transfer_redshift), t_init=t_init)
+
+    def _lra_table(self, pm: PM, delta_k, a_f: float):
+        """P_cdm of the softened delta_k (one small fetch of its bins),
+        the response history updated at a_f, and the step's transfer
+        table (logk, vals) as float32 tensors on the device."""
+        from .powerspectrum import measure_power
+        ps = measure_power(pm, delta_k)
+        delta_cdm = np.sqrt(np.maximum(ps.p, 0.0))
+        good = ps.Nmodes > 0
+        k = ps.k[good]
+        nu_prefac, ratio = self.lra.update_from_power(k, delta_cdm[good],
+                                                      a_f)
+        logk = np.log(np.where(k > 0, k, 1e-10))
+        vals = np.asarray(nu_prefac) * np.asarray(ratio)
+        dev = delta_k.device
+        return (torch.from_numpy(logk.astype(np.float32)).to(dev),
+                torch.from_numpy(vals.astype(np.float32)).to(dev))
+
+    def _carry_force(self, pm: PM, painter: Painter, store: Store,
+                     transfer=None):
         """The order-free force of one species on one device: fresh (with
         the sort), or stale when stale_every allows it for this force
         mesh. Returns ([store], delta_k)."""
@@ -326,13 +407,13 @@ class Solver:
         if since is not None and since < cfg.stale_every - 1:
             p, delta_k = compute_force_stale(pm, painter, store,
                                              cfg.kernel_type,
-                                             cfg.softening_type)
+                                             cfg.softening_type, transfer)
             self._stale_since[pm.Nmesh] = since + 1
             self.force_paths["stale"] += 1
         else:
             p, delta_k = compute_force_carry(pm, painter, store,
                                              cfg.kernel_type,
-                                             cfg.softening_type)
+                                             cfg.softening_type, transfer)
             if cfg.stale_every > 1:
                 self._stale_since[pm.Nmesh] = 0
             self.force_paths["carry"] += 1
@@ -394,14 +475,41 @@ class Solver:
             del self._halo[pm.Nmesh]
 
     def kick_one(self, p: Store, kick: KickFactor, af: float) -> Store:
-        """Apply a kick to a store (fastpm_kick_store, factors.c:147-197)."""
-        dda, _Dv1, _Dv2 = kick.coefficients(p.a_v, af)
-        return p.replace(v=p.v + p.acc * _f32(dda), a_v=float(af))
+        """Apply a kick to a store (fastpm_kick_store, factors.c:147-197):
+        cola adds the LPT terms. Each product and sum rounds once, in the
+        JAX package's order, with float32 coefficients."""
+        dda, Dv1, Dv2 = (_f32(c) for c in kick.coefficients(p.a_v, af))
+        if kick.force_mode == "cola":
+            v = (p.v + (p.acc + p.dx1 * _f32(kick.q1) + p.dx2 * _f32(kick.q2))
+                 * dda + p.dx1 * Dv1 + p.dx2 * Dv2)
+        else:
+            v = p.v + p.acc * dda
+        return p.replace(v=v, a_v=float(af))
 
     def drift_one(self, p: Store, drift: DriftFactor, af: float) -> Store:
-        """Apply a drift to a store (fastpm_drift_one, factors.c:72-115)."""
-        dyyy, _da1, _da2 = drift.coefficients(p.a_x, af)
-        return p.replace(x=p.x + p.v * _f32(dyyy), a_x=float(af))
+        """Apply a drift to a store (fastpm_drift_one, factors.c:72-115):
+        za and 2lpt move by the LPT displacements, cola by both, and the
+        PGD displacement rides the drift of fastpm, pm and cola over a
+        nonzero interval (factors.c:108-113)."""
+        dyyy, da1, da2 = drift.coefficients(p.a_x, af)
+        mode = drift.force_mode
+        pgd = p.pgdc is not None and drift.ai != drift.af
+        fac = _f32(0.5 * dyyy / drift.dyyy[-1]) if pgd else 0.0
+        dyyy, da1, da2 = _f32(dyyy), _f32(da1), _f32(da2)
+        if mode == "2lpt":
+            x = p.x + p.dx1 * da1 + p.dx2 * da2
+        elif mode == "za":
+            x = p.x + p.dx1 * da1
+        else:
+            if mode == "cola":
+                x = (p.x + (p.v - p.dx1 * _f32(drift.Dv1)
+                            - p.dx2 * _f32(drift.Dv2)) * dyyy
+                     + p.dx1 * da1 + p.dx2 * da2)
+            else:
+                x = p.x + p.v * dyyy
+            if pgd:
+                x = x + p.pgdc * fac
+        return p.replace(x=x, a_x=float(af))
 
     def do_kick(self, trans, states: StateTable, iend: int) -> None:
         kick = self._kick_factor(trans.a_i, trans.a_r, trans.a_f)

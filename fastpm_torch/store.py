@@ -15,6 +15,8 @@ Port of fastpm_tpu/store.py. Column semantics follow the reference:
 - aemit (N,) f32  emission scale factor (lightcone rows)
 - potential (N,) f32, tidal (N,6) f32  the force's potential and tidal
   tensor at each particle (compute_potential / compute_tidal)
+- pgdc (N,3) f32  the PGD displacement of the last force step, consumed
+  by the drift (pgdcorrection.c)
 
 Row order carries no meaning: the force step returns the store in
 cell-sorted order, and writers sort by id.
@@ -36,7 +38,7 @@ __all__ = ["Store", "lattice_store"]
 
 # the per-particle tensor columns, in declaration order
 COLUMNS = ("x", "v", "acc", "dx1", "dx2", "dv1", "id", "alive", "mass",
-           "rand", "aemit", "potential", "tidal")
+           "rand", "aemit", "potential", "tidal", "pgdc")
 
 
 @dataclass
@@ -57,6 +59,7 @@ class Store:
     aemit: Optional[torch.Tensor] = None
     potential: Optional[torch.Tensor] = None
     tidal: Optional[torch.Tensor] = None
+    pgdc: Optional[torch.Tensor] = None
 
     a_x: float = 0.0
     a_v: float = 0.0

@@ -15,6 +15,7 @@ from .mesh import PM
 __all__ = [
     "apply_smoothing", "apply_lowpass", "apply_decic", "apply_diff",
     "apply_laplace", "apply_pot", "apply_grad", "apply_any",
+    "apply_fk_interp",
     "apply_c2r_weight", "apply_normalize", "set_mode", "get_mode",
 ]
 
@@ -82,12 +83,74 @@ def apply_grad(pm: PM, dk, dir: int, order: int):
     return apply_diff(pm, dk, dir, order, zero_nyquist=True)
 
 
-def apply_any(pm: PM, dk, fkfunc):
+def apply_any(pm: PM, dk, fkfunc, host_tables: bool = False):
     """Multiply by a scalar function of |k| (transfer.c:188-210). |k| is
     the square root of the float32 |k|^2 table sum; fkfunc takes and
-    returns tensors."""
+    returns tensors. host_tables=True evaluates fkfunc (numpy in, numpy
+    out, such as an np.interp of a table) in float64 on the host grid of
+    the float32 tables' sum, and casts the factor to float32: for the
+    once-a-run IC transfers (png.py)."""
+    if host_tables:
+        kk = sum(np.reshape(pm.table("kk", d),
+                            [-1 if i == d else 1 for i in range(3)])
+                 for d in range(3))
+        kern = np.asarray(fkfunc(np.sqrt(kk)), dtype=np.float64)
+        return dk * torch.from_numpy(kern.astype(np.float32)).to(dk.device)
     k = torch.sqrt(pm.kk())
     return dk * fkfunc(k).to(pm.dtype)
+
+
+def _fk_interp_index(pm: PM, logk: torch.Tensor):
+    """(j, t) of every mode for apply_fk_interp: f = fpe[j] + t (fpe[j +
+    1] - fpe[j]) over the table fpe = (vals, vals[-1], 0, 0) is
+    jnp.interp(log|k|; logk, vals) with its clamps (j = 0, t = 0 below
+    the table; j = n - 1 above it), and 0 at the DC mode (j = n + 1).
+    They depend only on the mesh and logk, so they are kept on the PM
+    for the last logk seen."""
+    key = logk.cpu().numpy().tobytes()
+    hit = pm._dev_cache.get("fk_interp")
+    if hit is not None and hit[0] == key:
+        return hit[1], hit[2]
+    n = logk.shape[0]
+    kk = pm.kk()
+    k = torch.sqrt(kk)
+    lq = torch.log(torch.where(k > 0, k, torch.ones_like(k)))
+    i = torch.clamp(torch.searchsorted(logk, lq.reshape(-1), right=True),
+                    1, n - 1).reshape(lq.shape)
+    dx = logk[i] - logk[i - 1]
+    delta = lq - logk[i - 1]
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = torch.abs(dx) <= eps
+    t = torch.where(dx0, torch.zeros_like(dx),
+                    delta / torch.where(dx0, torch.ones_like(dx), dx))
+    j = i - 1
+    below, above = lq < logk[0], lq > logk[-1]
+    t = torch.where(below | above, torch.zeros_like(t), t)
+    j = torch.where(below, torch.zeros_like(j), j)
+    j = torch.where(above, torch.full_like(j, n - 1), j)
+    j = torch.where(kk > 0, j, torch.full_like(j, n + 1))
+    j = j.to(torch.int32).reshape(-1)
+    pm._dev_cache["fk_interp"] = (key, j, t)
+    return j, t
+
+
+def apply_fk_interp(pm: PM, dk, logk: torch.Tensor, vals: torch.Tensor):
+    """Multiply by fac(|k|) = 1 + interp(log|k|; logk, vals), the
+    neutrino linear-response transfer 1 + f_nu delta_nu / delta_cdm
+    (lra_neutrinos, gravity.c:431-455, 494-522; transfers.py:126-141 of
+    the JAX package). (logk, vals) are float32 tables on dk's device.
+    Out-of-range |k| clamps to the table's edges, as jnp.interp does; the
+    DC mode keeps fac = 1. The bin of each mode and its weight are cached
+    on the PM while logk stays the same (the bins of measure_power), so a
+    step costs two gathers from the small table and one multiply over
+    the mesh; the blend rounds as jnp.interp's."""
+    j, t = _fk_interp_index(pm, logk)
+    zero = vals.new_zeros(2)
+    fpe = torch.cat([vals, vals[-1:], zero])
+    dfe = fpe[1:] - fpe[:-1]
+    f = (torch.index_select(fpe, 0, j).reshape(t.shape)
+         + t * torch.index_select(dfe, 0, j).reshape(t.shape))
+    return dk * (1.0 + f)
 
 
 def apply_c2r_weight(pm: PM, dk):

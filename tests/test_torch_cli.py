@@ -111,3 +111,39 @@ def test_fof_lengths_equal(runs, a):
         "LL-0.200/Length").read_all() for out in runs]
     assert len(lengths[0]) > 0
     np.testing.assert_array_equal(lengths[1], lengths[0])
+
+
+# the Lua schema's force modes are fastpm, pm, cola and zola, as the
+# reference's (lua-runtime-fastpm.lua); za and 2lpt are SolverConfig
+# modes, and za = true drops dx2
+SERVED = ('force_mode = "cola"', 'force_mode = "zola"\nza = true',
+          "pgdc = true", 'f_nl_type = "local"\nf_nl = 10.0\n'
+          "scalar_amp = 2.1e-9\nscalar_pivot = 0.05\n"
+          "scalar_spectral_index = 0.96",
+          "constraints = {{48.0, 48.0, 48.0, 3.0}}",
+          "m_ncdm = {0.2}\nn_shell = 0\nncdm_freestreaming = true\n"
+          "ncdm_linearresponse = true")
+
+
+@pytest.mark.parametrize("extra", SERVED)
+def test_newly_served_parameters(tmp_path, extra):
+    """Every force mode, PGD, fNL, constraints and the linear response
+    pass check_served on one rank; PGD and the linear response stop a
+    run of two ranks naming the parameter, and so does a restart."""
+    from fastpm_torch import cli
+    from fastpm_torch.config.params import load_params
+    conf = tmp_path / "p.lua"
+    conf.write_text(LUA % dict(nc=NC, box=BOX, out=str(tmp_path),
+                               ps=os.path.join(FIXTURES, "powerspec.txt"))
+                    + extra + "\n")
+    p = load_params(str(conf))
+    cli.check_served(p)
+    name = next((n for n in ("pgdc", "ncdm_linearresponse")
+                 if n in extra), None)
+    if name is None:
+        cli.check_served(p, ranks=2)
+    else:
+        with pytest.raises(SystemExit, match=name):
+            cli.check_served(p, ranks=2)
+    with pytest.raises(SystemExit, match=r"restart \(-r\)"):
+        cli._check_restart(p, ranks=2)

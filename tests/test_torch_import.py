@@ -35,7 +35,8 @@ def test_import_leaves_jax_out():
     assert len(names) >= 30
     for name in ("cli", "solver", "gravity", "ncdm", "ops.cic", "ops.sort",
                  "benchlib", "parallel.comm", "parallel.pfft",
-                 "parallel.psolver"):
+                 "parallel.psolver", "pgd", "neutrinos_lra", "png",
+                 "constrained", "lightcone", "io.snapshots"):
         assert "fastpm_torch." + name in names
 
 
@@ -75,17 +76,21 @@ def test_unserved_parameter_stops_the_cli(tmp_path):
     conf.write_text(base + 'write_nonlineark = "nlk"\n')
     with pytest.raises(SystemExit, match="write_nonlineark"):
         main([str(conf)], device="cpu")
-    # the lightcone, RFOF, potential and tidal are served on one rank and
-    # stop a run of several
+    # the lightcone, RFOF, potential, tidal, PGD and the linear response
+    # are served on one rank and stop a run of several
     for line in ('lc_write_usmesh = "lc"', 'write_rfof = "rfof"',
-                 "compute_potential = true", "compute_tidal = true"):
+                 "compute_potential = true", "compute_tidal = true",
+                 "pgdc = true", "ncdm_linearresponse = true"):
         one = tmp_path / "one.lua"
         one.write_text(base + line + "\n")
         params = load_params(str(one))
         check_served(params)
         with pytest.raises(SystemExit, match=line.split()[0]):
             check_served(params, ranks=2)
+    # restart is served on one rank; subsampled runs cannot restart
+    sub = tmp_path / "sub.lua"
+    sub.write_text(base + "particle_fraction = 0.5\n")
     with pytest.raises(SystemExit, match="restart"):
-        main(["-r", str(tmp_path / "snapshot"), str(conf)], device="cpu")
+        main(["-r", str(tmp_path / "snapshot"), str(sub)], device="cpu")
     with pytest.raises(SystemExit, match="NprocY"):
         main(["-y", "2", str(conf)], device="cpu")

@@ -360,8 +360,9 @@ def test_cli_powerspectrum_rows_agree(cli_runs):
 
 
 def test_unserved_ncdm_options_refused(tmp_path):
-    """The neutrino linear response, ncdm k-space input and baryons stay
-    refused; m_ncdm and read_linear_growth_rate are served."""
+    """ncdm k-space input and baryons stay refused, and the neutrino
+    linear response on several ranks; m_ncdm, read_linear_growth_rate
+    and the linear response on one rank are served."""
     from fastpm_torch import cli
     from fastpm_torch.config.params import load_params
     from fastpm_torch.solver import Solver, SolverConfig, BARYON
@@ -374,14 +375,16 @@ def test_unserved_ncdm_options_refused(tmp_path):
     conf.write_text(base + particles)
     cli.check_served(load_params(str(conf)))
     # the linear response needs free-streaming ncdm, which has no particles
-    for name, extra in (
-            ("ncdm_linearresponse", "ncdm_freestreaming = true\n"
-             "n_shell = 0\nncdm_linearresponse = true\n"),
-            ("read_lineark_ncdm", particles + 'read_lineark_ncdm = "lk"\n')):
-        conf = tmp_path / (name + ".lua")
-        conf.write_text(base + extra)
-        with pytest.raises(SystemExit, match=name):
-            cli.main([str(conf)], device="cpu")
+    conf = tmp_path / "lra.lua"
+    conf.write_text(base + "ncdm_freestreaming = true\n"
+                    "n_shell = 0\nncdm_linearresponse = true\n")
+    cli.check_served(load_params(str(conf)))
+    with pytest.raises(SystemExit, match="ncdm_linearresponse"):
+        cli.check_served(load_params(str(conf)), ranks=2)
+    conf = tmp_path / "read_lineark_ncdm.lua"
+    conf.write_text(base + particles + 'read_lineark_ncdm = "lk"\n')
+    with pytest.raises(SystemExit, match="read_lineark_ncdm"):
+        cli.main([str(conf)], device="cpu")
     solver = Solver(SolverConfig(nc=8, boxsize=16.0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.add_species(BARYON, solver.species["cdm"])

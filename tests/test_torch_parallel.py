@@ -339,6 +339,31 @@ def test_sharded_solver_matches_one_rank(runs):
         assert set(paths) <= {"homed-carry", "overflow"}
 
 
+def test_cola_solver_two_ranks_matches_one_rank(tmp_path):
+    """Force mode cola at 16^3 on 2 gloo ranks against the port's
+    one-rank run, by id (the sharded fastpm Solver's bounds); dx1 rides
+    the slab force's row permutations unchanged."""
+    data = dict(nc=16, box=64.0, steps=np.asarray([0.2, 0.5, 1.0]),
+                ps=POWERSPEC, seed=5)
+    inp = str(tmp_path / "inputs.npz")
+    np.savez(inp, **data)
+    spawn(2, "cola", inp, str(tmp_path))
+    ranks = [dict(np.load(str(tmp_path / ("rank%d.npz" % r))))
+             for r in range(2)]
+    one = workers.run_solver(16, 64.0, data["steps"], POWERSPEC, 5,
+                             force_mode="cola")
+    p = one.species["cdm"]
+    x0, v0, d0 = _by_id(p.id.numpy(), p.x.numpy(), p.v.numpy(),
+                        p.dx1.numpy())
+    x, v, d = _by_id(_cat(ranks, "id"), _cat(ranks, "x"), _cat(ranks, "v"),
+                     _cat(ranks, "dx1"))
+    np.testing.assert_array_equal(d, d0)
+    np.testing.assert_allclose(x, x0, atol=2e-3)
+    np.testing.assert_allclose(v, v0, atol=2e-4)
+    for r in ranks:
+        assert set(r["paths"]) <= {"homed-carry", "overflow"}
+
+
 def test_solver_replays_overflow(runs):
     """A cached halo of 2 planes with particles 3 planes out: the force
     is discarded, the halo measured again (4) and the force replayed; it

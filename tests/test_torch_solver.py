@@ -68,10 +68,14 @@ def test_solver_matches_jax(mode, start):
 
 
 def test_unserved_modes_raise():
+    # rehome stays refused; every force mode and PGD are served
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SolverConfig(nc=8, boxsize=16.0, rehome=True)
+    with pytest.raises(ValueError, match="force_mode"):
+        SolverConfig(nc=8, boxsize=16.0, force_mode="tpm")
     for kw in (dict(force_mode="cola"), dict(force_mode="2lpt"),
-               dict(rehome=True), dict(pgdc=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SolverConfig(nc=8, boxsize=16.0, **kw)
+               dict(force_mode="za"), dict(pgdc=True)):
+        SolverConfig(nc=8, boxsize=16.0, **kw)
 
 
 def test_compute_force_potential_tidal_matches_jax():

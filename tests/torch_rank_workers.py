@@ -18,7 +18,7 @@ HOMED_KERNELS = ("from8", "from4")
 
 
 def run(rank, nproc, port, job, inp, out):
-    """One rank of `job` ("cases" or "cli")."""
+    """One rank of `job` ("cases", "cola" or "cli")."""
     import faulthandler
     # a rank killed by a signal prints where it was to the test's stderr
     faulthandler.enable()
@@ -39,6 +39,22 @@ def run(rank, nproc, port, job, inp, out):
         return
     dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
                             rank=rank, world_size=nproc)
+    if job == "cola":
+        # the cola Solver on the ranks: its LPT columns ride the slab
+        # force's row permutations
+        try:
+            data = dict(np.load(inp))
+            s = run_solver(int(data["nc"]), float(data["box"]),
+                           data["steps"], str(data["ps"]), int(data["seed"]),
+                           group=dist.group.WORLD, force_mode="cola")
+            p = s.species["cdm"]
+            np.savez(os.path.join(out, "rank%d.npz" % rank), x=p.x.numpy(),
+                     v=p.v.numpy(), id=p.id.numpy(), dx1=p.dx1.numpy(),
+                     paths=np.array(sorted(s.force_paths.elements())))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        return
     try:
         from fastpm_torch.parallel.comm import Ring
         ring = Ring(dist.group.WORLD)
@@ -140,16 +156,17 @@ def forces(ring, data):
     return res
 
 
-def run_solver(nc, box, time_step, ps, seed, device="cpu", group=None):
-    """A Solver (fastpm mode, pm_nc_factor 1) from the port's own linear
-    field, evolved; the solver (shared with the parent's one-rank run)."""
+def run_solver(nc, box, time_step, ps, seed, device="cpu", group=None,
+               force_mode="fastpm"):
+    """A Solver (pm_nc_factor 1) from the port's own linear field,
+    evolved; the solver (shared with the parent's one-rank run)."""
     from fastpm_torch.solver import Solver, SolverConfig
     from fastpm_torch.cosmology import Cosmology
     from fastpm_torch.powerspectrum import FuncK
     from fastpm_torch import ic
     c = Cosmology(h=0.6774, Omega_m=0.307494, T_cmb=0.0, growth_mode="lcdm")
     s = Solver(SolverConfig(nc=nc, boxsize=box, time_step=list(time_step),
-                            force_mode="fastpm", pm_nc_factor=1,
+                            force_mode=force_mode, pm_nc_factor=1,
                             check_values=True), c, device=device,
                group=group)
     dk, _ = ic.linear_field(s.lptpm, c, FuncK.from_file(ps), seed=seed,
