@@ -124,7 +124,9 @@ I. the neutrino linear response: tests/test_lra.py's LRA_RUN physics at
    nc = 256 (box 1024) on a 512^3 force mesh, 5 steps, through
    run_fastpm; the force step with the response against the plain one,
    its host part (the measure_power fetch, update_from_power) apart,
-   the idle share over 2 steps; then at 64^3 a straight run and a run
+   the idle share over 2 steps; measure_power's binning of the 512^3
+   delta_k on the card (float64 sums into copies of the bins) against
+   the host's float64 and float32 sums of the same field; then at 64^3 a straight run and a run
    restarted from its a = 0.6 snapshot agree by id and in history;
 J. the 10 cross-mode broadband lines of tests/test_modes.py (64^3, 8
    steps) on the card, each exact or within one unit of its last printed
@@ -251,11 +253,13 @@ def reset_peak():
     """Start a new peak-memory count with only live tensors allocated:
     what earlier phases left in reference cycles (a finished Solver is
     one) is freed first, so a path's peak does not depend on when the
-    garbage collector last ran."""
+    garbage collector last ran. Returns the bytes still allocated, which
+    a path's own peak is counted above."""
     import torch
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def reset_launches():
@@ -2079,7 +2083,7 @@ def modes_path(dev, tmp, nc=256, box=768.0, nstep=5):
             cli.build_config(params), force_mode=mode, pgdc=pgd,
             pgdc_alpha0=0.8, pgdc_A=4.0, pgdc_B=8.0, pgdc_kl=2.0,
             pgdc_ks=10.0)
-        reset_peak()
+        base = reset_peak()
         reset_launches()
         t0 = time.perf_counter()
         solver = Solver(cfg, cli.build_cosmology(params), device=dev)
@@ -2092,14 +2096,14 @@ def modes_path(dev, tmp, nc=256, box=768.0, nstep=5):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         run_launches = read_launches()
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() - base
         force_ms = [s.elapsed_time(e) for s, e in pairs]
         p = solver.species["cdm"]
         print("modes %s: %d^3, %d force actions %s ms (CUDA events; P(k) "
-              "handler%s included), wall %.2f s, max_memory_allocated "
-              "%.3f GB" % (name, nc, len(force_ms),
-                           ["%.2f" % t for t in force_ms],
-                           " and PGD" if pgd else "", wall, peak / 1e9))
+              "handler%s included), wall %.2f s, the run's peak %.3f GB "
+              "(max_memory_allocated over the %.3f GB live before it)"
+              % (name, nc, len(force_ms), ["%.2f" % t for t in force_ms],
+                 " and PGD" if pgd else "", wall, peak / 1e9, base / 1e9))
         print("modes %s: launches %s; last log line: %s"
               % (name, {k: c for k, c in run_launches.items() if c},
                  log.lines[-1]))
@@ -2146,6 +2150,55 @@ def modes_path(dev, tmp, nc=256, box=768.0, nstep=5):
     return launches
 
 
+def check_binning(pm, dk):
+    """measure_power's binning on the card (float64 sums into 1024
+    copies of the bins) of a 512^3 delta_k against the same field binned
+    on the host: a float64 numpy bincount of the same products (P(k) and
+    k to 1e-9, the mode counts exactly: a mode in a wrong bin or copy
+    moves a bin far more) and the float32 sums in mode order that small
+    fields take (P(k) to 1e-3 and k to 1e-2, float32's own error over
+    up to 10^6 terms a bin). Returns the card's ms with its fetch."""
+    import math
+    import numpy as np
+    import torch
+    from fastpm_torch.powerspectrum import measure_power, _shell_bins
+    got = measure_power(pm, dk)
+    if _shell_bins(pm)[3] == 1:
+        raise SystemExit("binning: a 512^3 field was binned on the host")
+    one = measure_power(pm, dk, copies=1)
+    b, w, _counts, _n = _shell_bins(pm, 1)
+    nbins = pm.Nmesh[0] // 2
+    kmode = (torch.sqrt(pm.integer_kk().to(torch.float32))
+             * (2 * math.pi / pm.BoxSize[0])).expand(pm.kshape).reshape(-1)
+    prod = w * (dk.real * dk.real + dk.imag * dk.imag).reshape(-1)
+    bh = b.cpu().numpy()
+
+    def bincount(v):
+        return np.bincount(bh, v.cpu().numpy().astype(np.float64),
+                           minlength=nbins + 1)[:nbins]
+
+    nm, psum, ksum = bincount(w), bincount(prod), bincount(w * kmode)
+    good = nm > 0
+    p64 = psum[good] / nm[good] * pm.Volume
+    k64 = ksum[good] / nm[good]
+
+    def rel(a, ref):
+        return float(np.abs(a[good] / ref - 1).max())
+
+    e64 = (rel(got.p, p64), rel(got.k, k64))
+    e32 = (rel(got.p, one.p[good]), rel(got.k, one.k[good]))
+    print("binning 512^3 on the card against the host: P(k) %.3g and k "
+          "%.3g rel (float64 bincount), P(k) %.3g and k %.3g rel (float32 "
+          "in mode order); mode counts %s"
+          % (e64 + e32 + ("equal" if np.array_equal(got.Nmodes, nm)
+                          else "DIFFER",)))
+    if not (np.array_equal(got.Nmodes, nm) and max(e64) <= 1e-9
+            and e32[0] <= 1e-3 and e32[1] <= 1e-2):
+        raise SystemExit("measure_power's binning on the card disagrees "
+                         "with the host's")
+    return time_ms(lambda: measure_power(pm, dk), reps=5)
+
+
 def lra_path(dev, tmp, nc=256, box=1024.0):
     """Phase I: tests/test_lra.py's LRA_RUN physics (m_ncdm 0.2, n_shell
     0, z_transfer 4, ODE growth, T_cmb 2.725; 5 steps from a = 0.2) at nc
@@ -2162,7 +2215,6 @@ def lra_path(dev, tmp, nc=256, box=1024.0):
     from fastpm_torch.config.params import load_params_from_string
     from fastpm_torch.diagnostics import Log
     from fastpm_torch.painter import Painter
-    from fastpm_torch.powerspectrum import measure_power
 
     lra = load_test_module("test_torch_lra")
 
@@ -2199,7 +2251,7 @@ def lra_path(dev, tmp, nc=256, box=1024.0):
     Solver._lra_table = host_clock(lra_table, table_ms)
     DeltaTotTable.update_from_power = host_clock(update, update_ms)
     try:
-        reset_peak()
+        base = reset_peak()
         reset_launches()
         t0 = time.perf_counter()
         log = Log(echo=False)
@@ -2212,12 +2264,13 @@ def lra_path(dev, tmp, nc=256, box=1024.0):
     finally:
         Solver._lra_table = lra_table
         DeltaTotTable.update_from_power = update
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     nforce = 5
     print("lra path: %d^3, box %g, %d^3 force mesh, %d force steps: wall "
-          "%.2f s (the host's first Fermi-Dirac table included), "
-          "max_memory_allocated %.3f GB, history %d entries"
-          % (nc, box, 2 * nc, nforce, wall, peak / 1e9,
+          "%.2f s (the host's first Fermi-Dirac table included), the "
+          "run's peak %.3f GB (max_memory_allocated over the %.3f GB live "
+          "before it), history %d entries"
+          % (nc, box, 2 * nc, nforce, wall, peak / 1e9, base / 1e9,
              len(solver.lra.scalefact)))
     print("lra path: force actions %s ms (CUDA events; the P(k) handler "
           "included); the step's table %s ms, of it update_from_power %s "
@@ -2246,7 +2299,7 @@ def lra_path(dev, tmp, nc=256, box=1024.0):
     plain_ms = time_ms(lambda: gravity.compute_force_carry(pm, painter,
                                                            store), reps=5)
     _, dk = gravity.compute_force_carry(pm, painter, store)
-    pk_ms = time_ms(lambda: measure_power(pm, dk), reps=5)
+    pk_ms = check_binning(pm, dk)
     del dk
     print("lra path: force step %.2f ms with the response (a new history "
           "entry each) against %.2f ms without (CUDA events) = %.4g "

@@ -3,9 +3,10 @@
 
 Port of fastpm_tpu/powerspectrum.py. Measurement is spherical shell
 binning with integer-|ik| bins of width k0 = 2 pi / L and hermitian
-double-count weights (powerspectrum.c:62-124). The binned sums run on
-the field's device in float64 (index_add_); normalization and text
-output are host-side.
+double-count weights (powerspectrum.c:62-124). The binned sums of a
+small field run on the host in float32 in mode order, as the JAX
+package's; those of a large one on its device in float64 (index_add_
+into copies of the bins); normalization and text output are host-side.
 """
 
 from __future__ import annotations
@@ -163,44 +164,49 @@ class PowerSpectrum:
 # a field of at most this many modes is binned on the host (a fetch of
 # at most 8 MB): float32 sums in mode order, the order of the JAX
 # package's bincount on the CPU, whose printed goldens depend on it.
-# A larger field is binned on its device into _COPIES copies of the bins
-# (mode i into copy i % _COPIES), so that the atomics of neighbouring
-# modes hit different addresses, and the copies are summed after.
+# A larger field is binned on its device in float64 into _COPIES copies
+# of the bins (mode i into copy i % _COPIES), so that the atomics of
+# neighbouring modes hit different addresses, and the copies are summed
+# after.
 _HOST_BIN_MODES = 1 << 20
 _COPIES = 1024
 
 
-def _on_host(t) -> bool:
-    return t.device.type == "cpu" or t.numel() <= _HOST_BIN_MODES
+def _n_copies(t) -> int:
+    """1 where a field like t is binned on the host, else _COPIES."""
+    on_host = t.device.type == "cpu" or t.numel() <= _HOST_BIN_MODES
+    return 1 if on_host else _COPIES
 
 
-def _bin_index(b, nbins: int):
-    """The index _bin_sum scatters by: the bin itself where the field is
-    binned on the host, else the bin in the mode's copy."""
-    if _on_host(b):
+def _bin_index(b, nbins: int, copies: int):
+    """The index _bin_sum scatters by: the bin of each mode in the
+    mode's copy (the bin itself for one copy)."""
+    if copies == 1:
         return b
-    copy = torch.arange(b.numel(), device=b.device) % _COPIES
+    copy = torch.arange(b.numel(), device=b.device) % copies
     return (b + (nbins + 1) * copy).to(torch.int32)
 
 
-def _bin_sum(index, values, nbins: int):
-    """Float32 sums of values (flat, per mode) into nbins + 1 bins by
-    index (_bin_index): on the host in mode order for a small field,
-    else on values' device through the copies."""
-    if _on_host(values):
+def _bin_sum(index, values, nbins: int, copies: int):
+    """Sums of values (flat, per mode) into nbins + 1 bins by index
+    (_bin_index): one copy on the host in float32 in mode order, more
+    on values' device in float64, the copies summed after."""
+    if copies == 1:
         return torch.zeros(nbins + 1, dtype=torch.float32).index_add_(
             0, index.cpu(), values.cpu())
-    copies = torch.zeros(_COPIES * (nbins + 1), dtype=torch.float32,
-                         device=values.device).index_add_(0, index, values)
-    return copies.view(_COPIES, nbins + 1).sum(0)
+    sums = torch.zeros(copies * (nbins + 1), dtype=torch.float64,
+                       device=values.device).index_add_(
+                           0, index, values.double())
+    return sums.view(copies, nbins + 1).sum(0)
 
 
-def _shell_bins(pm: PM):
+def _shell_bins(pm: PM, copies: int = None):
     """Delta-independent shell binning of one PM (or one rank's k shard,
     parallel.pfft.KShard), cached on it: the flat bin index per mode
-    (overflow bin = nbins) as _bin_index gives it, the hermitian weights
-    with DC and out-of-range modes zeroed, and the per-bin mode counts
-    and k sums ((2, nbins) float64, summed by _bin_sum)."""
+    (overflow bin = nbins) as _bin_index gives it for `copies` copies
+    (by default _n_copies of the mesh), the hermitian weights with DC
+    and out-of-range modes zeroed, the per-bin mode counts and k sums
+    ((2, nbins) float64, summed by _bin_sum), and the copies."""
     def make():
         nbins = pm.Nmesh[0] // 2
         k0 = 2 * math.pi / pm.BoxSize[0]
@@ -218,27 +224,32 @@ def _shell_bins(pm: PM):
         w = torch.where(in_range, w, torch.zeros_like(w))
         kmode = (torch.sqrt(kk.to(torch.float32)) * k0).expand(
             pm.kshape).reshape(-1)
-        index = _bin_index(b.to(torch.int32), nbins)
+        n = _n_copies(w) if copies is None else copies
+        index = _bin_index(b.to(torch.int32), nbins, n)
         # the weights are 0, 1, 2: the counts are exact in float32
-        counts = torch.stack([_bin_sum(index, w, nbins)[:nbins],
-                              _bin_sum(index, w * kmode, nbins)[:nbins]])
+        counts = torch.stack([_bin_sum(index, w, nbins, n)[:nbins],
+                              _bin_sum(index, w * kmode, nbins, n)[:nbins]])
         # int32 indices and float32 weights (0, 1, 2: exact) halve the
         # cached bytes
-        return index, w, counts.double()
-    return pm._const("shell_bins", make)
+        return index, w, counts.double(), n
+    return pm._const("shell_bins" if copies is None
+                     else "shell_bins_%d" % copies, make)
 
 
-def measure_power(pm: PM, delta1_k, delta2_k=None, ring=None) -> PowerSpectrum:
+def measure_power(pm: PM, delta1_k, delta2_k=None, ring=None,
+                  copies: int = None) -> PowerSpectrum:
     """P(k) of one or two overdensity fields (powerspectrum.c:34-124).
 
     Shell binning: bin index is the integer part of |ik| (isqrt of the
     integer |ik|^2), bins of width k0 = 2 pi / L, hermitian weight 2 except
     on the kz = 0 / Nyquist planes, DC excluded. The per-mode products
-    and the bin sums are float32, as the JAX package's bincount
-    (powerspectrum.py:188-232 there); a small field is summed on the
-    host in mode order, as XLA sums on the CPU, so that the JAX
-    package's printed goldens reproduce on the card too; a large one on
-    the device through copies of the bins (_bin_sum).
+    are float32. A small field is summed on the host in float32 in mode
+    order, as the JAX package's bincount on the CPU
+    (powerspectrum.py:188-232 there), so that its printed goldens
+    reproduce on the card too; a large one (more than 2^20 modes) in
+    float64 on the device through copies of the bins (_bin_sum). copies
+    overrides the choice: 1 sums on the host, more on the field's
+    device.
 
     With a ring (parallel.comm.Ring), pm is the rank's k shard and the
     fields are its shards: the bin sums are all-reduced, so every rank
@@ -248,10 +259,10 @@ def measure_power(pm: PM, delta1_k, delta2_k=None, ring=None) -> PowerSpectrum:
         delta2_k = delta1_k
     nbins = pm.Nmesh[0] // 2
     k0 = 2 * math.pi / pm.BoxSize[0]
-    b, w, counts = _shell_bins(pm)
+    b, w, counts, copies = _shell_bins(pm, copies)
     value = (delta1_k.real * delta2_k.real
              + delta1_k.imag * delta2_k.imag).reshape(-1)
-    psum = _bin_sum(b, w * value, nbins)[:nbins]
+    psum = _bin_sum(b, w * value, nbins, copies)[:nbins]
     sums = torch.cat([psum[None].double(), counts.to(psum.device)])
     if ring is not None:
         sums = ring.psum(sums.to(value.device))

@@ -315,12 +315,17 @@ class Solver:
         stores = [self.species.pop(n).wrap(pm.BoxSize) for n in names]
         kpm = pm
         transfer = None
-        if self.lra is not None and self.cosmology.ncdm_linearresponse:
+        if self.cosmology.ncdm_linearresponse:
+            if self.lra is None:
+                raise RuntimeError(
+                    "the cosmology sets ncdm_linearresponse: call "
+                    "Solver.setup_linear_response before the first force")
+
             # the linear response between the softening and the potential
             # kernel (gravity.c:431-455, 494-522)
             def transfer(dk, a_f=trans.a_f):
-                logk, vals = self._lra_table(pm, dk, a_f)
-                return transfers.apply_fk_interp(pm, dk, logk, vals)
+                logk, vals, key = self._lra_table(pm, dk, a_f)
+                return transfers.apply_fk_interp(pm, dk, logk, vals, key)
         if self.sharded:
             stores, delta_k = self._sharded_force(pm, painter, stores)
             kpm = self._slab_pm(pm).kpm
@@ -383,7 +388,8 @@ class Solver:
     def _lra_table(self, pm: PM, delta_k, a_f: float):
         """P_cdm of the softened delta_k (one small fetch of its bins),
         the response history updated at a_f, and the step's transfer
-        table (logk, vals) as float32 tensors on the device."""
+        table (logk, vals) as float32 tensors on the device, with the
+        host bytes of logk that name it (apply_fk_interp's key)."""
         from .powerspectrum import measure_power
         ps = measure_power(pm, delta_k)
         delta_cdm = np.sqrt(np.maximum(ps.p, 0.0))
@@ -391,11 +397,12 @@ class Solver:
         k = ps.k[good]
         nu_prefac, ratio = self.lra.update_from_power(k, delta_cdm[good],
                                                       a_f)
-        logk = np.log(np.where(k > 0, k, 1e-10))
+        logk = np.log(np.where(k > 0, k, 1e-10)).astype(np.float32)
         vals = np.asarray(nu_prefac) * np.asarray(ratio)
         dev = delta_k.device
-        return (torch.from_numpy(logk.astype(np.float32)).to(dev),
-                torch.from_numpy(vals.astype(np.float32)).to(dev))
+        return (torch.from_numpy(logk).to(dev),
+                torch.from_numpy(vals.astype(np.float32)).to(dev),
+                logk.tobytes())
 
     def _carry_force(self, pm: PM, painter: Painter, store: Store,
                      transfer=None):

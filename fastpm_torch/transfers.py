@@ -100,14 +100,16 @@ def apply_any(pm: PM, dk, fkfunc, host_tables: bool = False):
     return dk * fkfunc(k).to(pm.dtype)
 
 
-def _fk_interp_index(pm: PM, logk: torch.Tensor):
+def _fk_interp_index(pm: PM, logk: torch.Tensor, key=None):
     """(j, t) of every mode for apply_fk_interp: f = fpe[j] + t (fpe[j +
     1] - fpe[j]) over the table fpe = (vals, vals[-1], 0, 0) is
     jnp.interp(log|k|; logk, vals) with its clamps (j = 0, t = 0 below
     the table; j = n - 1 above it), and 0 at the DC mode (j = n + 1).
     They depend only on the mesh and logk, so they are kept on the PM
-    for the last logk seen."""
-    key = logk.cpu().numpy().tobytes()
+    for the last key seen (logk's host bytes, fetched when no key is
+    given)."""
+    if key is None:
+        key = logk.cpu().numpy().tobytes()
     hit = pm._dev_cache.get("fk_interp")
     if hit is not None and hit[0] == key:
         return hit[1], hit[2]
@@ -134,7 +136,8 @@ def _fk_interp_index(pm: PM, logk: torch.Tensor):
     return j, t
 
 
-def apply_fk_interp(pm: PM, dk, logk: torch.Tensor, vals: torch.Tensor):
+def apply_fk_interp(pm: PM, dk, logk: torch.Tensor, vals: torch.Tensor,
+                    key=None):
     """Multiply by fac(|k|) = 1 + interp(log|k|; logk, vals), the
     neutrino linear-response transfer 1 + f_nu delta_nu / delta_cdm
     (lra_neutrinos, gravity.c:431-455, 494-522; transfers.py:126-141 of
@@ -143,8 +146,10 @@ def apply_fk_interp(pm: PM, dk, logk: torch.Tensor, vals: torch.Tensor):
     DC mode keeps fac = 1. The bin of each mode and its weight are cached
     on the PM while logk stays the same (the bins of measure_power), so a
     step costs two gathers from the small table and one multiply over
-    the mesh; the blend rounds as jnp.interp's."""
-    j, t = _fk_interp_index(pm, logk)
+    the mesh; the blend rounds as jnp.interp's. key names logk (its host
+    bytes, which the caller has at hand): without it logk is fetched
+    from the device to name it."""
+    j, t = _fk_interp_index(pm, logk, key)
     zero = vals.new_zeros(2)
     fpe = torch.cat([vals, vals[-1:], zero])
     dfe = fpe[1:] - fpe[:-1]

@@ -7,7 +7,9 @@
 - transfers.apply_fk_interp against the JAX function on a 32^3 mesh,
   with a table that ends inside the mesh's |k| range at both ends (the
   clamps) and the DC mode kept (rtol 1e-6), and the cached bins reused
-  for a second table on the same k.
+  for a second table on the same k; named by logk's host bytes too.
+- A Solver with ncdm_linearresponse but no setup_linear_response stops
+  at its first force.
 - tests/test_lra.py's LRA_RUN (16^3, 5 steps, m_ncdm 0.2, z_transfer 4)
   through both CLIs (module scope): the snapshots at a = 0.6 and 1 by id
   (positions within 1e-4 of a cell, velocities within 1e-4 of their
@@ -91,12 +93,30 @@ def test_apply_fk_interp_matches_jax():
         got = apply_fk_interp(pm, torch.from_numpy(dk),
                               torch.from_numpy(logk), torch.from_numpy(vals))
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+        # named by the host bytes of logk, as the solver calls it
+        keyed = apply_fk_interp(pm, torch.from_numpy(dk),
+                                torch.from_numpy(logk),
+                                torch.from_numpy(vals), logk.tobytes())
+        assert torch.equal(keyed, got)
         # the DC mode keeps its value
         assert got[0, 0, 0] == torch.from_numpy(dk)[0, 0, 0]
         # the clamps were reached at both ends
         fac = (got / torch.from_numpy(dk)).real.numpy()
         assert np.isclose(fac[1, 0, 0], 1 + vals[0])
         assert np.isclose(fac[nm // 2, nm // 2, nm // 2], 1 + vals[-1])
+
+
+def test_solver_refuses_lra_without_setup():
+    """A cosmology with ncdm_linearresponse needs the response's state:
+    a Solver whose setup_linear_response was not called stops at its
+    first force instead of running without the response."""
+    from fastpm_torch.solver import Solver, SolverConfig
+    cosmo = Cosmology(h=0.6774, Omega_m=0.307494, ncdm_linearresponse=True)
+    s = Solver(SolverConfig(nc=8, boxsize=32.0, time_step=[0.2, 0.3]),
+               cosmo, device="cpu")
+    s.setup_lpt(torch.zeros(s.lptpm.kshape, dtype=torch.complex64), 0.2)
+    with pytest.raises(RuntimeError, match="setup_linear_response"):
+        s.evolve()
 
 
 LRA_RUN = """

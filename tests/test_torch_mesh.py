@@ -107,6 +107,35 @@ def test_variance_and_power(meshes):
         jpm.compute_variance(jdk), rel=1e-6)
     got, want = measure_power(pm, dk), jmeasure_power(jpm, jdk)
     np.testing.assert_array_equal(got.Nmodes, want.Nmodes)
-    # the JAX binning sums in float32, the port's in float64
+    # both sum in float32; XLA's sum may round differently
     np.testing.assert_allclose(got.k, want.k, rtol=1e-5)
     np.testing.assert_allclose(got.p, want.p, rtol=1e-5)
+
+
+@pytest.mark.parametrize("copies", [7, 1024])
+def test_power_through_copies(meshes, copies):
+    """The binning of a large field on its device (float64 sums into
+    copies of the bins, mode i into copy i % copies), run here on the
+    CPU: each bin's sum equals a float64 numpy bincount of the same
+    products by the one-copy bins to 1e-12, and k and P(k) the one-copy
+    float32 sums in mode order to 1e-5 (float32 against float64 sums).
+    A mode in the wrong bin or copy moves a bin's sum by far more."""
+    from fastpm_torch.powerspectrum import _shell_bins
+    pm, _jpm, _x, dk, _jdk = meshes
+    one = measure_power(pm, dk, copies=1)
+    got = measure_power(pm, dk, copies=copies)
+    b, w, _counts, n = _shell_bins(pm, 1)
+    assert n == 1
+    nbins = pm.Nmesh[0] // 2
+    value = (w * (dk.real * dk.real + dk.imag * dk.imag).reshape(-1))
+    psum = np.bincount(b.numpy(), value.numpy().astype(np.float64),
+                       minlength=nbins + 1)[:nbins]
+    nm = np.bincount(b.numpy(), w.numpy().astype(np.float64),
+                     minlength=nbins + 1)[:nbins]
+    good = nm > 0
+    want = np.where(good, psum / np.where(good, nm, 1) * pm.Volume, 0.0)
+    np.testing.assert_array_equal(got.Nmodes, nm)
+    np.testing.assert_array_equal(got.Nmodes, one.Nmodes)
+    np.testing.assert_allclose(got.p, want, rtol=1e-12)
+    np.testing.assert_allclose(got.k, one.k, rtol=1e-5)
+    np.testing.assert_allclose(got.p, one.p, rtol=1e-5)

@@ -12,7 +12,8 @@ through the port against the JAX package.
 - The 10 cross-mode broadband lines of tests/test_modes.py (pm, cola,
   zola, za, 2lpt at 64^3, 8 steps) through the port alone, at their
   printed precision: the P(k) of each line exactly, and its Sigma8
-  within one unit of the last printed digit.
+  within one unit of the last printed digit; za's lines exactly when
+  the port's run starts from the JAX package's LPT columns.
 """
 
 import os
@@ -210,8 +211,10 @@ def test_cross_mode_broadband_lines(mode):
     za's z = 0 Sigma8 prints 0.78833 against 0.788331: the port's value
     0.7883304 and the JAX package's 0.7883307 sit on either side of the
     rounding boundary, because the LPT displacements (pocketfft against
-    XLA's FFT) differ by an ulp in a tenth of the rows. Every P(k) is
-    exact."""
+    XLA's FFT) differ by an ulp (the initial positions in a tenth of the
+    rows). Every P(k) is exact. test_za_line_exact_from_jax_lpt is the
+    second witness: from the JAX package's LPT columns the port prints
+    the za line exactly."""
     log = run_mode(mode, "cpu")
     for golden in GOLDENS[mode]:
         got = check_line(log, golden)
@@ -220,3 +223,37 @@ def test_cross_mode_broadband_lines(mode):
             assert got == "exact", golden
         # the P(k) part of every line is exact
         assert log.contains(golden.split(" Sigma8")[0]), golden
+
+
+def test_za_line_exact_from_jax_lpt():
+    """The za run of test_cross_mode_broadband_lines with the port's
+    LPT columns (x, v, dx1, dx2 after setup_lpt) replaced by the JAX
+    Solver's from the JAX package's own linear field: the rest of the
+    run is the port's, and both za lines print exactly as the golden.
+    So the one unit of za's z = 0 Sigma8 in the port's own run comes from
+    the ulps of its LPT FFTs alone."""
+    from fastpm_tpu.solver import Solver as JSolver
+    from fastpm_tpu.solver import SolverConfig as JConfig
+    from fastpm_tpu.cosmology import Cosmology as JCosmology
+    from fastpm_tpu import ic as jic
+    from fastpm_tpu.powerspectrum import FuncK as JFuncK
+    kw = dict(nc=64, boxsize=512.0, time_step=list(np.linspace(0.1, 1, 8)),
+              force_mode="za", pm_nc_factor=1, lpt_nc_factor=1)
+    js = JSolver(JConfig(**kw), JCosmology(**COSMO))
+    jdk, _ = jic.linear_field(js.lptpm, JCosmology(**COSMO),
+                              JFuncK.from_file(POWERSPEC), seed=100,
+                              aout=1.0, remove_cosmic_variance=True)
+    js.setup_lpt(jdk, kw["time_step"][0])
+    jp = js.species["cdm"]
+    s = Solver(SolverConfig(**kw), Cosmology(**COSMO), device="cpu")
+    log = attach_standard_handlers(s, Log(echo=False))
+    s.setup_lpt(torch.zeros(s.lptpm.kshape, dtype=torch.complex64),
+                kw["time_step"][0])
+    p = s.species["cdm"]
+    np.testing.assert_array_equal(np.asarray(jp.id), p.id.numpy())
+    s.species["cdm"] = p.replace(**{
+        c: torch.from_numpy(np.array(getattr(jp, c)))
+        for c in ("x", "v", "dx1", "dx2")})
+    s.evolve()
+    for golden in GOLDENS["za"]:
+        assert check_line(log, golden) == "exact", golden
