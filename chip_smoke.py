@@ -22,12 +22,16 @@ Phases, in order (any failure ends the script with a nonzero exit):
    K3 adds 16.8 M CDM particles (scalar mass) and 5.24 M ncdm particles
    (a mass column) into one 512^3 canvas, K4 reads the three 512^3
    force fields at both sets; then both given each species' cell order
-   (cell_order, the counting sort by line of csrc/cic_bin.cu, against
-   its plain version): against the plain versions, the total mass, K4's
-   rows bit for bit, and the same timings, the order's apart;
+   (cell_order, the stable radix sort by line of csrc/cic_bin.cu, equal
+   to its plain version bit for bit): against the plain versions, the
+   total mass, K4's rows bit for bit, and the same timings, the order's
+   apart (torch.sort of the line keys its yardstick); then cell_order
+   against its plain version on its edge cases (n = 0, 1, a tile's edge,
+   ties in store order and shuffled, a lattice; one to three digit
+   passes);
 5. golden: tests/fixtures/nbodykit.lua through fastpm_torch.cli.main
    writes 1894 FOF objects at a = 0.6667 and 1668 at a = 1.0 through
-   the device FOF (its neighbour sweep launched), and logs the input
+   the device FOF (fof_link launched), and logs the input
    sigma8 0.815897; the LCDM and ODE broadband series of
    tests/test_torch_broadband.py (64^3, 8 steps) on the card: 16 lines,
    each exact or within one unit of its last printed digit;
@@ -95,10 +99,14 @@ D. the benchlib step at full width (256^3 particles, a 512^3 mesh, box
 E. halos at full width, on the main path's z = 0 state (16.8 M rows, box
    768, ll 0.6): the device FOF's labels bit-equal to the host
    union-find, the device catalog against the host catalog (lengths,
-   minid and ihalo exact; the float columns within atol 1e-4), the
-   neighbour sweep (csrc/fof_link.cu) against neighbor_min_plain on a
-   clustered slab of the state (x < box / 8), bit for bit; the sweep's
-   ms a round, the rounds, and find_halos device against host;
+   minid and ihalo exact; the float columns within atol 1e-4); the
+   labels' steps timed apart (the column ids and sort, the gather,
+   fof_link of csrc/fof_link.cu and its kernels by torch.profiler, the
+   least original index); fof_link against fof_link_plain, bit for bit,
+   on a clustered slab of the state (x < box / 8) and on the slab with
+   4000 rows in one linking cell (whose labels also equal the host's);
+   find_halos on an open box (the slab moved outside the box) against
+   the host; find_halos device against host;
 F. the lightcone goldens: tests/fixtures/lightcone.lua,
    lightcone-healpix.lua and lightcone-rfof.lua through cli.main on the
    card; every golden line of tests/test_golden_lightcone.py is logged
@@ -110,7 +118,7 @@ G. this slice's path at full width: lightcone.lua's physics and
    crossed and written, tile-solve ms per interval, device-FOF ms per
    call, peak memory; the launch counters show the force went through
    the cell order, K3 and K4 (acc, potential, two tidal triples) and
-   every FOF through the neighbour sweep; every HEALPix device pixel
+   every FOF through fof_link; every HEALPix device pixel
    that differs from the float64 host pixel is flagged;
 H. the force modes at the main path's width: phase 7's physics at nc =
    256, boxsize = 768 on a 512^3 force mesh, 5 steps, once each in
@@ -179,14 +187,15 @@ KERNELS = {
                      "fastpm_tpu/ops/readout_pallas.py:371"),
     "merge_pairs": ("fastpm_torch/csrc/bitonic_merge.cu",
                     "fastpm_tpu/ops/sort_pallas.py:92"),
-    # K3's cell order: the counting sort that replaces the sort
+    # K3's cell order: the stable radix sort that replaces the sort
     # make_paint_fn runs before K3's pallas_call
     "cell_order": ("fastpm_torch/csrc/cic_bin.cu",
                    "fastpm_tpu/ops/paint_pallas.py:212"),
-    # the device FOF's neighbour sweep (ops.fof_device.neighbor_min):
-    # XLA code in the JAX package, not a pallas_call
-    "fof_neighbor_min": ("fastpm_torch/csrc/fof_link.cu",
-                         "fastpm_tpu/ops/fof_device.py:103"),
+    # the device FOF (ops.fof_device.fof_link: a column table and one
+    # union-find sweep), which replaces the JAX package's neighbour sweep
+    # and label rounds: XLA code, not a pallas_call
+    "fof_link": ("fastpm_torch/csrc/fof_link.cu",
+                 "fastpm_tpu/ops/fof_device.py:103"),
 }
 HOMED = ("cic_paint_homed", "cic_readout_homed", "cic_paint4",
          "cic_readout4")
@@ -244,8 +253,8 @@ def bound_ms(nbytes, nops):
 def wrapper(name):
     """The wrapper of a kernel of KERNELS."""
     from fastpm_torch.ops import cic, sort, fof_device
-    if name == "fof_neighbor_min":
-        return fof_device.neighbor_min
+    if name == "fof_link":
+        return fof_device.fof_link
     return getattr(sort if name == "merge_pairs" else cic, name)
 
 
@@ -473,8 +482,8 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
                                               err)
 
         # the order the multi-species force computes once and hands to
-        # both: a permutation with the plain version's line at every
-        # position, K3 agrees as before, K4 equals its rows bit for bit
+        # both: the plain version's stable order bit for bit, K3 agrees
+        # as before, K4 equals its rows bit for bit
         orders = [cic.cell_order(x, mesh, inv) for x in xs]
         check_order(kind, xs, orders, mesh, inv)
         err = check_close("K3 cic_paint_into %s, CDM + ncdm, given their "
@@ -561,24 +570,44 @@ def check_kernels_ncdm(dev, nc=256, nmesh=512, box=768.0, every=4,
 
 
 def check_order(label, xs, orders, mesh, inv):
-    """cell_order's kernel against its plain version: each order is a
-    permutation, and the line (base plane * ny + base row) at every
-    position equals the plain version's (rows of one line may come in
-    any order)."""
+    """cell_order's kernel against its plain version: each order equals
+    the plain version's stable sort by line, bit for bit."""
     import torch
     from fastpm_torch.ops import cic
     for x, o in zip(xs, orders):
-        n = x.shape[0]
-        line = cic.cell_key(x, mesh, inv).long() // mesh[2]
-        perm = torch.equal(torch.sort(o.index).values,
-                           torch.arange(n, device=x.device))
-        same = torch.equal(line[o.index],
-                           line[cic.cell_order_plain(x, mesh, inv).index])
-        print("cell_order %s, %d rows: a permutation %s, the plain "
-              "version's line at every position %s" % (label, n, perm,
-                                                       same))
-        if not (perm and same):
+        same = torch.equal(o.index, cic.cell_order_plain(x, mesh, inv).index)
+        print("cell_order %s, %d rows: equal to the plain version %s"
+              % (label, x.shape[0], same))
+        if not same:
             raise SystemExit("cell_order disagrees with its plain version")
+
+
+def check_order_edges(dev, nmesh=512, box=768.0):
+    """cell_order against its plain version, bit for bit, on the edge
+    cases of the radix sort: n = 0, 1 and rows one past a tile (4096)
+    or short of one, rows on a few lines (long runs of ties) in store
+    order and shuffled, a lattice in store order, and meshes of one,
+    two and three digit passes."""
+    import torch
+    from fastpm_torch.ops import cic
+    g = torch.Generator(device=dev).manual_seed(31)
+    q = torch.stack(torch.meshgrid(*[torch.arange(32, device=dev)] * 3,
+                                   indexing="ij"), -1).reshape(-1, 3)
+    lattice = (q.float() + 0.5) * (box / 32)
+    cases = []
+    for count in (0, 1, 4095, 4097, 100003):
+        x = torch.rand((count, 3), generator=g, device=dev) * box
+        ties = x.clone()
+        ties[:, :2] = torch.floor(ties[:, :2] * (3 / box)) * (box / 3)
+        cases += [("uniform", x), ("ties", ties),
+                  ("ties shuffled", ties[torch.randperm(
+                      count, generator=g, device=dev)])]
+    cases.append(("lattice, store order", lattice))
+    for n in (8, 64, nmesh, 1290):
+        mesh, inv = (n,) * 3, (n / box,) * 3
+        for label, x in cases:
+            check_order("%s, %d^3 mesh" % (label, n), [x],
+                        [cic.cell_order(x, mesh, inv)], mesh, inv)
 
 
 def grid_sample_ms(fields, xs, inv, nmesh, reps, slab=None):
@@ -890,13 +919,13 @@ def golden(dev, tmp):
                      src.replace("OUTDIR", out))
     buf = io.StringIO()
     t0 = time.perf_counter()
-    sweeps = wrapper("fof_neighbor_min").launches
+    sweeps = wrapper("fof_link").launches
     with contextlib.redirect_stdout(buf):
         rc = cli.main([conf], device=dev)
     log = buf.getvalue()
-    sweeps = wrapper("fof_neighbor_min").launches - sweeps
+    sweeps = wrapper("fof_link").launches - sweeps
     print("golden: nbodykit.lua (128^3, 256^3 force mesh) ran in %.1f s; "
-          "the device FOF's neighbour sweep launched %d times"
+          "the device FOF (fof_link) launched %d times"
           % (time.perf_counter() - t0, sweeps))
     if sweeps == 0:
         raise SystemExit("golden: the FOF did not run on the device")
@@ -1656,10 +1685,12 @@ def stale_force(solver, pm, reps=5):
     return rows
 
 
-def profile_force(step, top=12):
+def profile_force(step, top=12, label="force profile",
+                  names=("deposit_kernel", "readout_kernel")):
     """Where the force step's device time goes: torch.profiler over two
     steps, device time by kernel name and the device's busy share of
-    the wall time."""
+    the wall time. Returns the device ms a step of each kernel in
+    names."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     step()
@@ -1676,15 +1707,15 @@ def profile_force(step, top=12):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print("force profile: device busy %.2f ms of %.2f ms wall per step "
-          "(%.1f%% idle)" % (busy / 1e3, wall_us / 1e3,
+    print("%s: device busy %.2f ms of %.2f ms wall per step "
+          "(%.1f%% idle)" % (label, busy / 1e3, wall_us / 1e3,
                              100 * (1 - busy / wall_us)))
     for key, us, count in rows[:top]:
-        print("force profile: %8.3f ms %5.1f%% x%d %s"
-              % (us / 1e3, 100 * us / busy, count, key[:90]))
+        print("%s: %8.3f ms %5.1f%% x%d %s"
+              % (label, us / 1e3, 100 * us / busy, count, key[:90]))
     # device ms a step by the port's kernels, for the paths' summaries
     return {name: sum(us for key, us, _ in rows if name in key) / 1e3
-            for name in ("deposit_kernel", "readout_kernel")}
+            for name in names}
 
 
 def halos(dev, store, box, nc, ll_frac=0.2, nmin=20, reps=5):
@@ -1692,37 +1723,42 @@ def halos(dev, store, box, nc, ll_frac=0.2, nmin=20, reps=5):
     state (16.8 M rows, box 768): labels bit-equal to the host
     union-find, the catalog against the host catalog (lengths, minid and
     ihalo exact; the float columns within atol 1e-4, float32 segment
-    sums in another order), the neighbour sweep against its plain
-    version on a clustered slab of the state (x < box / 8), and the
-    times: the kernel a round, the rounds, find_halos device against
-    host. Returns the kernel's row for the JSON line."""
+    sums in another order); the steps of the labels timed apart (the
+    columns and the sort, the gather, fof_link and its kernels, the
+    least original index); fof_link against its plain version, bit for
+    bit, on a clustered slab of the state (x < box / 8) and on the slab
+    with a crowded linking cell, the latter's labels against the host
+    union-find; find_halos on an open box (the slab moved outside the
+    box) against the host; find_halos device against host. Returns the
+    kernel's row for the JSON line."""
     import numpy as np
     import torch
     from fastpm_torch import fof
+    from fastpm_torch.convert import store_from_numpy
     from fastpm_torch.ops import fof_device as fd
 
     ll = ll_frac * box / nc
     p = store.wrap(box)
     x = p.x.contiguous()
     n = x.shape[0]
-    ncell, cs = fd._grid(ll, box)
-    ll2 = ll * ll
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lab_d = fd.fof_labels_device(x, ll, box)
     torch.cuda.synchronize()
-    labels_ms = (time.perf_counter() - t0) * 1e3
-    rounds = fd.fof_labels_device.rounds
+    labels_first_ms = (time.perf_counter() - t0) * 1e3
+    labels_ms = time_ms(lambda: fd.fof_labels_device(x, ll, box), reps)
+    sweeps = fd.fof_labels_device.rounds
     t0 = time.perf_counter()
     lab_h = fof.fof_labels(x.cpu().numpy(), ll, box)
     host_labels_ms = (time.perf_counter() - t0) * 1e3
     ndiff = int((lab_d.cpu().numpy() != lab_h).sum())
     same = ndiff == 0
-    print("halos: %d rows, ll %.3f, %d^3 linking cells: device labels in "
-          "%d rounds, %.1f ms; host union-find %.1f ms; bit-equal %s (%d "
-          "rows differ)" % (n, ll, ncell, rounds, labels_ms, host_labels_ms,
-                            same, ndiff))
+    print("halos: %d rows, ll %.3f: device labels in %d sweep(s), %.3f ms "
+          "(first call %.1f ms, host clock); host union-find %.1f ms; "
+          "bit-equal %s (%d rows differ)"
+          % (n, ll, sweeps, labels_ms, labels_first_ms, host_labels_ms,
+             same, ndiff))
     if not same:
         raise SystemExit("halos: device labels differ from the host "
                          "union-find")
@@ -1752,44 +1788,100 @@ def halos(dev, store, box, nc, ll_frac=0.2, nmin=20, reps=5):
         raise SystemExit("halos: the device catalog differs from the host's")
     del cat_d, ih_d, cat_h, ih_h, lab_h
 
-    # the sweep alone: a round's input, the first labelling
-    cid_s, order = torch.sort(fd._cell_ids(x, ncell, cs), stable=True)
-    x_s = x[order].contiguous()
-    lab0 = torch.arange(n, dtype=torch.int32, device=dev)
-    ms_full = time_ms(lambda: fd.neighbor_min(lab0, x_s, cid_s, ncell, box,
-                                              ll2), reps)
-    del cid_s, order, x_s, lab0
-    # against the plain version on a clustered slab of the state
+    # the labels' steps apart, on the full state
+    ncol = fd._table_grid(ll, box, n)
+    cid = fd._table_ids(x, ncol, box)
+    order = fd._table_order(x, cid)
+    x_s, cid_s = x[order].contiguous(), cid[order]
+    root = fd.fof_link(x_s, cid_s, ncol, box, ll)
+    steps = dict(
+        sort_ms=time_ms(lambda: fd._table_order(
+            x, fd._table_ids(x, ncol, box)), reps),
+        gather_ms=time_ms(lambda: (x[order].contiguous(), cid[order]), reps),
+        fof_link_ms=time_ms(lambda: fd.fof_link(x_s, cid_s, ncol, box, ll),
+                            reps),
+        canonical_ms=time_ms(lambda: fd._canonical(root, order), reps))
+    print("halos: the labels' steps at %d rows (%d^2 columns): %s"
+          % (n, ncol, {k: round(v, 4) for k, v in steps.items()}))
+    link_kernels = profile_force(
+        lambda: fd.fof_link(x_s, cid_s, ncol, box, ll), top=6,
+        label="halos fof_link profile",
+        names=("fill_kernel", "gap_kernel", "link_kernel", "root_kernel"))
+    del cid, order, x_s, cid_s, root
+
+    def against_plain(xx, label, host=False):
+        """fof_link and its plain version on xx, bit for bit; the labels
+        against the host union-find if host."""
+        nn = xx.shape[0]
+        nc_ = fd._table_grid(ll, box, nn)
+        ci = fd._table_ids(xx, nc_, box)
+        od = fd._table_order(xx, ci)
+        xs_, cs_ = xx[od].contiguous(), ci[od]
+        got = fd.fof_link(xs_, cs_, nc_, box, ll)
+        want = fd.fof_link_plain(xs_, cs_, nc_, box, ll)
+        eq = torch.equal(got, want)
+        ms = time_ms(lambda: fd.fof_link(xs_, cs_, nc_, box, ll), reps)
+        plain = time_ms(lambda: fd.fof_link_plain(xs_, cs_, nc_, box, ll), 1)
+        hq = True
+        if host:
+            hq = np.array_equal(fd._canonical(got, od).cpu().numpy(),
+                                fof.fof_labels(xx.cpu().numpy(), ll, box))
+        print("halos: fof_link on %s (%d rows, %d^2 columns) against "
+              "fof_link_plain: equal %s%s; kernel_ms %.4f plain_ms %.2f"
+              % (label, nn, nc_, eq,
+                 ", labels equal to the host union-find %s" % hq
+                 if host else "", ms, plain))
+        if not (eq and hq):
+            raise SystemExit("fof_link disagrees with its plain version "
+                             "on %s" % label)
+        return ms, plain
+
+    # a clustered slab of the state, and the slab with 4000 rows inside
+    # one linking cell (a cube of half the linking length; the table's
+    # mean is about ten rows a column)
     xs = x[x[:, 0] < box / 8].contiguous()
     ns = xs.shape[0]
-    cid_s, order = torch.sort(fd._cell_ids(xs, ncell, cs), stable=True)
-    x_s = xs[order].contiguous()
-    g = torch.Generator(device=dev).manual_seed(23)
-    lab = torch.randperm(ns, generator=g, device=dev).to(torch.int32)
-    rmax = fd.max_cell_occupancy(xs, ll, box)
-    got = fd.neighbor_min(lab, x_s, cid_s, ncell, box, ll2)
-    want = fd.neighbor_min_plain(lab, x_s, cid_s, ncell, box, ll2, rmax)
-    same = torch.equal(got, want)
-    ms = time_ms(lambda: fd.neighbor_min(lab, x_s, cid_s, ncell, box, ll2),
-                 reps)
-    plain_ms = time_ms(lambda: fd.neighbor_min_plain(
-        lab, x_s, cid_s, ncell, box, ll2, rmax), 1)
-    print("halos: fof_neighbor_min on the clustered slab (%d rows, largest "
-          "cell %d rows) against neighbor_min_plain: equal %s; kernel_ms "
-          "%.4f plain_ms %.2f; at full width %.4f ms a round"
-          % (ns, rmax, same, ms, plain_ms, ms_full))
-    if not same:
-        raise SystemExit("fof_neighbor_min disagrees with its plain version")
-    # bytes: each row's position and int32 label read once, its new
-    # label written once (20 B a row); the pair tests read neighbours'
-    # rows again from cache
-    return {"fof_neighbor_min": dict(
+    ms, plain_ms = against_plain(xs, "the clustered slab")
+    g = torch.Generator(device=dev).manual_seed(37)
+    # linking cell 67 of 1280 spans [40.2, 40.8) on each axis
+    crowd = 40.25 + torch.rand((4000, 3), generator=g, device=dev) * (0.5 * ll)
+    against_plain(torch.cat([xs, crowd]), "the slab with a crowded cell",
+                  host=True)
+    del crowd
+
+    # an open box: the slab moved far outside [0, box) (a lightcone
+    # slice), device against host
+    v = (p.v if p.v is not None else torch.zeros_like(p.x))[
+        p.x[:, 0] < box / 8]
+    xo = xs - 500.0
+    po = store_from_numpy(xo.cpu().numpy(), v.cpu().numpy(),
+                          np.arange(ns), device=dev, M0=1.0)
+    cat_d, ih_d = fof.find_halos(po, ll, box, nmin=nmin, periodic=False,
+                                 backend="device")
+    cat_h, ih_h = fof.find_halos(po, ll, box, nmin=nmin, periodic=False,
+                                 backend="host")
+    ok = (cat_d.nhalo == cat_h.nhalo > 0
+          and np.array_equal(cat_d.length, cat_h.length)
+          and np.array_equal(cat_d.minid, cat_h.minid)
+          and np.array_equal(ih_d.cpu().numpy(), ih_h))
+    print("halos: open box (%d rows outside the box): %d halos, lengths / "
+          "minid / ihalo exact against the host %s" % (ns, cat_d.nhalo, ok))
+    if not ok:
+        raise SystemExit("halos: the open-box catalog differs from the "
+                         "host's")
+    del xo, po, v, cat_d, ih_d, cat_h, ih_h
+
+    # bytes: the sorted columns (4 B) and positions (12 B) read once, the
+    # roots (4 B) written once: 20 B a row; the pair tests read the
+    # neighbours' rows again from cache
+    return {"fof_link": dict(
         err=0.0, ms=ms, plain_ms=plain_ms, bound=bound_ms(20 * ns, 0),
-        rows=ns, largest_cell=rmax, ms_full_round=ms_full,
-        bound_ms_full_round=bound_ms(20 * n, 0)[0], rows_full=n,
-        rounds_full=rounds, labels_ms_full=labels_ms,
-        find_halos_device_ms=dev_ms, find_halos_host_ms=host_ms,
-        library_ms=None)}
+        rows=ns, ms_full=steps["fof_link_ms"],
+        bound_ms_full=bound_ms(20 * n, 0)[0], rows_full=n,
+        kernels_ms_full=link_kernels, sweeps_full=sweeps,
+        labels_ms_full=labels_ms, labels_first_call_ms_full=labels_first_ms,
+        labels_steps_ms_full=steps, find_halos_device_ms=dev_ms,
+        find_halos_host_ms=host_ms, library_ms=None)}
 
 
 LIGHTCONE_GOLDENS = {
@@ -1849,7 +1941,7 @@ def lightcone_path(dev, tmp, nc=256, box=2048.0):
     4^3 tiles, dh_factor 0.1, the potential and tidal tensor, write_fof
     at z = 0, HEALPix maps at nside 32) through run_fastpm. The launch
     counters show the force went through the cell order, K3 and K4 and
-    every FOF through the neighbour sweep; every HEALPix device pixel
+    every FOF through fof_link; every HEALPix device pixel
     that differs from the float64 host pixel is flagged. Returns the
     launch counts of the run."""
     import numpy as np
@@ -1940,7 +2032,7 @@ def lightcone_path(dev, tmp, nc=256, box=2048.0):
     if (launches["cell_order"] != nstep
             or launches["cic_paint_into"] != nstep
             or launches["cic_readout3"] != 4 * nstep
-            or launches["fof_neighbor_min"] == 0
+            or launches["fof_link"] == 0
             or any(launches[k] for k in want_zero)):
         raise SystemExit("lightcone path did not run through its kernels: "
                          "%s" % launches)
@@ -2425,6 +2517,7 @@ def main():
 
     rows = check_kernels(dev)
     rows.update(check_kernels_ncdm(dev))
+    check_order_edges(dev)
     rows.update(check_kernels_homed(dev))
     check_readout_edges(dev, rows)
     check_paint4_edges(dev, rows)
@@ -2463,7 +2556,7 @@ def main():
     for name in HOMED:
         launches[name] = homed_launches[name]
     launches["merge_pairs"] = bench_launches["sb32768"]["merge_pairs"]
-    launches["fof_neighbor_min"] = lc_launches["fof_neighbor_min"]
+    launches["fof_link"] = lc_launches["fof_link"]
     rows["cic_paint4"]["launches_periodic"] = (
         bench_launches["paint4"]["cic_paint4"])
 

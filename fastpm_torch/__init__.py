@@ -4,7 +4,7 @@ A FastPM particle-mesh N-body framework for one NVIDIA GPU, or several
 ranks of torch.distributed in x-slabs (fastpm_torch/parallel/): plain
 torch for the array work, cuFFT through torch.fft, and hand-written CUDA
 kernels (fastpm_torch/csrc/) for the CIC paint and readout, the sort's
-merge and the FOF's neighbour sweep. It imports
+merge and the device FOF. It imports
 neither jax nor fastpm_tpu; the JAX package stays the reference its
 tests hold it against.
 

@@ -18,7 +18,7 @@
 // threads scatter over the whole canvas (537 MB at 512^3, ten times the
 // L2), and most of them miss L2. So K3 keeps the TPU kernel's order of
 // work: its wrapper (ops/cic.py:cic_paint_into) puts the rows in cell
-// order first (csrc/cic_bin.cu's counting sort by line), or takes the
+// order first (csrc/cic_bin.cu's stable radix sort by line), or takes the
 // order the caller already has (the multi-species force computes it
 // once per species and reads out in it too). This kernel then runs K1's
 // tiled deposit (cic_deposit.cuh) on the rows in that order, reading

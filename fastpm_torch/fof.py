@@ -2,9 +2,9 @@
 (reference: libfastpm/fof.c, rfof.c).
 
 Port of fastpm_tpu/fof.py. find_halos takes one of two paths:
-- the device path (find_halos_device, for rows on the card): label
-  propagation with the neighbour sweep of csrc/fof_link.cu and
-  segment-sum aggregates (ops/fof_device.py); only the nh-row catalog
+- the device path (find_halos_device, for rows on the card): the cell
+  table and one union-find sweep of csrc/fof_link.cu, and segment-sum
+  aggregates (ops/fof_device.py); only the nh-row catalog
   crosses to the host, the per-particle halo rows stay on the card;
 - the host path (for rows on the CPU, the test oracle): the rows are
   gathered and labelled by the exact grid-hash union-find in native code
@@ -117,9 +117,9 @@ def _empty_catalog() -> HaloCatalog:
 
 def find_halos_device(p: Store, linking_length: float, boxsize: float,
                       nmin: int = 20, periodic: bool = True):
-    """FOF and the halo catalog on the rows' device: label propagation
-    (ops/fof_device.fof_labels_device_auto; on the card each round
-    launches the neighbour sweep of csrc/fof_link.cu) and segment-sum
+    """FOF and the halo catalog on the rows' device: the labels
+    (ops/fof_device.fof_labels_device_auto; on the card one launch of
+    csrc/fof_link.cu, the label rounds on the CPU) and segment-sum
     aggregates. Only the compacted nh-row catalog crosses to the host
     (reference contract: libfastpm/fof.c:289-420 iterative merge,
     :573-757 MINID-rendezvous attributes).

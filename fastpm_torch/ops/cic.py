@@ -15,8 +15,8 @@ PyTorch versions, and the cell sort that prepares the order-free force.
   column, added into a canvas the caller owns (replaces
   paint_pallas.py:_paint_kernel): K1's tiled deposit reads the rows in
   cell order, a CellOrder the caller has or one of its own (cell_order,
-  the counting sort of csrc/cic_bin.cu that replaces the TPU factory's
-  sort);
+  the stable radix sort of csrc/cic_bin.cu that replaces the TPU
+  factory's sort);
 - K4 cic_readout3: the three force fields at particles in any order,
   rows in the caller's order (replaces readout_pallas.py:_readout_kernel;
   it launches K2's kernel with three fields, under its own counter);
@@ -65,6 +65,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .cudalib import get_lib as _get_lib
 from .cudalib import launch as _launch
 
 __all__ = ["Slab", "CellOrder", "cell_key", "sort_by_cell", "cell_order",
@@ -80,6 +81,9 @@ __all__ = ["Slab", "CellOrder", "cell_key", "sort_by_cell", "cell_order",
 # the cell key is int32: nx * ny * nz must stay below 2^31, which holds
 # up to a 1290^3 mesh
 _MAX_CELLS = 2 ** 31
+# cell_order's radix sort: digits of at most 9 bits (csrc/cic_bin.cu
+# MAX_BITS)
+_MAX_DIGIT_BITS = 9
 
 
 class Slab(NamedTuple):
@@ -152,26 +156,38 @@ def cell_order_plain(x: torch.Tensor, nmesh, inv_cell) -> CellOrder:
                                 stable=True).indices)
 
 
+def _radix_plan(lines: int):
+    """(bits a pass, passes) of cell_order's LSD radix sort of line keys
+    below `lines`: the fewest passes of at most _MAX_DIGIT_BITS bits
+    that hold every key, the bits spread evenly over them."""
+    need = max(1, (int(lines) - 1).bit_length())
+    passes = -(-need // _MAX_DIGIT_BITS)
+    return -(-need // passes), passes
+
+
 def cell_order(x: torch.Tensor, nmesh, inv_cell) -> CellOrder:
-    """The CellOrder of positions x (N, 3) on a mesh. On CUDA this is a
-    counting sort by line (csrc/cic_bin.cu: count, torch.cumsum, scatter),
-    where the rows of one line come in no fixed order; on the CPU the
-    plain version's stable sort."""
+    """The CellOrder of positions x (N, 3) on a mesh: the rows sorted
+    stably by line. On CUDA this is the radix sort of csrc/cic_bin.cu,
+    equal to the plain version bit for bit; on the CPU the plain
+    version."""
     _check_positions(x)
     nmesh = tuple(int(n) for n in nmesh)
     _check_mesh(nmesh)
     if x.device.type == "cpu":
         return cell_order_plain(x, nmesh, inv_cell)
+    n = x.shape[0]
+    if n >= 2 ** 30:
+        raise ValueError("cell_order: the radix sort takes N < 2^30 rows")
     x = x.contiguous()
-    head = (x.data_ptr(), x.shape[0], *nmesh, *_inv32(inv_cell))
-    counts = torch.empty(nmesh[0] * nmesh[1], dtype=torch.int32,
-                         device=x.device)
-    _launch("fastpm_cic_bin_count", *head, counts.data_ptr(),
-            device=x.device)
-    cursor = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    order = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
-    _launch("fastpm_cic_bin_scatter", *head, cursor.data_ptr(),
-            order.data_ptr(), device=x.device)
+    bits, passes = _radix_plan(nmesh[0] * nmesh[1])
+    nbytes = _get_lib().fastpm_cic_order_workspace(n, bits, passes)
+    if nbytes < 0:
+        raise ValueError(f"cell_order: mesh {nmesh} needs a digit plan "
+                         "the radix sort does not take")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    order = torch.empty(n, dtype=torch.int64, device=x.device)
+    _launch("fastpm_cic_order", x.data_ptr(), n, *nmesh, *_inv32(inv_cell),
+            bits, passes, work.data_ptr(), order.data_ptr(), device=x.device)
     cell_order.launches += 1
     return CellOrder(order)
 

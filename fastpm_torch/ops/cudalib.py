@@ -95,9 +95,8 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
             ("fastpm_cic_paint", [F, P, P]),
             # mass, masses, order, canvas
             ("fastpm_cic_paint_into", [F, P, P, P, P]),
-            ("fastpm_cic_bin_count", [P, P]),
-            # cursor, order
-            ("fastpm_cic_bin_scatter", [P, P, P]),
+            # bits, passes, workspace, order
+            ("fastpm_cic_order", [I, I, P, P, P]),
             ("fastpm_cic_paint_homed", [I, I, F, P, P, P, P]),
             ("fastpm_cic_paint4", [I, I, F, P, P, P, P]),
             # two_planes, f0, f1, f2, k, out
@@ -109,9 +108,12 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
     # device pointers
     lib.fastpm_bitonic_merge.restype = I
     lib.fastpm_bitonic_merge.argtypes = [P, P, I, L, I, P]
-    # (x, cid, lab, n, ncell, L, ll2, out, stream)
-    lib.fastpm_fof_neighbor_min.restype = I
-    lib.fastpm_fof_neighbor_min.argtypes = [P, P, P, L, L, D, D, P, P]
+    # (n, bits, passes): workspace bytes of fastpm_cic_order
+    lib.fastpm_cic_order_workspace.restype = L
+    lib.fastpm_cic_order_workspace.argtypes = [L, I, I]
+    # (x, cid, n, ncol, inv, L, ll2, reach, outside, table, out, stream)
+    lib.fastpm_fof_link.restype = I
+    lib.fastpm_fof_link.argtypes = [P, P, L, I, F, D, D, D, P, P, P, P]
     _lib = lib
     return lib
 

@@ -237,7 +237,7 @@ def test_readout_edges_on_cuda():
 @pytest.mark.cuda
 def test_paint_edges_on_cuda():
     """K1, homed K1, K3 (with and without a cell order) and K3's cell
-    order (csrc/cic_bin.cu) against their
+    order (csrc/cic_bin.cu, equal to its plain version) against their
     plain versions on the edge cases of fastpm_torch/ops/readout_cases.py
     at a 64^3 mesh: in cell order (the tile path), in random order (the
     direct path), across the x face (a block's rows straddle two planes
@@ -262,15 +262,12 @@ def test_paint_edges_on_cuda():
                                    rtol=1e-5, atol=2e-6)
         assert float(got.double().sum()) == pytest.approx(2.0 * count,
                                                           rel=1e-6), kind
-        # K3's cell order, the counting sort by line, against its plain
-        # version: a permutation with the same line at every position
+        # K3's cell order, the stable radix sort by line, equal to its
+        # plain version (the stable sort) bit for bit
         perm = torch.randperm(count, device=dev)
-        order = cic.cell_order(x[perm], nmesh, inv).index
-        line = cic.cell_key(x[perm], nmesh, inv).long() // n
-        assert torch.equal(torch.sort(order).values,
-                           torch.arange(count, device=dev)), kind
-        assert torch.equal(line[order], line[cic.cell_order_plain(
-            x[perm], nmesh, inv).index]), kind
+        for xx in (x, x[perm]):
+            assert torch.equal(cic.cell_order(xx, nmesh, inv).index,
+                               cic.cell_order_plain(xx, nmesh, inv).index), kind
         # K3 on the rows, shuffled (it orders them itself), and shuffled
         # with their cell order given
         for mass in (2.0, masses):
@@ -297,6 +294,32 @@ def test_paint_edges_on_cuda():
                      if torch.is_tensor(mass) else mass * int(valid.sum()))
             assert float(got.double().sum()) == pytest.approx(total,
                                                               rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_cell_order_on_cuda_matches_plain():
+    """The radix sort (csrc/cic_bin.cu) equal to its plain version bit
+    for bit: n = 0, 1 and rows past a tile's edge; rows on a few lines
+    (long runs of ties) in store order and shuffled; meshes of one, two
+    and three digit passes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    for n, box in ((4, 8.0), (32, 64.0), (512, 768.0), (1290, 1290.0)):
+        nmesh, inv = (n,) * 3, (n / box,) * 3
+        for count in (0, 1, 2, 4095, 4096, 4097, 70001):
+            x = torch.rand((count, 3), generator=g, device=dev) * box
+            ties = x.clone()
+            ties[:, :2] = torch.floor(ties[:, :2] * (3 / box)) * (box / 3)
+            for xx in (x, ties, ties[torch.randperm(count, generator=g,
+                                                    device=dev)]):
+                before = cic.cell_order.launches
+                got = cic.cell_order(xx, nmesh, inv).index
+                assert cic.cell_order.launches == before + 1
+                assert torch.equal(
+                    got, cic.cell_order_plain(xx, nmesh, inv).index), (n,
+                                                                       count)
 
 
 @pytest.mark.cuda

@@ -13,10 +13,16 @@ rows a cell) tests/test_fof_device.py already holds the JAX labels
 equal to the host union-find on the same inputs. Catalogs: lengths, minid and
 ihalo exact, the float columns within atol 1e-4 (float32 segment sums in
 another order; the JAX package's own tolerance, tests/test_fof_device.py).
-The CUDA case holds the kernel (csrc/fof_link.cu) against its plain
-version on the card and skips without one; it needs no JAX, so on a GPU
-machine the file runs as `python -m pytest --noconftest
-tests/test_torch_fof_device.py -m cuda`.
+The card's path (fof_labels_table: a column table and one union-find sweep,
+fof_link) runs here through its plain version (fof_link_plain): its table
+against a brute-force count, and its labels against the host union-find
+on CASES (whose JAX labels test_labels_match_jax_and_host holds equal to
+the host's), a crowded cell, rows on all six faces of the box and an open
+box embedded as find_halos_device embeds it. The CUDA cases hold the
+kernel (csrc/fof_link.cu) against its plain version on the card, bit for
+bit, and skip without one; they need no JAX, so on a GPU machine the file
+runs as `python -m pytest --noconftest tests/test_torch_fof_device.py -m
+cuda`.
 """
 
 import numpy as np
@@ -79,6 +85,43 @@ CASES = {
 }
 
 
+def _crowded():
+    """3000 rows inside one linking cell (a cube of half the linking
+    length), far above the table grid's mean occupancy, in a uniform
+    background of 2000."""
+    rng = np.random.RandomState(11)
+    box, ll = 32.0, 0.65
+    # linking cell 30 of 49 on each axis spans [19.59, 20.24)
+    x = np.concatenate([19.7 + rng.uniform(0, 0.5 * ll, (3000, 3)),
+                        rng.uniform(0, box, (2000, 3))])
+    return x.astype(np.float32), ll, box
+
+
+def _faces():
+    """Rows on all six faces of the box: on x, y or z = 0, just below
+    the box size and at it (a float32 wrap gives it), jittered by a
+    fraction of the linking length, so that groups link across each
+    periodic face; and a uniform background."""
+    rng = np.random.RandomState(12)
+    box, ll = 16.0, 0.4
+    below = np.nextafter(np.float32(box), np.float32(0))
+    parts = [rng.uniform(0, box, (1500, 3)).astype(np.float32)]
+    for axis in range(3):
+        for at in (0.0, below, box):
+            p = rng.uniform(0, box, (120, 3)).astype(np.float32)
+            p[:, axis] = at
+            p[:60, axis] += (rng.uniform(-0.3, 0.3, 60) * ll).astype(
+                np.float32)
+            parts.append(p)
+    x = np.concatenate(parts)
+    x = np.where(x < 0, x + np.float32(box), x)
+    return np.where(x > box, x - np.float32(box), x).astype(np.float32), ll, box
+
+
+# the card path's cases: CASES, a crowded cell, rows on the six faces
+TABLE_CASES = dict(CASES, crowded=_crowded, faces=_faces)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_labels_match_jax_and_host(case):
     import jax.numpy as jnp
@@ -123,6 +166,74 @@ def test_neighbor_min_plain_matches_brute_force():
     link = r2 < ll * ll
     want = np.where(link, lab.numpy()[None, :], len(x)).min(axis=1)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cell_table_plain_matches_brute_force():
+    """The plain table: entry c the number of rows with a smaller column
+    id, the last one n; empty columns, a crowded one and the last one
+    included."""
+    rng = np.random.RandomState(6)
+    ncells = 343
+    ids = np.concatenate([rng.randint(0, ncells, 500), np.full(60, 17),
+                          [ncells - 1, 0]])
+    cid_s = torch.from_numpy(np.sort(ids).astype(np.int32))
+    got = tfd.cell_table_plain(cid_s, ncells).numpy()
+    want = np.array([(ids < c).sum() for c in range(ncells + 1)])
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32 and got[-1] == len(ids)
+    assert tfd.cell_table_plain(cid_s[:0], 8).tolist() == [0] * 9
+
+
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_table_labels_match_host(case):
+    """The card's path through its plain version (fof_labels_table on
+    the CPU: the column grid, the sort by column and z, fof_link_plain)
+    against the host union-find, and fof_link's roots the least sorted
+    row of each group."""
+    from fastpm_tpu.fof import fof_labels
+    x, ll, box = TABLE_CASES[case]()
+    host = fof_labels(x, ll, box)
+    xt = torch.from_numpy(x)
+    np.testing.assert_array_equal(
+        tfd.fof_labels_table(xt, ll, box).numpy(), host)
+    ncol = tfd._table_grid(ll, box, len(x))
+    assert ncol ** 2 <= len(x)
+    cid = tfd._table_ids(xt, ncol, box)
+    order = tfd._table_order(xt, cid)
+    # rows by column, then z
+    key = cid[order].double() * 4 * box + xt[order, 2].double()
+    assert bool((key[1:] >= key[:-1]).all())
+    root = tfd.fof_link(xt[order], cid[order], ncol, box, ll).numpy()
+    # each root is the least sorted row of its group
+    assert (root <= np.arange(len(x))).all()
+    assert (root[root] == root).all()
+    if case == "crowded":
+        assert len(np.unique(host[:3000])) == 1
+        assert tfd.max_cell_occupancy(xt, ll, box) >= 3000
+    if case == "faces":
+        # groups that link across a periodic face
+        wrapped = [np.ptp(x[host == g], axis=0).max() > box / 2
+                   for g in np.unique(host)]
+        assert any(wrapped)
+
+
+def test_table_labels_open_box():
+    """An open box (a lightcone slice: clumps spread far outside any
+    box) embedded as find_halos_device embeds it: the table path's
+    labels equal the host union-find's with periodic=False."""
+    from fastpm_tpu.fof import fof_labels
+    rng = np.random.RandomState(8)
+    ll = 0.6
+    centers = rng.uniform(-50, 90, size=(8, 3))
+    x = np.concatenate([c + rng.standard_normal((150, 3)) * 0.8
+                        for c in centers]).astype(np.float32)
+    host = fof_labels(x, ll, 1.0, periodic=False)
+    xt = torch.from_numpy(x)
+    lo = xt.min(dim=0).values
+    L = float((xt - lo).max()) + 4.0 * ll
+    got = tfd.fof_labels_table(xt - lo + float(np.float32(ll)), ll, L)
+    np.testing.assert_array_equal(got.numpy(), host)
+    assert len(np.unique(host)) < len(x) // 2
 
 
 def _catalogs_equal(got, want, ih_got, ih_want, atol=1e-4):
@@ -209,26 +320,57 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_neighbor_min_kernel_matches_plain(cuda_device, case):
-    """The kernel against its plain version, bit for bit, from a
-    scrambled labelling, and the whole label propagation on the card
-    against the CPU's."""
-    x, ll, box = CASES[case]()
-    ncell, cs = tfd._grid(ll, box)
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_fof_link_kernel_matches_plain(cuda_device, case):
+    """The kernel (the column table, one union-find sweep, the roots)
+    against its plain version, bit for bit, and the labels on the card
+    against the CPU's label rounds and the host union-find."""
+    from fastpm_torch.fof import fof_labels
+    x, ll, box = TABLE_CASES[case]()
     xt = torch.from_numpy(x).to(cuda_device)
-    cid_s, order = torch.sort(tfd._cell_ids(xt, ncell, cs), stable=True)
-    x_s = xt[order].contiguous()
-    g = torch.Generator(device=cuda_device).manual_seed(5)
-    lab = torch.randperm(len(x), generator=g,
-                         device=cuda_device).to(torch.int32)
-    ll2 = ll * ll
-    rmax = tfd.max_cell_occupancy(xt, ll, box)
-    before = tfd.neighbor_min.launches
-    got = tfd.neighbor_min(lab, x_s, cid_s, ncell, box, ll2)
-    assert tfd.neighbor_min.launches == before + 1
-    want = tfd.neighbor_min_plain(lab, x_s, cid_s, ncell, box, ll2, rmax)
+    ncol = tfd._table_grid(ll, box, len(x))
+    cid = tfd._table_ids(xt, ncol, box)
+    order = tfd._table_order(xt, cid)
+    x_s, cid_s = xt[order].contiguous(), cid[order]
+    before = tfd.fof_link.launches
+    got = tfd.fof_link(x_s, cid_s, ncol, box, ll)
+    torch.cuda.synchronize()
+    assert tfd.fof_link.launches == before + 1
+    want = tfd.fof_link_plain(x_s, cid_s, ncol, box, ll)
     assert torch.equal(got, want)
+    lab = tfd.fof_labels_device(xt, ll, box).cpu().numpy()
+    assert tfd.fof_labels_device.rounds == 1
     np.testing.assert_array_equal(
-        tfd.fof_labels_device(xt, ll, box).cpu().numpy(),
-        tfd.fof_labels_device_auto(xt.cpu(), ll, box).numpy())
+        lab, tfd.fof_labels_device_auto(xt.cpu(), ll, box).numpy())
+    np.testing.assert_array_equal(lab, fof_labels(x, ll, box))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [True, False])
+def test_find_halos_on_cuda_matches_host(cuda_device, periodic):
+    """find_halos on the card (the table path) against the host path:
+    lengths, minid and ihalo exact, the float columns within atol
+    1e-4; periodic, and an open box of clumps far outside any box."""
+    rng = np.random.RandomState(7)
+    if periodic:
+        box, ll = 32.0, 0.65
+        x = clumps(4000, box, seed=5, nclump=24, spread=0.04)
+    else:
+        box, ll = 1.0, 0.6
+        centers = rng.uniform(-50, 90, size=(8, 3))
+        x = np.concatenate([c + rng.standard_normal((100, 3))
+                            for c in centers]).astype(np.float32)
+    n = len(x)
+    v = rng.standard_normal((n, 3)).astype(np.float32)
+    ids = np.arange(n, dtype=np.uint32)
+    rng.shuffle(ids)
+    p = store_from_numpy(x, v, ids, M0=1.0)
+    cat_h, ih_h = tfof.find_halos(p, ll, box, nmin=20, periodic=periodic,
+                                  backend="host")
+    before = tfd.fof_link.launches
+    cat_d, ih_d = tfof.find_halos(
+        store_from_numpy(x, v, ids, device=cuda_device, M0=1.0), ll, box,
+        nmin=20, periodic=periodic, backend="device")
+    assert tfd.fof_link.launches == before + 1
+    assert cat_h.nhalo > 3
+    _catalogs_equal(cat_d, cat_h, ih_d.cpu().numpy(), ih_h)

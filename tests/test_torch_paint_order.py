@@ -6,8 +6,9 @@ is checked first) deposits the rows in it (on the CPU: gathers the
 positions and the mass column into it); cic_readout3 with one reads the
 rows in it and scatters the values back. On the CPU the plain versions
 serve, so these tests run the gathers and the scatter back, and
-cell_order's plain version (the card's counting sort by line is held
-against it in tests/test_torch_cic.py): the deposit agrees with the
+cell_order's plain version (the card's stable radix sort by line is held
+equal to it in tests/test_torch_cic.py), stable on ties, and the digit
+plan of that radix sort, emulated pass by pass: the deposit agrees with the
 unsorted plain deposit within the paints' atol 2e-6 + rtol 1e-5 (f32
 sums in another order) and conserves the mass, and the readout equals
 the unordered readout bit for bit (a row's value does not depend on the
@@ -85,8 +86,7 @@ def test_readout3_with_order_keeps_rows(kind):
 def test_cell_order_plain_groups_by_line(kind):
     """cell_order's plain version is the stable sort by the line (base
     plane, base row) of each row's cell: a permutation, lines ascending,
-    rows of one line in their given order (the card's counting sort
-    leaves that last order free)."""
+    rows of one line in their given order."""
     x, _, _ = _inputs(kind)
     nmesh, inv = cases.mesh(N, BOX)
     order = cic.cell_order(x, nmesh, inv)
@@ -159,3 +159,43 @@ def test_shared_order_matches_jax_prepared(jax_prepared_pair, kind):
                             jpm.InvCellSize, order)
     np.testing.assert_allclose(vals.numpy(), np.asarray(jvals),
                                **PAINT_TOL)
+
+
+@pytest.mark.parametrize("count", [0, 1, 2, 4097])
+def test_cell_order_plain_stable_on_ties(count):
+    """Rows on a few lines only (every row ties with many others), in
+    store order: the plain order keeps the rows of a line in their given
+    order, as torch.sort(stable=True) and jax.lax.sort do; n = 0, 1 and a
+    ragged 4097 (one row past the radix sort's tile) included."""
+    rng = np.random.default_rng(count)
+    nmesh, inv = cases.mesh(N, BOX)
+    lines = rng.integers(0, 3, (count, 2)) * (BOX / N) * 7
+    z = rng.uniform(0, BOX, (count, 1))
+    x = torch.from_numpy(np.concatenate([lines + 0.3, z], axis=1)
+                         .astype(np.float32))
+    idx = cic.cell_order(x, nmesh, inv).index
+    line = (cic.cell_key(x, nmesh, inv).long() // N).numpy()
+    np.testing.assert_array_equal(
+        idx.numpy(), np.lexsort((np.arange(count), line)))
+    assert len(np.unique(line)) <= 9
+
+
+@pytest.mark.parametrize("mesh", [(1, 1), (2, 3), (32, 32), (64, 48),
+                                  (512, 512), (1290, 1290)])
+def test_radix_plan_sorts_like_plain(mesh):
+    """The digit plan of the card's radix sort (csrc/cic_bin.cu): at
+    most 9 bits a pass, the passes' bits hold every line; the stable
+    sort by each digit in turn, least first (what each pass does), gives
+    the plain version's order, ties included."""
+    nx, ny = mesh
+    bits, passes = cic._radix_plan(nx * ny)
+    assert 1 <= bits <= 9 and passes <= 4
+    assert nx * ny <= 2 ** (bits * passes)
+    assert passes == max(1, -(-((nx * ny - 1).bit_length()) // 9))
+    rng = np.random.default_rng(nx)
+    line = torch.from_numpy(rng.integers(0, nx * ny, 3000))
+    idx = torch.arange(3000)
+    for p in range(passes):
+        digit = (line[idx] >> (p * bits)) & ((1 << bits) - 1)
+        idx = idx[torch.sort(digit, stable=True).indices]
+    assert torch.equal(idx, torch.sort(line, stable=True).indices)
