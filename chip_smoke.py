@@ -139,12 +139,31 @@ I. the neutrino linear response: tests/test_lra.py's LRA_RUN physics at
 J. the 10 cross-mode broadband lines of tests/test_modes.py (64^3, 8
    steps) on the card, each exact or within one unit of its last printed
    digit; fNL-local and two peak constraints through cli.prepare_deltak
-   at 64^3 on the card against the CPU, and timed at 256^3;
+   at 64^3 on the card against the CPU, and timed at 256^3; then the
+   card's pm and za runs fed the LPT columns the port computed on the
+   CPU, each line printed beside the CPU's and the card's own (the
+   witness of where the one-unit lines come from);
+K. the CLI's files, flags and tools at the main path's width (phase 7's
+   physics, 256^3 on 512^3, 5 steps): run 1 through cli.main with -T 1
+   -f -m <bound> --profile <dir> writes the white noise, the linear field
+   in k and real space, the nonlinear density (K3 and the cell order), a
+   RunPB snapshot and the FOF catalog (fof_link); the files' attributes,
+   the trace's kernel names, the memory lines and the clocks' table are
+   checked; -m below the run's bytes in use ends in MemoryBoundExceeded;
+   run 2 from run 1's LinearDensityK agrees with it by id; the tools fof
+   (its catalog equal to run 1's), power and paint at 512^3, halobias and
+   comparehalos (the cross-correlation of equal catalogs 1) on run 1's
+   z = 0 snapshot, each with its wall time, peak memory and launches;
+   read_runpbic at 64^3 on the card against the CPU; the main force step
+   with the clocks on the card (prof.enable_sync: CUDA events) against
+   the step without them, the least block of 10 steps of each over 6
+   alternated rounds;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
 import contextlib
 import gc
+import glob
 import io
 import json
 import os
@@ -2497,6 +2516,448 @@ def goldens_and_ics(dev, nc=64, nc_full=256):
                              % case)
 
 
+def run_mode_fed(mode, device, cols=None):
+    """tests/test_torch_modes.py's cross-mode run of one force mode on
+    `device`, with the CDM columns x, v (and dx1, dx2 where the mode
+    keeps them) right after setup_lpt replaced by `cols` when given.
+    Returns (its Log, those columns on the host, the z = 0 Sigma8 of its
+    last line unrounded)."""
+    import numpy as np
+    import torch
+    from fastpm_torch import events as ev, ic
+    from fastpm_torch.cosmology import Cosmology
+    from fastpm_torch.diagnostics import Log, attach_standard_handlers
+    from fastpm_torch.powerspectrum import FuncK, measure_power, sigma_tophat
+    from fastpm_torch.solver import Solver, SolverConfig
+    modes = load_test_module("test_torch_modes")
+    cosmo = Cosmology(**modes.COSMO)
+    cfg = SolverConfig(nc=64, boxsize=512.0,
+                       time_step=list(np.linspace(0.1, 1, 8)),
+                       force_mode=mode, pm_nc_factor=1, lpt_nc_factor=1)
+    s = Solver(cfg, cosmo, device=device)
+    log = attach_standard_handlers(s, Log(echo=False))
+    sigma8 = []
+
+    def on_force(event):
+        # the line's Sigma8 (diagnostics.write_ps) before its %g
+        ps = measure_power(event.pm, event.delta_k, ring=event.solver.ring)
+        sigma8.append(sigma_tophat(ps.as_funck(), 8.0)
+                      / cosmo.growth_info(event.a_f).D1 ** 2)
+    s.event_handlers.on(ev.EVENT_FORCE, ev.STAGE_AFTER, on_force)
+    if cols is None:
+        dk, _ = ic.linear_field(s.lptpm, cosmo,
+                                FuncK.from_file(modes.POWERSPEC), seed=100,
+                                aout=1.0, remove_cosmic_variance=True)
+        s.setup_lpt(dk, cfg.time_step[0])
+    else:
+        s.setup_lpt(torch.zeros(s.lptpm.kshape, dtype=torch.complex64,
+                                device=device), cfg.time_step[0])
+        s.species["cdm"] = s.species["cdm"].replace(
+            **{c: t.to(device) for c, t in cols.items()})
+    p = s.species["cdm"]
+    taken = {c: getattr(p, c).cpu().clone() for c in ("x", "v", "dx1", "dx2")
+             if getattr(p, c) is not None}
+    if cols is not None and not torch.equal(p.id.cpu(),
+                                            torch.arange(64 ** 3)):
+        raise SystemExit("lpt witness: the rows are not in lattice order")
+    s.evolve()
+    return log, taken, sigma8[-1]
+
+
+def lpt_witness(dev, repeats=3):
+    """Phase J, second part: the card's pm and za runs of the cross-mode
+    series fed the LPT columns (x, v; za also dx1, dx2) that the port
+    computed on the CPU. Each golden line of the fed card run is printed
+    beside the CPU's own line and the card's own. The fed run is
+    repeated, each run's z = 0 Sigma8 printed unrounded, to show how far
+    the card's run-to-run arithmetic (the deposit's float32 atomics)
+    moves it. The gate stays the same: each line exact or within one
+    unit of its last printed digit."""
+    modes = load_test_module("test_torch_modes")
+    result = {}
+    for mode in ("pm", "za"):
+        cpu_log, cols, cpu_s8 = run_mode_fed(mode, "cpu")
+        card_log, card_cols, card_s8 = run_mode_fed(mode, dev)
+        fed = [run_mode_fed(mode, dev, cols) for _ in range(repeats)]
+        for c in cols:
+            d = (card_cols[c] - cols[c]).abs()
+            print("lpt witness %s: the card's own %s against the CPU's: "
+                  "%.4f of the rows differ, max |d| %.3g (max |%s| %.3g)"
+                  % (mode, c, float((d.amax(dim=1) > 0).double().mean()),
+                     float(d.max()), c, float(cols[c].abs().max())))
+        print("lpt witness %s: z = 0 Sigma8 unrounded: CPU %.9g, card %.9g, "
+              "card from the CPU's LPT columns %s" % (
+                  mode, cpu_s8, card_s8,
+                  ", ".join("%.9g" % f[2] for f in fed)))
+        for golden in modes.GOLDENS[mode]:
+            head = golden.split(" = ")[0]
+
+            def line(log):
+                return next(l for l in log.lines
+                            if l.startswith(head + " = "))
+            checks = [modes.check_line(f[0], golden) for f in fed]
+            agree = sum(line(f[0]) == line(cpu_log) for f in fed)
+            result["%s %s" % (mode, head)] = dict(
+                golden=golden, cpu=line(cpu_log), card=line(card_log),
+                card_from_cpu_lpt=[line(f[0]) for f in fed],
+                fed_checks=checks, fed_runs_equal_to_cpu=agree)
+            print("lpt witness %s: golden  %s\n  CPU        %s\n  card       "
+                  "%s\n  card, CPU's LPT columns %s (%s; %d of %d such runs "
+                  "print the CPU's line)"
+                  % (mode, golden, line(cpu_log), line(card_log),
+                     line(fed[0][0]), checks[0], agree, repeats))
+            if None in checks:
+                raise SystemExit("lpt witness %s: %s" % (mode, golden))
+    return result
+
+
+TOOL_NAMES = ("fof", "power", "paint", "halobias", "comparehalos")
+PAINTERS = ("power", "paint", "halobias", "comparehalos")
+K_KERNELS = ("cic_paint_into", "cell_order", "fof_link")
+
+
+def cli_files_tools(dev, tmp, solver, pm, nc=256, box=768.0, nstep=5):
+    """Phase K: the CLI's files, flags and tools at the main path's width
+    (phase 7's physics: nc = 256, box 768, a 512^3 force mesh, 5 steps).
+    Run 1 through cli.main with -T 1 -f -m <bound> --profile <dir> writes
+    the white noise, the linear field in k and real space, the nonlinear
+    density, a RunPB snapshot and the FOF catalog; each file is checked
+    for the JAX package's attributes, the trace for the kernels' names,
+    the log for the memory lines and the clocks' table; a second call
+    with -m below the run's bytes in use ends in MemoryBoundExceeded.
+    Run 2 starts from run 1's LinearDensityK and agrees with it by id.
+    Then the tools on run 1's z = 0 snapshot (fof, power --nmesh 512,
+    paint --nmesh 512, halobias, comparehalos), each timed with its peak
+    memory and its launches; read_runpbic at 64^3 on the card against
+    the CPU; and the main force step with the clocks on against the same
+    step without them. Returns the launches of K3, cell_order and
+    fof_link by part of the phase."""
+    import numpy as np
+    import torch
+    from fastpm_torch import cli, gravity, prof, tools
+    from fastpm_torch.io.bigfile import BigFile
+    from fastpm_torch.io.legacy import read_runpb_snapshot
+    from fastpm_torch.memory import MemoryBoundExceeded
+    from fastpm_torch.painter import Painter
+
+    ps = os.path.join(FIXTURES, "powerspec.txt")
+    writes = ("write_fof = \"%(out)s/fastpm\"\n"
+              "write_whitenoisek = \"%(out)s/wn\"\n"
+              "write_lineark = \"%(out)s/lk\"\n"
+              "write_linearr = \"%(out)s/lr\"\n"
+              "write_nonlineark = \"%(out)s/nlk\"\n"
+              "write_runpb_snapshot = \"%(out)s/runpb\"\n")
+
+    def lua(name, extra="", n=nc, b=box, steps=nstep, zout="0.0"):
+        out = os.path.join(tmp, name)
+        text = SMALL_LUA % dict(nc=n, box=b, nstep=steps, zout=zout, out=out,
+                                ps=ps)
+        return write_lua(os.path.join(tmp, name + ".lua"),
+                         text + extra % dict(out=out)), out
+
+    def run(argv, where=dev):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv, device=where)
+        if rc != 0:
+            raise SystemExit("phase K: cli.main returned %s" % rc)
+        return buf.getvalue()
+
+    launches = {}
+    # ---- run 1: every file, every flag ----
+    conf, out = lua("k_run1", writes, zout="9.0, 0.0")
+    trace_dir = os.path.join(tmp, "k_trace")
+    bound_mb = 60000
+    reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    text = run(["-T", "1", "-f", "-m", str(bound_mb), "--profile",
+                trace_dir, conf])
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    peak1 = torch.cuda.max_memory_allocated()
+    got = read_launches()
+    launches["write_nonlineark"] = {k: got[k] for k in K_KERNELS}
+    print("phase K run 1: %d^3, %d^3 force mesh, %d steps, every file and "
+          "flag: wall %.2f s, peak %.3f GB; launches %s"
+          % (nc, 2 * nc, nstep, wall1, peak1 / 1e9,
+             {k: v for k, v in got.items() if v}))
+    if not (got["cic_paint_into"] >= 1 and got["cell_order"] >= 1
+            and got["fof_link"] >= 1 and got["cic_paint"] == nstep):
+        raise SystemExit("phase K run 1: write_nonlineark / write_fof did "
+                         "not launch K3, cell_order and fof_link: %s" % got)
+    lines = text.splitlines()
+    mem = [l for l in lines if l.startswith("Peak memory usage: device ")]
+    in_use = [float(re.search(r"in use ([0-9.e+]+) MB", l).group(1))
+              for l in mem]
+    clocks = [l for l in lines if re.match(r"(Clock|drift|force|kick|Total)"
+                                           r" ", l)]
+    print("phase K run 1: %d memory lines, the last: %s" % (len(mem),
+                                                           mem[-1]))
+    print("phase K run 1: clocks\n  " + "\n  ".join(clocks))
+    if len(mem) < 2 or len(clocks) != 5 or max(in_use) * 2 ** 20 >= (
+            bound_mb << 20) or peak1 >= (bound_mb << 20):
+        raise SystemExit("phase K run 1: memory lines or clocks missing, "
+                         "or the bound was not above the run")
+
+    nm = nc // 2 + 1
+    want_files = {"wn": ("WhiteNoiseK", [nc, nc, nm]),
+                  "lk": ("LinearDensityK", [nc, nc, nm]),
+                  "lr": ("LinearDensityR", [nc, nc, nc]),
+                  "nlk_1.0000": ("DensityK", [nc, nc, nm])}
+    for name, (block, shape) in want_files.items():
+        blk = BigFile(os.path.join(out, name)).open_block(block)
+        attrs = blk.attrs.asdict()
+        data = blk.read_all()
+        ok = (sorted(attrs) == ["BoxSize", "Nmesh", "ndarray.ndim",
+                                "ndarray.shape", "ndarray.strides"]
+              and list(np.ravel(attrs["ndarray.shape"])) == shape
+              and int(np.ravel(attrs["Nmesh"])[0]) == nc
+              and float(np.ravel(attrs["BoxSize"])[0]) == box
+              and data.shape[0] == int(np.prod(shape))
+              and np.isfinite(data).all())
+        print("phase K run 1: %s/%s %s %s, attributes %s" % (
+            name, block, data.dtype, shape, "as the JAX package's" if ok
+            else "WRONG"))
+        if not ok:
+            raise SystemExit("phase K run 1: bad %s" % name)
+    rpb = read_runpb_snapshot(os.path.join(out, "runpb_1.0000.bin"))
+    ids = np.sort(rpb["id"])
+    if not (rpb["aa"] == 1.0 and np.array_equal(ids, np.arange(nc ** 3))
+            and np.isfinite(rpb["v"]).all() and rpb["x"].min() >= 0
+            and rpb["x"].max() <= 1):
+        raise SystemExit("phase K run 1: bad RunPB snapshot")
+    print("phase K run 1: RunPB snapshot, %d rows at a = %g" % (
+        len(ids), rpb["aa"]))
+    trace_path = os.path.join(trace_dir, "trace.json")
+    with open(trace_path) as f:
+        trace = f.read()
+    names = ("deposit_kernel", "readout_kernel", "pass_kernel",
+             "link_kernel")
+    found = {k: trace.count(k) for k in names}
+    print("phase K run 1: the trace (%.1f MB) names the kernels %s"
+          % (len(trace) / 1e6, found))
+    if not all(found.values()):
+        raise SystemExit("phase K run 1: the trace misses a kernel")
+    del trace
+
+    # ---- -m below the bytes in use: MemoryBoundExceeded ----
+    low = max(1, int(max(in_use) / 2))
+    conf_b, out_b = lua("k_bounded")
+    caught = None
+    t0 = time.perf_counter()
+    try:
+        run(["-m", str(low), conf_b])
+    except MemoryBoundExceeded as e:
+        caught = e
+    print("phase K: -m %d (half the largest in use, %.0f MB): %s after "
+          "%.2f s" % (low, max(in_use), repr(caught),
+                      time.perf_counter() - t0))
+    if caught is None or os.path.exists(os.path.join(out_b,
+                                                     "fastpm_1.0000")):
+        raise SystemExit("phase K: the bound did not stop the run")
+
+    # ---- run 2: from run 1's LinearDensityK; run 1 replayed ----
+    # The 2LPT state (a = 0.1) is reproduced. The z = 0 rows
+    # of two card runs of one field differ by the order of the force's
+    # float32 atomics, grown over 5 steps: run 2 must agree with run 1
+    # within phase 6's bounds or as closely as run 1 replayed from its
+    # seed (3x its largest deviation).
+    conf2, out2 = lua("k_run2", 'read_lineark = "%s"\n'
+                      % os.path.join(out, "lk"), zout="9.0, 0.0")
+    t0 = time.perf_counter()
+    run([conf2])
+    wall2 = time.perf_counter() - t0
+    conf3, out3 = lua("k_replay", zout="9.0, 0.0")
+    run([conf3])
+
+    def deviation(a, b):
+        dx = b[1] - a[1]
+        dx -= np.round(dx / box) * box
+        return (np.array_equal(a[0], b[0]),
+                float(np.abs(dx).max()) / (box / nc),
+                float(np.abs(b[2] - a[2]).max() / a[2].std()))
+
+    dev_k = {}
+    for aout in ("0.1000", "1.0000"):
+        a = read_by_id(os.path.join(out, "fastpm_" + aout))
+        for name, o in (("run 2", out2), ("replay", out3)):
+            b = read_by_id(os.path.join(o, "fastpm_" + aout))
+            dev_k[(name, aout)] = deviation(a, b)
+            bits = all(np.array_equal(u, w) for u, w in zip(a, b))
+            print("phase K %s against run 1 at a = %s: ids equal %s, max "
+                  "|dx| %.3g cell, max |dv| %.3g rms, bit-equal %s"
+                  % ((name, aout) + dev_k[(name, aout)][:1]
+                     + dev_k[(name, aout)][1:] + (bits,)))
+            # a = 0.1: the snapshot is the 2LPT state kicked by a
+            # zero-length factor (8e-17) times the first force: positions
+            # bit for bit, velocities within 1e-6 of their rms
+            if aout == "0.1000" and not (
+                    np.array_equal(a[1], b[1]) and dev_k[(name, aout)][0]
+                    and dev_k[(name, aout)][2] <= 1e-6):
+                raise SystemExit("phase K %s: the 2LPT state differs from "
+                                 "run 1's" % name)
+        del a, b
+    same = all(np.array_equal(u, w) for u, w in zip(
+        read_by_id(os.path.join(out2, "fastpm_1.0000")),
+        read_by_id(os.path.join(out3, "fastpm_1.0000"))))
+    print("phase K run 2 against the replay (neither profiled) at z = 0: "
+          "bit-equal %s" % same)
+    ok2, ex, ev = dev_k[("run 2", "1.0000")]
+    _, rx, rv = dev_k[("replay", "1.0000")]
+    print("phase K run 2 (read_lineark of run 1, wall %.2f s) at z = 0: "
+          "max |dx| %.3g cell, max |dv| %.3g rms; run 1 replayed %.3g, "
+          "%.3g; phase 6's bounds 1e-4, 1e-4" % (wall2, ex, ev, rx, rv))
+    if not (ok2 and ex <= max(1e-4, 3 * rx) and ev <= max(1e-4, 3 * rv)):
+        raise SystemExit("phase K run 2 disagrees with run 1")
+
+    # ---- the tools on run 1's z = 0 snapshot ----
+    snap = os.path.join(out, "fastpm_1.0000")
+    tool_out = os.path.join(tmp, "k_tools")
+    os.makedirs(tool_out, exist_ok=True)
+    argvs = {
+        "fof": [snap, "-o", os.path.join(tool_out, "fof")],
+        "power": [os.path.join(tool_out, "power.txt"), "--nmesh", "512",
+                  snap],
+        "paint": [os.path.join(tool_out, "paint"), snap, "--nmesh", "512"],
+        "halobias": [os.path.join(tool_out, "bias.txt"), snap, "--",
+                     snap],
+        "comparehalos": [os.path.join(tool_out, "cmp.txt"),
+                         os.path.join(tool_out, "fof"), "--", snap]}
+    timings = {}
+    for name in TOOL_NAMES:
+        base = reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = tools.main([name] + argvs[name], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        launches[name] = {k: got[k] for k in K_KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        timings[name] = dict(wall_s=wall, peak_gb=peak / 1e9,
+                             own_peak_gb=(peak - base) / 1e9)
+        print("phase K tool %s: rc %s, wall %.2f s, peak %.3f GB (%.3f GB "
+              "above the %.3f GB live before it), launches %s"
+              % (name, rc, wall, peak / 1e9, (peak - base) / 1e9,
+                 base / 1e9, launches[name]))
+        want = (got["fof_link"] >= 1 if name == "fof"
+                else got["cic_paint_into"] >= 1 and got["cell_order"] >= 1)
+        if rc != 0 or not want:
+            raise SystemExit("phase K tool %s did not run through its "
+                             "kernels" % name)
+    run_cat, tool_cat = (BigFile(p) for p in (snap, argvs["fof"][2]))
+    same = all(np.array_equal(
+        run_cat.open_block("LL-0.200/" + c).read_all(),
+        tool_cat.open_block("LL-0.200/" + c).read_all())
+        for c in ("Length", "MinID"))
+    nh = len(tool_cat.open_block("LL-0.200/Length").read_all())
+    print("phase K tool fof: %d halos, Length and MinID equal to run 1's "
+          "write_fof catalog: %s" % (nh, same))
+    if not same or nh == 0:
+        raise SystemExit("phase K: the fof tool's catalog differs from "
+                         "the run's")
+    pk = np.loadtxt(argvs["power"][0])
+    field = BigFile(argvs["paint"][0]).open_block("N0512").read_all()
+    bias = np.loadtxt(argvs["halobias"][0], ndmin=2).reshape(-1, 4)
+    print("phase K tools: power %d bins, finite %s; paint 512^3 mean %.6f "
+          "(want 1); halobias %s" % (len(pk), np.isfinite(pk).all(),
+                                     float(field.mean(dtype=np.float64)),
+                                     bias[:, 3].tolist()))
+    if not (np.isfinite(pk).all() and len(pk) > 100
+            and abs(field.mean(dtype=np.float64) - 1) < 1e-3
+            and np.isfinite(bias).all() and len(bias)):
+        raise SystemExit("phase K: bad power, paint or halobias output")
+    del field
+    worst = 0.0
+    for rx_path in sorted(glob.glob(os.path.join(tool_out,
+                                                 "cmp-nmin-*-rx.txt"))):
+        rx = np.loadtxt(rx_path)
+        r1 = np.loadtxt(rx_path.replace("-rx.txt", "-r1.txt"))
+        r2 = np.loadtxt(rx_path.replace("-rx.txt", "-r2.txt"))
+        good = (rx[:, 3] > 0) & (r1[:, 2] > 0) & (r2[:, 2] > 0)
+        corr = rx[good, 2] / np.sqrt(r1[good, 2] * r2[good, 2])
+        worst = max(worst, float(np.abs(corr - 1).max()))
+    ncmp = len(glob.glob(os.path.join(tool_out, "cmp-nmin-*-rx.txt")))
+    print("phase K tool comparehalos: %d thresholds, the fof tool's catalog "
+          "against run 1's: max |cross-correlation - 1| %.3g" % (ncmp, worst))
+    if ncmp == 0 or not worst <= 1e-5:
+        raise SystemExit("phase K: comparehalos' cross-correlation is not 1")
+
+    # ---- read_runpbic at 64^3: the card against the CPU ----
+    conf_w, out_w = lua("k_runpb_src", 'write_runpb_snapshot = '
+                        '"%(out)s/runpb"\n', n=64, b=192.0, steps=3,
+                        zout="9.0")
+    run([conf_w], "cpu")
+    ic_path = os.path.join(out_w, "runpb_0.1000.bin")
+    rows = {}
+    for where in ("cpu", dev):
+        name = "k_runpbic_%s" % where
+        conf_r, out_r = lua(name, 'read_runpbic = "%s"\n' % ic_path, n=64,
+                            b=192.0, steps=3)
+        t0 = time.perf_counter()
+        run([conf_r], where)
+        rows[where] = (read_by_id(os.path.join(out_r, "fastpm_1.0000")),
+                       time.perf_counter() - t0)
+    (a, _), (b, t_card) = rows["cpu"], rows[dev]
+    dx = b[1] - a[1]
+    dx -= np.round(dx / 192.0) * 192.0
+    ex = float(np.abs(dx).max()) / 3.0
+    ev = float(np.abs(b[2] - a[2]).max() / a[2].std())
+    print("phase K read_runpbic 64^3: card against CPU max |dx| %.3g cell, "
+          "max |dv| %.3g rms (card run %.2f s)" % (ex, ev, t_card))
+    if not (np.array_equal(a[0], b[0]) and ex < 1e-4 and ev < 1e-4):
+        raise SystemExit("phase K: read_runpbic card and CPU disagree")
+
+    # ---- the main step with the clocks on and off ----
+    painter = Painter(pm, "cic")
+    store = solver.species["cdm"].wrap(pm.BoxSize)
+
+    def step():
+        gravity.compute_force_carry(pm, painter, store)
+
+    clocks = []
+
+    def clocked():
+        with prof.clock("force") as c:
+            step()
+        clocks[:] = [c]
+
+    # The step waits on the host between its launches (8-9 % idle), so a
+    # block of 10 steps moves with the host's own pauses by more than the
+    # clocks cost: 6 rounds of a block each, the order alternated so that
+    # a drift of the card's clocks falls on both, with the garbage
+    # collector held off, and the least block of each compared.
+    prof.reset()
+    prof.enable_sync(True)
+    off, on = [], []
+    gc.collect()
+    gc.disable()
+    try:
+        for r in range(6):
+            for fn in ((step, clocked) if r % 2 == 0 else (clocked, step)):
+                (off if fn is step else on).append(time_ms(fn, reps=10))
+    finally:
+        gc.enable()
+        prof.enable_sync(False)
+    c = clocks[0]
+    paired = sorted(b - a for a, b in zip(off, on))
+    print("phase K: the main force step without the clocks %s ms, with "
+          "them (on the card: CUDA events) %s ms; least %.3f / %.3f, "
+          "median of the rounds' differences %.3f ms; the clock read %.3f "
+          "ms a step over %d"
+          % ([round(v, 3) for v in off], [round(v, 3) for v in on],
+             min(off), min(on), (paired[2] + paired[3]) / 2,
+             c.time / c.count * 1e3, c.count))
+    prof.reset()
+    if not abs(min(on) - min(off)) <= 0.3:
+        raise SystemExit("phase K: the clocks cost more than 0.3 ms a step")
+    return dict(launches=launches, tools=timings, run1_wall_s=wall1,
+                run1_peak_gb=peak1 / 1e9, run2_wall_s=wall2,
+                step_ms_clocks_off=off, step_ms_clocks_on=on)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2542,6 +3003,8 @@ def main():
         modes_path(dev, tmp)
         lra_path(dev, tmp)
         goldens_and_ics(dev)
+        lpt_witness(dev)
+        phase_k = cli_files_tools(dev, tmp, solver, pm)
     homed_launches = homed_force(dev, solver.species["cdm"], pm)
     bench_launches = benchlib_path(dev, x0, v0, bpm)
     del x0, v0
@@ -2559,6 +3022,12 @@ def main():
     launches["fof_link"] = lc_launches["fof_link"]
     rows["cic_paint4"]["launches_periodic"] = (
         bench_launches["paint4"]["cic_paint4"])
+    # phase K: the launches of write_nonlineark (run 1) and of each tool
+    for name in K_KERNELS:
+        rows[name]["launches_phase_k"] = {
+            part: n[name] for part, n in phase_k["launches"].items()}
+    print("phase K: " + json.dumps({k: v for k, v in phase_k.items()
+                                    if k != "launches"}))
 
     kernels = []
     for name, r in rows.items():

@@ -3,16 +3,20 @@
 `torchrun --nproc-per-node P -m fastpm_torch.cli <file.lua>` on P.
 
 Port of fastpm_tpu/cli.py: Lua parameter file -> IC pipeline (gadget
-white noise, fNL-local non-Gaussianity, peak constraints) -> 2LPT (CDM,
-and the Fermi-Dirac split ncdm species when m_ncdm is set), or a restart
-from a snapshot (-r) -> evolution in any force mode, with PGD and the
-neutrino linear response where asked, and event handlers for the
-per-step power spectrum, interpolated bigfile snapshots (with the
-potential and tidal tensor, subsampled, and with the linear response's
-history, where asked), FOF and RFOF catalogs, and on one rank the
-particle lightcone (prepare_lc: usmesh slices, HEALPix shell maps and
-lightcone halos). A parameter the port does not serve stops the run with
-SystemExit naming it (see ROADMAP.md).
+white noise or a white-noise file, fNL-local non-Gaussianity, peak
+constraints, or a linear density file) -> 2LPT (CDM, and the
+Fermi-Dirac split ncdm species when m_ncdm is set), or a RunPB initial
+condition, or a restart from a snapshot (-r) -> evolution in any force
+mode, with PGD and the neutrino linear response where asked, and event
+handlers for the per-step power spectrum and memory report,
+interpolated bigfile snapshots (with the potential and tidal tensor,
+subsampled, and with the linear response's history, where asked),
+RunPB snapshots, the nonlinear density field, FOF and RFOF catalogs,
+and on one rank the particle lightcone (prepare_lc: usmesh slices,
+HEALPix shell maps and lightcone halos). The IC pipeline writes the
+white noise and the linear field (k and real space) where asked. A
+parameter the port does not serve stops the run with SystemExit naming
+it (see ROADMAP.md). main_lua is the fastpm-lua counterpart.
 
 Under torchrun (WORLD_SIZE > 1) main starts the process group, as the
 JAX CLI builds its device mesh (cli.py:817-846): NCCL with one GPU per
@@ -26,10 +30,12 @@ files a one-rank run writes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
 import numpy as np
+import torch
 
 from .config.params import load_params, Params
 from .cosmology import Cosmology
@@ -44,25 +50,27 @@ from .io.snapshots import (write_snapshot, write_halo_catalog,
                            write_snapshot_header, read_snapshot_header,
                            read_species)
 from .io.bigfile import BigFile
+from .io.fields import write_complex, read_complex, write_real
 from .fof import find_halos, rfof_find_halos
+from .memory import MemoryMonitor
+from . import prof
 
-__all__ = ["main", "run_fastpm", "build_cosmology", "build_config",
-           "prepare_deltak", "prepare_ncdm", "prepare_lc", "SnapshotChecker",
-           "restore_species"]
+__all__ = ["main", "main_lua", "run_fastpm", "build_cosmology",
+           "build_config", "prepare_deltak", "prepare_ncdm", "prepare_lc",
+           "prepare_runpbic", "SnapshotChecker", "restore_species"]
 
-# parameters the port does not serve yet, each must be unset / false
-# (ROADMAP.md queue 1): the k-space and white-noise file inputs and
-# outputs, the RunPB / GRAFIC formats and the nonlinear density output
-_LATER_PARAMS = (
-    "read_lineark", "read_lineark_ncdm", "read_whitenoisek",
-    "read_runpbic", "read_grafic", "write_whitenoisek", "write_lineark",
-    "write_linearr", "write_runpbic", "write_nonlineark",
-    "write_runpb_snapshot")
+# parameters the port refuses, each must be unset / false: the schema
+# takes them, but the JAX package's CLI never reads them (a run with
+# read_grafic set there starts from the seed), so the port stops the run
+# until it serves them for real (ROADMAP.md queue 3)
+_LATER_PARAMS = ("read_grafic", "write_runpbic")
 # served on one rank only: the slab force of several ranks reads out no
-# potential or tidal tensor and takes no delta_k transfer or PGD, and
-# the lightcone and RFOF run on one device's rows
+# potential or tidal tensor and takes no delta_k transfer or PGD, the
+# lightcone and RFOF run on one device's rows, and a RunPB initial
+# condition is read into one store of every row
 _ONE_RANK_PARAMS = ("lc_write_usmesh", "write_rfof", "compute_potential",
-                    "compute_tidal", "pgdc", "ncdm_linearresponse")
+                    "compute_tidal", "pgdc", "ncdm_linearresponse",
+                    "read_runpbic")
 
 
 def check_served(p: Params, ranks: int = 1) -> None:
@@ -119,13 +127,33 @@ def build_config(p: Params) -> SolverConfig:
 
 
 def prepare_deltak(solver: Solver, p: Params, log: Log):
-    """The IC pipeline (src/fastpm.c:prepare_deltak) from the power
-    spectrum file and the gadget white noise, with fNL-local
+    """The IC pipeline (src/fastpm.c:prepare_deltak): delta_k normalized
+    at z=0 on the lptpm mesh, and the (sigma8-corrected) input P(k)
+    (None for a linear density file). From read_lineark (no other
+    shaping, the sign flip of inverted_ic, then the rescale from
+    linear_density_redshift), or from the power spectrum file and the
+    gadget white noise (or read_whitenoisek), with fNL-local
     non-Gaussianity (f_nl_type) and peak constraints (constraints) where
-    asked: delta_k normalized at z=0 on the lptpm mesh, and the
-    (sigma8-corrected) input P(k)."""
+    asked. Writes write_whitenoisek, write_lineark (the field before the
+    constraints, as UnconstrainedLinearDensityK, when there are any) and
+    write_linearr where asked, from rank 0: every rank builds the whole
+    field."""
     pm = solver.lptpm
     c = solver.cosmology
+    writer = solver.ring.rank == 0
+
+    def read_field(path, block):
+        return torch.from_numpy(read_complex(pm, path, block)).to(pm.device)
+
+    if p.read_lineark:
+        log.info("Reading Fourier space linear overdensity from %s",
+                 p.read_lineark)
+        dk = read_field(p.read_lineark, "LinearDensityK")
+        if p.inverted_ic:
+            dk = -dk
+        return ic.rescale_linear(pm, dk, c, 1.0,
+                                 p.linear_density_redshift), None
+
     if not p.read_powerspectrum:
         raise SystemExit("Need a power spectrum to start the simulation.")
 
@@ -139,7 +167,12 @@ def prepare_deltak(solver: Solver, p: Params, log: Log):
                  p.sigma8)
         pk = FuncK(pk.k, pk.f * (p.sigma8 / sigma8_input) ** 2)
 
-    dk = ic.gaussian_white_noise(pm, p.random_seed)
+    if p.read_whitenoisek:
+        log.info("Reading Fourier white noise file from '%s'.",
+                 p.read_whitenoisek)
+        dk = read_field(p.read_whitenoisek, "WhiteNoiseK")
+    else:
+        dk = ic.gaussian_white_noise(pm, p.random_seed)
     if p.remove_cosmic_variance:
         log.info("Remove Cosmic variance from initial condition.")
         dk = ic.remove_variance(dk)
@@ -158,6 +191,11 @@ def prepare_deltak(solver: Solver, p: Params, log: Log):
     variance = pm.compute_variance(dk)
     log.info("Variance of input white noise is %0.8f, expectation is %0.8f",
              variance, 1.0 - 1.0 / pm.Norm)
+    if p.write_whitenoisek:
+        log.info("Writing Fourier white noise to file '%s'.",
+                 p.write_whitenoisek)
+        if writer:
+            write_complex(pm, dk, p.write_whitenoisek, "WhiteNoiseK")
     if p.f_nl_type != "none":
         from .png import PNGaussian
         kmax = (p.nc / 2.0 * 2.0 * np.pi / p.boxsize
@@ -182,7 +220,22 @@ def prepare_deltak(solver: Solver, p: Params, log: Log):
         for i, cns in enumerate(p.constraints):
             log.info("Constraint %d : %g %g %g peak-sigma = %g", i,
                      cns[0], cns[1], cns[2], cns[3])
+        if p.write_lineark:
+            log.info("Writing fourier space linear field before "
+                     "constraints to %s", p.write_lineark)
+            if writer:
+                write_complex(pm, dk, p.write_lineark,
+                              "UnconstrainedLinearDensityK")
         dk = apply_constraints(pm, dk, p.constraints, pk, log)
+    elif p.write_lineark:
+        log.info("Writing fourier space linear field to %s", p.write_lineark)
+        if writer:
+            write_complex(pm, dk, p.write_lineark, "LinearDensityK")
+    if p.write_linearr:
+        # real-space linear field (src/fastpm.c:685-689)
+        log.info("Writing real space linear field to %s", p.write_linearr)
+        if writer:
+            write_real(pm, pm.c2r(dk), p.write_linearr, "LinearDensityR")
     return dk, pk
 
 
@@ -222,12 +275,13 @@ def prepare_ncdm(solver: Solver, p: Params, a0: float, log: Log):
     solver.add_species(NCDM, ncdm)
 
     # own linear field (fall back to cdm's inputs with a warning)
-    if not p.read_powerspectrum_ncdm:
+    if not p.read_lineark_ncdm and not p.read_powerspectrum_ncdm:
         log.info("WARNING: No ncdm powerspectrum input; using cdm's "
                  "instead.")
         dk, _ = prepare_deltak(solver, p, log)
     else:
         ns = dict(p.asdict())
+        ns["read_lineark"] = p.read_lineark_ncdm
         ns["read_powerspectrum"] = p.read_powerspectrum_ncdm
         ns["linear_density_redshift"] = p.linear_density_redshift_ncdm
         dk, _ = prepare_deltak(
@@ -314,6 +368,16 @@ class SnapshotChecker:
         log.info("Growth factor of snapshot %6.4f (a=%0.4f)", gi.D1, aout)
         log.info("Growth rate of snapshot %6.4f (a=%0.4f)", gi.f1, aout)
 
+        if p.write_runpb_snapshot:
+            # RunPB only has CDM (src/fastpm.c:1533-1545)
+            from .io.legacy import write_runpb_snapshot
+            path = "%s_%0.04f.bin" % (p.write_runpb_snapshot, aout)
+            v_internal = cdm.v.cpu().numpy() * aout / 100.0
+            write_runpb_snapshot(path, cdm.x.cpu().numpy(), v_internal,
+                                 cdm.id.cpu().numpy().reshape(-1), aout,
+                                 s.cosmology.E(aout), p.boxsize)
+            log.info("runpb snapshot %s written z = %6.4f a = %6.4f",
+                     path, 1.0 / aout - 1, aout)
         if p.write_snapshot:
             path = "%s_%0.04f" % (p.write_snapshot, aout)
             log.info("Writing a snapshot header to %s", path)
@@ -362,6 +426,18 @@ class SnapshotChecker:
             write_halo_catalog(path, "RFOF", cat, s.cosmology,
                                aout, p.nc, p.boxsize, M0=cdm.M0)
             log.info("Writing %d objects.", cat.nhalo)
+        if p.write_nonlineark:
+            # the CDM painted with the run's painter (through K3 and the
+            # cell order on the card)
+            from .gravity import paint_delta_k
+            from .painter import Painter
+            pm = s.basepm
+            painter = Painter(pm, s.config.painter_type,
+                              s.config.painter_support)
+            dk = paint_delta_k(pm, painter, [cdm.wrap(pm.BoxSize)])
+            path = "%s_%0.04f" % (p.write_nonlineark, aout)
+            log.info("Writing nonlinear density K to %s", path)
+            write_complex(pm, dk, path, "DensityK")
 
 
 def prepare_lc(solver: Solver, p: Params, log: Log):
@@ -655,6 +731,56 @@ def _prepare_time_step(all_steps, a0):
     return [a0] + [a for a in all_steps[i + 1:] if a > a0 + 1e-7]
 
 
+def prepare_runpbic(solver: Solver, path: str, a0: float, log: Log):
+    """Initialize the CDM from a RunPB TPM IC set (read_runpb_ic,
+    src/runpb.c:150-299): recover the ZA/2LPT displacements from the
+    file's (position, velocity) pair using the fitting growth rates
+    f1 = Omega^(4/7), f2 = Omega^(6/11) (in host float64), reset the
+    particles to the half-cell-shifted lattice of their ids, then evolve
+    with 2LPT to a0 on the solver's device (one rank)."""
+    from .io.legacy import read_runpb_snapshot
+
+    data = read_runpb_snapshot(path)
+    aa = float(data["aa"])
+    log.info("RunPB IC at a = %g from %s", aa, path)
+    c = solver.cosmology
+    nc = solver.config.nc
+    boxsize = solver.config.boxsize
+    D = c.growth_info(aa).D1
+    omega = c.Omega_cdm_a(aa)
+    f1 = omega ** (4.0 / 7)
+    f2 = omega ** (6.0 / 11)
+
+    ids = data["id"].astype(np.int64)
+    x = data["x"].astype(np.float64)          # box units [0,1)
+    v = data["v"].astype(np.float64)          # RunPB RSD units
+    strides = np.array([nc * nc, nc, 1], dtype=np.int64)
+    lattice = np.stack([(ids // strides[d]) % nc for d in range(3)],
+                       axis=-1)
+    opos = lattice * (1.0 / nc) + 0.5 / nc
+    disp = x - opos
+    disp = np.where(disp < -0.5, disp + 1.0, disp)
+    disp = np.where(disp > 0.5, disp - 1.0, disp)
+    dx1 = (v - disp * 2 * f2) / (f1 - 2 * f2) / D * boxsize
+    dx2 = (v - disp * f1) / (2 * f2 - f1) / (D * D) * boxsize
+    q = np.remainder(opos * boxsize, boxsize)
+    log.info("dx1 disp: %g %g %g", *np.sqrt((dx1 ** 2).mean(axis=0)))
+    log.info("dx2 disp: %g %g %g", *np.sqrt((dx2 ** 2).mean(axis=0)))
+
+    def column(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+            solver.device)
+
+    p = solver.species["cdm"]
+    cell = boxsize / nc
+    solver.species["cdm"] = p.replace(
+        x=column(q, np.float32), v=torch.zeros_like(p.v),
+        id=column(ids, np.int64), dx1=column(dx1, np.float32),
+        dx2=column(dx2, np.float32), q_shift=(0.5 * cell,) * 3,
+        q_scale=(cell,) * 3, q_nc=(nc, nc, nc))
+    solver.setup_lpt(None, a0)
+
+
 def restore_species(solver: Solver, path: str, dataset: str, log: Log):
     """Read the CDM species back from a snapshot on the solver's device,
     inverting the unit conversion (prepare_cdm's restart path,
@@ -712,11 +838,15 @@ def _check_restart(p: Params, ranks: int = 1) -> None:
 
 
 def run_fastpm(p: Params, log=None, n_writers: int = 0,
-               device=None, group=None, restart: str = None) -> Solver:
+               device=None, group=None, restart: str = None,
+               memory_bound_mb: int = 0) -> Solver:
     """The full run (src/fastpm.c:run_fastpm) on `device` (default: the
     first CUDA device; raises when there is none), over the ranks of
     the process group `group` when one is given; from the snapshot at
-    `restart` when one is given (one rank)."""
+    `restart` when one is given (one rank). Each transition logs its
+    banner and the memory report, and MemoryBoundExceeded stops the run
+    when memory_bound_mb is set and exceeded; the teardown logs the
+    memory report and the kick, drift and force clocks (prof)."""
     device = resolve_device(device)
     ranks = 1
     if group is not None:
@@ -743,12 +873,19 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
                              write_powerspectrum=p.write_powerspectrum,
                              enforce_broadband_kmax=p.enforce_broadband_kmax)
 
+    # per-transition banner + memory report (print_transition,
+    # src/fastpm.c:1576-1601; report_memory:1604-1646)
+    monitor = MemoryMonitor(bound_bytes=(int(memory_bound_mb) << 20)
+                            if memory_bound_mb else None, device=device)
+    prof.reset()
+
     def print_transition(event):
         t = event.transition
         log.info("==== -> [%03d %03d %03d] a_i = %6.4f a_f = %6.4f "
                  "a_r = %6.4f Action = %s ====",
                  t.i_i, t.i_f, t.i_r,
                  t.a_i, t.a_f, t.a_r, t.action.upper())
+        monitor.report(log)
 
     solver.event_handlers.on(ev.EVENT_TRANSITION, ev.STAGE_BEFORE,
                              print_transition)
@@ -776,6 +913,8 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
                     log.info("WARNING: LRA restart without a Neutrino "
                              "block; delta_nu history re-seeds from the "
                              "transfer input")
+        elif p.read_runpbic:
+            prepare_runpbic(solver, p.read_runpbic, p.time_step[0], log)
         else:
             dk, _pk = prepare_deltak(solver, p, log)
             solver.setup_lpt(dk, p.time_step[0])
@@ -786,6 +925,9 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
         # join in-flight background snapshot writes even when evolve
         # raises, so a failed write is reported, not lost
         checker.flush()
+    # teardown report (run_fastpm end, src/fastpm.c:388-396)
+    monitor.report(log, force=True)
+    prof.report(printer=lambda line: log.info("%s", line))
     return solver
 
 
@@ -815,33 +957,114 @@ def main(argv=None, device=None):
         prog="python -m fastpm_torch.cli",
         description="FastPM cosmological N-body solver on one GPU, or on "
                     "several under torchrun (PyTorch/CUDA port)")
+    ap.add_argument("-T", type=int, default=0,
+                    help="ignored (threads: the card's kernels own them)")
     ap.add_argument("-W", type=int, default=0, help="number of IO writers")
-    ap.add_argument("-r", dest="restart", default=None,
-                    help="restart from snapshot path (one rank)")
+    ap.add_argument("-f", dest="fftw", action="store_true",
+                    help="force the 1D slab decomposition (the FFTW-MPI "
+                         "analog; same as -y 1)")
     ap.add_argument("-y", dest="nprocy", type=int, default=1,
                     help="ranks along y of a 2D (pencil) decomposition "
                     "(not in this slice: only 1)")
+    ap.add_argument("-m", dest="memory_bound_mb", type=int, default=0,
+                    help="abort cleanly (MemoryBoundExceeded) when memory "
+                         "usage exceeds this many MB (0 = unbounded)")
+    ap.add_argument("-r", dest="restart", default=None,
+                    help="restart from snapshot path (one rank)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace (Chrome JSON) of "
+                         "the run to DIR; the kick, drift and force "
+                         "clocks print regardless")
     ap.add_argument("params", help="Lua parameter file")
     ap.add_argument("args", nargs="*", help="extra arguments exposed as "
                     "`args` in the parameter file")
     ns = ap.parse_args(argv)
-    if ns.nprocy > 1:
+    if ns.nprocy > 1 and not ns.fftw:
         raise SystemExit("fastpm_torch: -y NprocY > 1 (the pencil "
                          "decomposition) is not served by this slice of "
                          "the port (see ROADMAP.md)")
+    import faulthandler
+    faulthandler.enable()  # crash backtraces (src/stacktrace.c)
     p = load_params(ns.params, ns.args)
     device, group = start_ranks(device)
-    if group is None:
-        run_fastpm(p, n_writers=ns.W, device=device, restart=ns.restart)
-        return 0
-    import torch.distributed as dist
+    kw = dict(n_writers=ns.W, device=device, restart=ns.restart,
+              memory_bound_mb=ns.memory_bound_mb)
     try:
-        run_fastpm(p, log=Log(echo=dist.get_rank() == 0), n_writers=ns.W,
-                   device=device, group=group, restart=ns.restart)
-        # the ranks end together: rank 0 is done writing when any exits
-        dist.barrier()
+        with _profiled(ns.profile, device, group):
+            if group is None:
+                run_fastpm(p, **kw)
+            else:
+                import torch.distributed as dist
+                run_fastpm(p, log=Log(echo=dist.get_rank() == 0),
+                           group=group, **kw)
+                # the ranks end together: rank 0 is done writing when
+                # any exits
+                dist.barrier()
     finally:
-        dist.destroy_process_group()
+        if group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    return 0
+
+
+@contextlib.contextmanager
+def _profiled(directory, device, group):
+    """A torch.profiler trace of the CPU and, on the card, of its kernels
+    around the body, written as Chrome JSON to directory/trace.json
+    (trace.rank<r>.json on several ranks); nothing without a
+    directory."""
+    if not directory:
+        yield
+        return
+    from torch.profiler import profile, ProfilerActivity
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as trace:
+        yield
+    os.makedirs(directory, exist_ok=True)
+    name = "trace.json"
+    if group is not None:
+        import torch.distributed as dist
+        name = "trace.rank%d.json" % dist.get_rank(group)
+    trace.export_chrome_trace(os.path.join(directory, name))
+
+
+def main_lua(argv=None):
+    """fastpm-lua equivalent (src/fastpm-lua.c): compile a parameter
+    file -- executing its `main` function if one is defined -- and
+    print the bound parameters; -H dumps the schema instead. Host
+    only."""
+    from .config.schema import SCHEMA, SchemaError
+
+    ap = argparse.ArgumentParser(
+        prog="python -m fastpm_torch.tools lua",
+        description="compile a fastpm Lua parameter file and print "
+                    "the resolved parameters")
+    ap.add_argument("-H", dest="dump_schema", action="store_true",
+                    help="print the supported parameters and exit")
+    ap.add_argument("params", nargs="?", help="Lua parameter file")
+    ap.add_argument("args", nargs="*", help="extra arguments exposed "
+                    "as `args` in the parameter file")
+    ns = ap.parse_args(argv)
+
+    if ns.dump_schema:
+        print("Supported Parameters are: ")
+        for name, ent in sorted(SCHEMA.items()):
+            req = "required" if ent.required else \
+                "default=%r" % (ent.default,)
+            print("  %-32s %-8s %s" % (name, ent.type, req))
+        return 0
+    if not ns.params:
+        ap.error("parameterfile is required")
+    try:
+        p = load_params(ns.params, ns.args, runmain=True)
+    except (OSError, SchemaError) as e:
+        print("fastpm_torch lua: %s" % e, file=sys.stderr)
+        return 1
+    print("Compiled parameters are: ")
+    for k, v in sorted(p.asdict().items()):
+        print("%s = %r" % (k, v))
     return 0
 
 

@@ -1,10 +1,10 @@
 """Initial conditions: Gaussian white-noise field and its shaping
 (reference: libfastpm/initialcondition.c, src/fastpm.c:prepare_deltak).
 
-Port of fastpm_tpu/ic.py (the gadget scheme). The IC pipeline produces
-the linear overdensity delta_k:
+Port of fastpm_tpu/ic.py. The IC pipeline produces the linear
+overdensity delta_k:
 
-  white noise (gadget scheme, unit-variance modes)
+  white noise (gadget, fast or slow scheme, unit-variance modes)
   -> optional remove-variance ("fixed" ICs: amplitude 1, keep phase)
   -> optional set-mode overrides / inversion
   -> induce correlation: multiply by sqrt(P(k)/V)
@@ -12,6 +12,8 @@ the linear overdensity delta_k:
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -25,13 +27,51 @@ __all__ = ["gaussian_white_noise", "remove_variance", "induce_correlation",
            "rescale_linear", "linear_field"]
 
 
-def gaussian_white_noise(pm: PM, seed: int) -> torch.Tensor:
-    """Hermitian white noise with unit-variance modes: the N-GenIC
-    quadrant-seed-table scheme (initialcondition.c:144-273), seed-stable
-    across any decomposition and matching the reference's ranlxd
-    sequence; filled host-side in native code, complex64 on pm.device."""
-    wn = native.gadget_white_noise(pm.Nmesh, seed).astype(np.complex64)
-    return torch.from_numpy(wn).to(pm.device)
+def gaussian_white_noise(pm: PM, seed: int,
+                         scheme: str = "gadget") -> torch.Tensor:
+    """Hermitian white noise with unit-variance modes, complex64 on
+    pm.device.
+
+    - "gadget": the N-GenIC quadrant-seed-table scheme
+      (initialcondition.c:144-273), seed-stable across any decomposition
+      and matching the reference's ranlxd sequence; filled host-side in
+      native code.
+    - "fast": real white noise of one rank, r2c
+      (initialcondition.c:275-310).
+    - "slow": one global ranlxd stream over every cell, r2c
+      (pmic_fill_gaussian_slow, initialcondition.c:312-352).
+    The real fields of fast and slow are drawn on the host in float64
+    as the JAX package's; the r2c runs on pm.device."""
+    if scheme == "gadget":
+        wn = native.gadget_white_noise(pm.Nmesh, seed).astype(np.complex64)
+        return torch.from_numpy(wn).to(pm.device)
+    if scheme == "fast":
+        # one device is the reference's rank 0, whose seed jump is a
+        # no-op (initialcondition.c:283-289)
+        vals = native.ranlxd_uniform(seed, int(pm.Norm))
+        # pairs of (phase, ampl) -> two gaussians per pair
+        phase = vals[0::2] * 2 * math.pi
+        ampl = vals[1::2]
+        ampl = np.where(ampl == 0.0, 1.0, ampl)
+        ampl = np.sqrt(-2 * np.log(ampl)) * math.sqrt(pm.Norm)
+        g = np.empty(int(pm.Norm), dtype=np.float32)
+        g[0::2] = (ampl * np.sin(phase)).astype(np.float32)
+        g[1::2] = (ampl * np.cos(phase)).astype(np.float32)
+    elif scheme == "slow":
+        # per cell one (phase, ampl) draw, keeping ampl * sin(phase)
+        vals = native.ranlxd_uniform(seed, 2 * int(pm.Norm))
+        phase = vals[0::2] * 2 * math.pi
+        ampl = vals[1::2]
+        # the reference redraws on an exact 0.0 (probability ~N*2^-52);
+        # a redraw would shift the stream, so it is fatal here
+        if (ampl == 0.0).any():
+            raise RuntimeError("ranlxd produced an exact 0.0; the "
+                               "reference's redraw loop is not emulated")
+        g = (np.sqrt(-2 * np.log(ampl)) * math.sqrt(pm.Norm)
+             * np.sin(phase)).astype(np.float32)
+    else:
+        raise ValueError(f"unknown white noise scheme {scheme!r}")
+    return pm.r2c(torch.from_numpy(g.reshape(pm.rshape)).to(pm.device))
 
 
 def remove_variance(dk: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ import torch
 
 from .mesh import PM
 
-__all__ = ["PowerSpectrum", "FuncK", "measure_power", "sigma_tophat"]
+__all__ = ["PowerSpectrum", "FuncK", "measure_power", "measure_power_2d",
+           "measure_transfer", "sigma_tophat"]
 
 
 class FuncK:
@@ -273,6 +274,67 @@ def measure_power(pm: PM, delta1_k, delta2_k=None, ring=None,
     p = np.where(good, psum / np.where(good, Nmodes, 1) * pm.Volume, 0.0)
     edges = np.arange(nbins + 1) * k0
     return PowerSpectrum(kmean, p, Nmodes, edges, pm.Volume, k0)
+
+
+def measure_power_2d(pm: PM, delta1_k, delta2_k=None, Nmu: int = 10,
+                     copies: int = None):
+    """(k, mu) wedge power spectrum with the z axis as the line of sight
+    (the nbodykit FFTPower mode='2d' convention of
+    python/comparehalos.py). mu = kz / |k| in [0, 1] by hermitian
+    symmetry; Nmu bins over [0, 1]; DC excluded. Returns a dict of
+    (nbins, Nmu) float64 arrays k, mu, power, Nmodes. The per-mode
+    values are float32 as the JAX package's; the sums go through
+    _bin_sum as measure_power's (copies likewise)."""
+    if delta2_k is None:
+        delta2_k = delta1_k
+    nbins = pm.Nmesh[0] // 2
+    k0 = 2 * math.pi / pm.BoxSize[0]
+    kk = pm.integer_kk().expand(pm.kshape)
+    # exact isqrt of the integer |ik|^2, as _shell_bins
+    b = torch.floor(torch.sqrt(kk.to(torch.float64))).to(torch.int64)
+    b = torch.where((b + 1) * (b + 1) <= kk, b + 1, b)
+    b = torch.where(b * b > kk, b - 1, b)
+    # integer kz of each mode (the hermitian axis is z)
+    iz = torch.arange(pm.Nmesh[2] // 2 + 1, device=kk.device)
+    kz2 = (iz * iz).to(torch.float32).view(1, 1, -1)
+    kkf = kk.to(torch.float32)
+    mu = torch.sqrt(kz2 / torch.clamp(kkf, min=1.0))
+    mu = torch.where(kk == 0, torch.zeros_like(mu), mu)
+    mubin = torch.clamp((mu * Nmu).to(torch.int64), max=Nmu - 1)
+
+    w = pm.hermitian_weights().expand(pm.kshape).clone()
+    w[0, 0, 0] = 0.0
+    value = (delta1_k.real * delta2_k.real
+             + delta1_k.imag * delta2_k.imag).reshape(-1)
+    k_of_mode = (torch.sqrt(kkf) * k0).reshape(-1)
+
+    nb = nbins * Nmu
+    in_range = b.reshape(-1) < nbins
+    flat = torch.where(in_range, (b * Nmu + mubin).reshape(-1),
+                       torch.full_like(in_range, nb, dtype=torch.int64))
+    wf = torch.where(in_range, w.reshape(-1), torch.zeros_like(value))
+    copies = _n_copies(value) if copies is None else copies
+    index = _bin_index(flat.to(torch.int32), nb, copies)
+    sums = [_bin_sum(index, v, nb, copies)[:nb].double().cpu().numpy()
+            .reshape(nbins, Nmu)
+            for v in (wf, wf * value, wf * k_of_mode, wf * mu.reshape(-1))]
+    Nm, ps, ks, mus = sums
+    good = Nm > 0
+    safe = np.where(good, Nm, 1.0)
+    return dict(k=np.where(good, ks / safe, 0.0),
+                mu=np.where(good, mus / safe, 0.0),
+                power=np.where(good, ps / safe * pm.Volume, 0.0),
+                Nmodes=Nm)
+
+
+def measure_transfer(pm: PM, src_k, dest_k) -> PowerSpectrum:
+    """Binned transfer function sqrt(P_dest / P_src)
+    (fastpm_transferfunction_init, powerspectrum.c:125-140)."""
+    ps = measure_power(pm, src_k)
+    ps2 = measure_power(pm, dest_k)
+    good = ps.p > 0
+    t = np.where(good, np.sqrt(ps2.p / np.where(good, ps.p, 1.0)), 0.0)
+    return PowerSpectrum(ps.k, t, ps.Nmodes, ps.edges, ps.Volume, ps.k0)
 
 
 def _gauss_kronrod(n=20):

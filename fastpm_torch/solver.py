@@ -60,7 +60,7 @@ from .lpt import lpt_solve, lpt_evolve
 from .parallel.comm import Ring
 from .parallel.pfft import SlabPM
 from .parallel import psolver
-from . import transfers, events as ev
+from . import transfers, events as ev, prof
 from .units import RHO_CRIT, HUBBLE_CONSTANT, HUBBLE_DISTANCE
 
 __all__ = ["SolverConfig", "Solver", "CDM", "BARYON", "NCDM",
@@ -588,11 +588,14 @@ class Solver:
             self.event_handlers.emit(ev.EVENT_TRANSITION, ev.STAGE_BEFORE,
                                      solver=self, transition=trans)
             if trans.action == ACTION_KICK:
-                self.do_kick(trans, states, i)
+                with prof.clock("kick"):
+                    self.do_kick(trans, states, i)
             elif trans.action == ACTION_DRIFT:
-                self.do_drift(trans, states, i)
+                with prof.clock("drift"):
+                    self.do_drift(trans, states, i)
             elif trans.action == ACTION_FORCE:
-                self.do_force(trans, states, i)
+                with prof.clock("force"):
+                    self.do_force(trans, states, i)
             self.event_handlers.emit(ev.EVENT_TRANSITION, ev.STAGE_AFTER,
                                      solver=self, transition=trans)
             if i == 1:

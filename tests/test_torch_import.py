@@ -36,7 +36,9 @@ def test_import_leaves_jax_out():
     for name in ("cli", "solver", "gravity", "ncdm", "ops.cic", "ops.sort",
                  "benchlib", "parallel.comm", "parallel.pfft",
                  "parallel.psolver", "pgd", "neutrinos_lra", "png",
-                 "constrained", "lightcone", "io.snapshots"):
+                 "constrained", "lightcone", "io.snapshots", "io.fields",
+                 "io.legacy", "io.angular", "memory", "prof", "dump",
+                 "tools"):
         assert "fastpm_torch." + name in names
 
 
@@ -73,14 +75,19 @@ def test_unserved_parameter_stops_the_cli(tmp_path):
             "pm_nc_factor = 1\nnp_alloc_factor = 1.0\n"
             "h = 0.7\nOmega_m = 0.3\n")
     conf = tmp_path / "p.lua"
-    conf.write_text(base + 'write_nonlineark = "nlk"\n')
-    with pytest.raises(SystemExit, match="write_nonlineark"):
-        main([str(conf)], device="cpu")
-    # the lightcone, RFOF, potential, tidal, PGD and the linear response
-    # are served on one rank and stop a run of several
+    # read_grafic and write_runpbic, which the JAX package's CLI never
+    # reads, stay refused
+    for line in ('read_grafic = "noise"', 'write_runpbic = "ic"'):
+        conf.write_text(base + line + "\n")
+        with pytest.raises(SystemExit, match=line.split()[0]):
+            main([str(conf)], device="cpu")
+    # the lightcone, RFOF, potential, tidal, PGD, the linear response and
+    # a RunPB initial condition are served on one rank and stop a run of
+    # several
     for line in ('lc_write_usmesh = "lc"', 'write_rfof = "rfof"',
                  "compute_potential = true", "compute_tidal = true",
-                 "pgdc = true", "ncdm_linearresponse = true"):
+                 "pgdc = true", "ncdm_linearresponse = true",
+                 'read_runpbic = "ic"'):
         one = tmp_path / "one.lua"
         one.write_text(base + line + "\n")
         params = load_params(str(one))

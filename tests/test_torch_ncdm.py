@@ -360,9 +360,10 @@ def test_cli_powerspectrum_rows_agree(cli_runs):
 
 
 def test_unserved_ncdm_options_refused(tmp_path):
-    """ncdm k-space input and baryons stay refused, and the neutrino
-    linear response on several ranks; m_ncdm, read_linear_growth_rate
-    and the linear response on one rank are served."""
+    """Baryons stay refused, with the GRAFIC noise input and the RunPB IC
+    output, and the neutrino linear response on several ranks; m_ncdm,
+    read_linear_growth_rate and the linear response on one rank are
+    served."""
     from fastpm_torch import cli
     from fastpm_torch.config.params import load_params
     from fastpm_torch.solver import Solver, SolverConfig, BARYON
@@ -381,10 +382,13 @@ def test_unserved_ncdm_options_refused(tmp_path):
     cli.check_served(load_params(str(conf)))
     with pytest.raises(SystemExit, match="ncdm_linearresponse"):
         cli.check_served(load_params(str(conf)), ranks=2)
-    conf = tmp_path / "read_lineark_ncdm.lua"
-    conf.write_text(base + particles + 'read_lineark_ncdm = "lk"\n')
-    with pytest.raises(SystemExit, match="read_lineark_ncdm"):
-        cli.main([str(conf)], device="cpu")
+    # read_lineark_ncdm is served (tests/test_torch_cli_io.py); the
+    # parameters the JAX package's CLI never reads stay refused
+    for line in ('read_grafic = "noise"', 'write_runpbic = "ic"'):
+        conf = tmp_path / "refused.lua"
+        conf.write_text(base + particles + line + "\n")
+        with pytest.raises(SystemExit, match=line.split()[0]):
+            cli.main([str(conf)], device="cpu")
     solver = Solver(SolverConfig(nc=8, boxsize=16.0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.add_species(BARYON, solver.species["cdm"])

@@ -499,6 +499,11 @@ np_alloc_factor = 4.0
 write_snapshot = "%(out)s/fastpm"
 write_powerspectrum = "%(out)s/powerspec"
 write_fof = "%(out)s/fastpm"
+write_whitenoisek = "%(out)s/wn"
+write_lineark = "%(out)s/lk"
+write_linearr = "%(out)s/lr"
+write_nonlineark = "%(out)s/nlk"
+write_runpb_snapshot = "%(out)s/runpb"
 """
 
 
@@ -564,3 +569,33 @@ def test_cli_two_ranks_powerspectrum(cli_runs):
         np.testing.assert_array_equal(two[:, 2], one[:, 2])     # Nmodes
         # %g text (6 digits) of sums over other paint and FFT orders
         np.testing.assert_allclose(two[:, :2], one[:, :2], rtol=2e-5)
+
+
+@pytest.mark.parametrize("name,block", [
+    ("wn", "WhiteNoiseK"), ("lk", "LinearDensityK"),
+    ("lr", "LinearDensityR"), ("nlk_1.0000", "DensityK")])
+def test_cli_two_ranks_field_files(cli_runs, name, block):
+    """Every rank builds the whole linear field and rank 0 writes it: the
+    files of two ranks equal one rank's (the white noise and the linear
+    field bit for bit); the nonlinear density, painted from the rows
+    rank 0 gathers, within rtol 1e-5 and 1e-6 of its largest mode."""
+    from fastpm_torch.io.bigfile import BigFile
+    one, two = (BigFile(os.path.join(o, name)).open_block(block).read_all()
+                for o in cli_runs)
+    if block == "DensityK":
+        np.testing.assert_allclose(two, one, rtol=1e-5,
+                                   atol=1e-6 * np.abs(one).max())
+    else:
+        np.testing.assert_array_equal(two, one)
+
+
+def test_cli_two_ranks_runpb(cli_runs):
+    from fastpm_torch.io.legacy import read_runpb_snapshot
+    one, two = (read_runpb_snapshot(os.path.join(o, "runpb_1.0000.bin"))
+                for o in cli_runs)
+    oa, ob = np.argsort(one["id"]), np.argsort(two["id"])
+    np.testing.assert_array_equal(two["id"][ob], one["id"][oa])
+    dx = two["x"][ob] - one["x"][oa]
+    dx -= np.round(dx)
+    assert np.abs(dx).max() < 1e-4 / 32
+    assert np.abs(two["v"][ob] - one["v"][oa]).max() < 1e-4 * one["v"].std()
