@@ -158,6 +158,21 @@ K. the CLI's files, flags and tools at the main path's width (phase 7's
    with the clocks on the card (prof.enable_sync: CUDA events) against
    the step without them, the least block of 10 steps of each over 6
    alternated rounds;
+L. the pencil (2D) decomposition: the open-y mode of homed K1, K5, K2
+   and K6 (a Pencil) at full width: a 512^3 mesh, box 768, the 16.8 M
+   rows of a jittered 256^3 lattice, the extended pencils of ranks (1,
+   0) and (0, 1) of a 2 x 2 grid with Hx = Hy = 8 (rows inside, in the
+   halo bands and corners, and beyond, counted), each against its plain
+   version (bad exact), with the same timings (grid_sample on the
+   extended pencil the readouts' yardstick); then the pencil force on a
+   one-rank NCCL process group (a 1 x 1 Grid, both rings that rank)
+   from the main path's z = 0 state, the carry and the multi with from8
+   and from4 at Hx = Hy = 2, against compute_force_carry by id, the
+   open-y launches of the four homed kernels counted; the pencil multi
+   and the slab multi with the potential and tidal tensor against
+   compute_force by id; ms a step and peak memory of the pencil forces
+   beside the slab's, and a torch.profiler breakdown of the pencil
+   carry;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -291,11 +306,13 @@ def reset_peak():
 
 
 def reset_launches():
-    """Set every kernel's launch count, and the carry sort's call and
-    fallback counts, to 0."""
+    """Set every kernel's launch count (the homed kernels' open-y count
+    too), and the carry sort's call and fallback counts, to 0."""
     from fastpm_torch.ops import sort
     for name in KERNELS:
         wrapper(name).launches = 0
+    for name in HOMED:
+        wrapper(name).launches_open_y = 0
     sort.carry_sort.calls = 0
     sort.sort_maybe_ksorted.fallbacks = 0
 
@@ -635,15 +652,16 @@ def grid_sample_ms(fields, xs, inv, nmesh, reps, slab=None):
     wrap-padded by one plane per periodic axis, at each set of particles
     in xs (one call per set, timed together). With a slab the fields are
     extended slabs, open in x: the x coordinate is the plane relx plus
-    the fraction."""
+    the fraction; with a Pencil extended pencils, open in x and y."""
     import torch
     import torch.nn.functional as F
     from fastpm_torch.ops import cic
+    nopen = 0 if slab is None else (2 if isinstance(slab, cic.Pencil)
+                                    else 1)
     padded = torch.stack(fields)
-    if slab is None:
-        padded = torch.cat([padded, padded[:, :1]], dim=1)
-    padded = torch.cat([padded, padded[:, :, :1]], dim=2)
-    padded = torch.cat([padded, padded[:, :, :, :1]], dim=3)[None]
+    for d in range(nopen, 3):
+        padded = torch.cat([padded, padded.narrow(d + 1, 0, 1)], dim=d + 1)
+    padded = padded[None]
     size = torch.tensor(padded.shape[2:], device=xs[0].device)
     grids = []
     for x in xs:
@@ -651,7 +669,8 @@ def grid_sample_ms(fields, xs, inv, nmesh, reps, slab=None):
         if slab is not None:
             base, frac, _ = cic.slab_cell(x, tuple(fields[0].shape), inv,
                                           slab)
-            g = torch.cat([base[:, :1] + frac[:, :1], g[:, 1:]], dim=1)
+            g = torch.cat([base[:, :nopen] + frac[:, :nopen],
+                           g[:, nopen:]], dim=1)
         # grid (x, y, z) indexes (W, H, D) = (iz, iy, ix)
         grids.append((g * (2.0 / (size - 1)) - 1.0).flip(-1)
                      .reshape(1, -1, 1, 1, 3).float())
@@ -666,7 +685,8 @@ def grid_sample_ms(fields, xs, inv, nmesh, reps, slab=None):
                      .max())
               for out, x in zip(call(), xs))
     print("grid_sample yardstick%s: max_abs_err vs plain readout %.3g"
-          % (" (extended slab)" if slab else "", err))
+          % ((" (extended slab)", " (extended pencil)")[nopen - 1]
+             if slab else "", err))
     return time_ms(call, reps)
 
 
@@ -1372,9 +1392,9 @@ def homed_force(dev, store, pm, reps=5):
             return p.id, p.acc, bad
 
         def multi(hk):
-            (acc,), bad, _dk = psolver._force_local_homed_multi(
+            (out,), bad, _dk = psolver._force_local_homed_multi(
                 spm, (store.x,), (m0,), "1_4", H, homed_kernel=hk)
-            return store.id, acc, bad
+            return store.id, out["acc"], bad
 
         ref, _dk = gravity.compute_force_carry(pm, Painter(pm, "cic"), store)
         want = ref.acc[torch.argsort(ref.id)]
@@ -1415,6 +1435,278 @@ def homed_force(dev, store, pm, reps=5):
                   "%.3f GB" % (label, ms, n / ms * 1e3,
                                torch.cuda.max_memory_allocated() / 1e9))
         profile_force(lambda: carry("from8"))
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def check_kernels_pencil(dev, nc=256, nmesh=512, box=768.0, H=8, reps=10):
+    """Phase L, kernels: the open-y mode of homed K1, K5, K2 and K6 on the
+    extended pencils (nmesh / 2 + 2H + 1 planes and rows, nmesh columns)
+    of ranks (1, 0) and (0, 1) of a 2 x 2 grid, against their plain
+    versions. The 16.8 M rows of a jittered lattice of the whole box lie
+    inside the pencil, in its halo bands and corners, and beyond it
+    (counted in bad, exactly as the plain version counts them); they
+    come sorted by extended cell, those beyond last, as the pencil carry
+    sorts them. Returns the four kernels' open-y rows: err, ms, plain_ms,
+    bound (the rows' bytes and the canvas's or three fields' once), and
+    library_ms (grid_sample on the extended pencil at the rows inside)
+    for the readouts."""
+    import torch
+    from fastpm_torch.ops import cic
+
+    n = nc ** 3
+    inv = (nmesh / box,) * 3
+    half = nmesh // 2
+    ext = (half + 2 * H + 1, half + 2 * H + 1, nmesh)
+    cells = ext[0] * ext[1] * ext[2]
+    g = torch.Generator(device=dev).manual_seed(41)
+    x0 = jittered_lattice(nc, box, 2.0, nmesh, dev, 43)
+    masses = 0.5 + torch.rand(n, generator=g, device=dev)
+    rows = {name: dict(err=0.0) for name in HOMED}
+    paints = {
+        "cic_paint_homed": (
+            lambda c, x, m, s: cic.cic_paint_homed(c, x, inv, s, m),
+            lambda c, x, m, s: cic.cic_paint_homed_plain(c, x, inv, s, m)),
+        "cic_paint4": (
+            lambda c, x, m, s: cic.cic_paint4(c, x, inv, m, s),
+            lambda c, x, m, s: cic.cic_paint4_plain(c, x, inv, m, s))}
+    reads = {
+        "cic_readout_homed": (
+            lambda fs, x, s: cic.cic_readout_homed(fs, x, inv, s),
+            lambda fs, x, s: cic.cic_readout_plain(fs, x, inv, s)),
+        "cic_readout4": (
+            lambda fs, x, s: cic.cic_readout4(*fs, x, inv, s),
+            lambda fs, x, s: cic.cic_readout4_plain(*fs, x, inv, s))}
+    fields = [torch.randn(ext, generator=g, device=dev) for _ in range(3)]
+    canvas = torch.zeros(ext, device=dev)
+    for rank, (r0x, r0y) in (("(1, 0)", (half, 0)), ("(0, 1)", (0, half))):
+        pencil = cic.Pencil(nmesh, r0x, H, nmesh, r0y, H)
+        base, _f, valid = cic.slab_cell(x0, ext, inv, pencil)
+        key = (base[:, 0] * ext[1] + base[:, 1]) * ext[2] + base[:, 2]
+        order = torch.sort(torch.where(valid, key, cells),
+                           stable=True).indices
+        x, m_col = x0[order].contiguous(), masses[order].contiguous()
+        nout = int((~valid).sum())
+        inside = x[:n - nout]
+        del base, key, order
+        print("pencil kernels: rank %s of 2 x 2, H = %d, extended pencil "
+              "%dx%dx%d, %d rows, %d beyond it"
+              % (rank, H, *ext, n, nout))
+        for name, (fn, plain) in paints.items():
+            for m, label in ((1.0, "scalar mass"), (m_col, "mass column")):
+                canvas.zero_()
+                bad = fn(canvas, x, m, pencil)
+                want = torch.zeros(ext, device=dev)
+                bad_plain = plain(want, x, m, pencil)
+                err = check_close("%s open-y, rank %s, %s" % (name, rank,
+                                                              label),
+                                  canvas, want)
+                del want
+                if int(bad) != int(bad_plain) or int(bad) != nout:
+                    raise SystemExit("%s open-y: bad %d, plain %d, want %d"
+                                     % (name, int(bad), int(bad_plain),
+                                        nout))
+                rows[name]["err"] = max(rows[name]["err"], err)
+            if rank == "(1, 0)":
+                rows[name]["ms"] = time_ms(
+                    lambda: fn(canvas.zero_(), x, 1.0, pencil), reps)
+                rows[name]["plain_ms"] = time_ms(
+                    lambda: plain(canvas.zero_(), x, 1.0, pencil), reps)
+        for name, (fn, plain) in reads.items():
+            for k in ((1, 3) if name == "cic_readout_homed" else (3,)):
+                got, want = fn(fields[:k], x, pencil), plain(fields[:k], x,
+                                                             pencil)
+                err = check_close("%s open-y, rank %s, %d field%s"
+                                  % (name, rank, k, "s" * (k > 1)), got,
+                                  want)
+                if got[n - nout:].any():
+                    raise SystemExit("%s open-y: a row beyond the pencil "
+                                     "read a value" % name)
+                rows[name]["err"] = max(rows[name]["err"], err)
+            if rank == "(1, 0)":
+                rows[name]["ms"] = time_ms(lambda: fn(fields, x, pencil),
+                                           reps)
+                rows[name]["plain_ms"] = time_ms(
+                    lambda: plain(fields, x, pencil), reps)
+                rows[name]["library_ms"] = grid_sample_ms(
+                    fields, [inside], inv, nmesh, reps, pencil)
+        del x, m_col, inside
+    torch.cuda.synchronize()
+    # as phase A: the positions read once, the canvas written once or
+    # the three fields read once, the values written once
+    for name in ("cic_paint_homed", "cic_paint4"):
+        rows[name]["bound"] = bound_ms(12 * n + 4 * cells, 40 * n)
+    for name in ("cic_readout_homed", "cic_readout4"):
+        rows[name]["bound"] = bound_ms(12 * n + 3 * 4 * cells + 12 * n,
+                                       (40 + 48) * n)
+    for name, r in rows.items():
+        print("%s open-y: kernel_ms %.4f plain_ms %.4f library_ms %s "
+              "bound_ms %.4f (%s)"
+              % (name, r["ms"], r["plain_ms"],
+                 "%.4f" % r["library_ms"] if "library_ms" in r else "null",
+                 r["bound"][0], r["bound"][1]))
+    return rows
+
+
+def float64_potential(pm, x):
+    """The kernel 1_4 potential at x of x's plain CIC deposit (unit
+    masses) through float64 FFTs and tables, read out in float32: the
+    yardstick of the float32 forces' potential."""
+    import torch
+    from fastpm_torch.ops import cic
+    canvas = cic.cic_paint_plain(x, pm.Nmesh, pm.InvCellSize).double()
+    dk = torch.fft.rfftn(canvas / (x.shape[0] / pm.Norm)) / pm.Norm
+    del canvas
+    kk = sum(torch.as_tensor(pm._tables["kk"][d][pm.k_index(d)],
+                             device=x.device).reshape(
+                                 [-1 if j == d else 1 for j in range(3)])
+             for d in range(3))
+    dk *= -torch.where(kk > 0, 1 / torch.where(kk > 0, kk, 1.0), 0.0)
+    phi = torch.fft.irfftn(dk * pm.Norm, s=pm.Nmesh).float()
+    del dk
+    return cic.cic_readout_plain([phi], x, pm.InvCellSize)[:, 0]
+
+
+def pencil_force(dev, store, pm, reps=5):
+    """Phase L, the force: the pencil force on a one-rank NCCL process
+    group (a 1 x 1 Grid, both rings that rank) from the main path's
+    z = 0 state, the carry and the multi with from8 and from4 at Hx =
+    Hy = the measured requirement + 1 (at least 2), against
+    compute_force_carry by id; the potential and tidal tensor of the
+    pencil multi and of the slab multi against compute_force; ms a step
+    and peak memory of every pencil force beside the slab's, and a
+    profile of the pencil carry. Returns the open-y launches of the four
+    homed kernels in the four force runs."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from fastpm_torch import gravity
+    from fastpm_torch.ops import cic
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.parallel.comm import Grid
+    from fastpm_torch.parallel.pfft import PencilPM, SlabPM
+    from fastpm_torch.parallel import psolver
+    from fastpm_torch.store import Store
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d" % port,
+                            rank=0, world_size=1)
+    try:
+        grid = Grid(dist.group.WORLD, 1, 1)
+        ppm = PencilPM(pm, grid)
+        spm = SlabPM(pm, grid.flat)
+        store = store.wrap(pm.BoxSize)
+        hx, hy = psolver.required_halo_planes_pencil(pm, grid, store.x)
+        Hx, Hy = max(1, hx) + 1, max(1, hy) + 1
+        H = max(1, psolver.required_halo_planes(pm, grid.flat, store.x)) + 1
+        m0 = float(np.float32(store.M0))
+        n = store.np_local
+        print("pencil force: a 1 x 1 grid on a one-rank NCCL group, %d "
+              "particles, %d^3 mesh, Hx = %d, Hy = %d, extended pencil "
+              "%dx%dx%d, k shard %s (kz pad %d)"
+              % (n, pm.Nmesh[0], Hx, Hy, pm.Nmesh[0] + 2 * Hx + 1,
+                 pm.Nmesh[1] + 2 * Hy + 1, pm.Nmesh[2], ppm.kshard,
+                 ppm.nzp - ppm.nzh))
+
+        def carry(hk):
+            p, bad, _dk = psolver._force_local_homed_pencil_carry(
+                ppm, store, "1_4", Hx, Hy, homed_kernel=hk)
+            return p.id, p.acc, bad
+
+        def multi(hk, **extra):
+            (out,), bad, _dk = psolver._force_local_homed_pencil_multi(
+                ppm, (store.x,), (m0,), "1_4", Hx, Hy, homed_kernel=hk,
+                **extra)
+            return store.id, out, bad
+
+        ref, _dk = gravity.compute_force_carry(pm, Painter(pm, "cic"), store)
+        want = ref.acc[torch.argsort(ref.id)]
+        scale = float(want.abs().max())
+        del ref
+        torch.cuda.synchronize()
+        reset_launches()
+        results = {}
+        for hk in ("from8", "from4"):
+            results[hk, "carry"] = carry(hk)
+            ids, out, bad = multi(hk)
+            results[hk, "multi"] = (ids, out["acc"], bad)
+        torch.cuda.synchronize()
+        launches = {name: wrapper(name).launches_open_y for name in HOMED}
+        total = read_launches()
+        print("pencil force: open-y launches %s" % launches)
+        if (not all(launches[k] == 2 for k in HOMED)
+                or any(total[k] != launches[k] for k in HOMED)):
+            raise SystemExit("the pencil force did not run through the "
+                             "open-y homed kernels: %s" % total)
+        for (hk, body), (ids, acc, bad) in results.items():
+            err = float((acc[torch.argsort(ids)] - want).abs().max())
+            print("pencil force %s %s: bad %d, max |dacc| %.3g = %.3g of "
+                  "max |acc| %.4g (bound 1e-5)"
+                  % (hk, body, int(bad), err, err / scale, scale))
+            if int(bad) != 0 or not err <= 1e-5 * scale:
+                raise SystemExit("pencil force %s %s disagrees with the "
+                                 "single-device force" % (hk, body))
+        del results, want
+
+        # the potential and tidal tensor, pencil and slab, against the
+        # single-device force
+        one = Store(x=store.x, id=store.id, M0=store.M0,
+                    potential=torch.zeros(n, device=dev),
+                    tidal=torch.zeros((n, 6), device=dev))
+        (ref,), _dk = gravity.compute_force(
+            pm, Painter(pm, "cic"), [one], compute_potential=True,
+            compute_tidal=True)
+        extra = dict(compute_potential=True, compute_tidal=True)
+        (sout,), sbad, _dk = psolver._force_local_homed_multi(
+            spm, (store.x,), (m0,), "1_4", H, **extra)
+        # the float32 FFTs' own error in the potential, which 1/k^2
+        # weighs to the box's longest modes: the potential of the same
+        # (plain) deposit through float64 FFTs, as a yardstick
+        truth = float64_potential(pm, store.x)
+        sc = float(truth.abs().max())
+        print("potential against the float64 FFTs: single-device %.3g "
+              "of max %.4g" % (float((ref.potential - truth).abs().max())
+                               / sc, sc))
+        for label, (out, bad) in (
+                ("pencil multi", multi("from8", **extra)[1:]),
+                ("slab multi", (sout, sbad))):
+            for k in ("acc", "potential", "tidal"):
+                w = getattr(ref, k)
+                err = float((out[k] - w).abs().max())
+                sc = float(w.abs().max())
+                print("%s %s: bad %d, max |d| %.3g = %.3g of max %.4g "
+                      "(bound 1e-5)%s" % (
+                          label, k, int(bad), err, err / sc, sc,
+                          "; against the float64 FFTs %.3g" % (
+                              float((out[k] - truth).abs().max())
+                              / float(truth.abs().max()))
+                          if k == "potential" else ""))
+                if int(bad) != 0 or not err <= 1e-5 * sc:
+                    raise SystemExit("%s %s disagrees with compute_force"
+                                     % (label, k))
+        del ref, one, sout, _dk, truth
+
+        # ms a step and peak memory, the slab's beside the pencil's
+        for label, step in (
+                ("single-device compute_force_carry",
+                 lambda: gravity.compute_force_carry(
+                     pm, Painter(pm, "cic"), store)),
+                ("slab from8 carry", lambda: psolver._force_local_homed_carry(
+                    spm, store, "1_4", H)),
+                ("pencil from8 carry", lambda: carry("from8")),
+                ("pencil from8 multi", lambda: multi("from8")),
+                ("pencil from4 carry", lambda: carry("from4")),
+                ("pencil from4 multi", lambda: multi("from4"))):
+            reset_peak()
+            ms = time_ms(step, reps)
+            print("pencil force: %s %.2f ms = %.4g particle-steps/s, peak "
+                  "%.3f GB" % (label, ms, n / ms * 1e3,
+                               torch.cuda.max_memory_allocated() / 1e9))
+        profile_force(lambda: carry("from8"), label="pencil carry profile")
     finally:
         dist.destroy_process_group()
     return launches
@@ -3006,6 +3298,9 @@ def main():
         lpt_witness(dev)
         phase_k = cli_files_tools(dev, tmp, solver, pm)
     homed_launches = homed_force(dev, solver.species["cdm"], pm)
+    # phase L: the pencil's kernels, then its force
+    pencil_rows = check_kernels_pencil(dev)
+    pencil_launches = pencil_force(dev, solver.species["cdm"], pm)
     bench_launches = benchlib_path(dev, x0, v0, bpm)
     del x0, v0
     more_stale = stale_force(solver, pm)
@@ -3018,6 +3313,14 @@ def main():
         launches[name] = ncdm_launches[name]
     for name in HOMED:
         launches[name] = homed_launches[name]
+        # phase L: the open-y mode's row and its launches in the pencil
+        # force's runs
+        r = pencil_rows[name]
+        rows[name]["launches_phase_l"] = pencil_launches[name]
+        rows[name]["open_y"] = {
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms")}
     launches["merge_pairs"] = bench_launches["sb32768"]["merge_pairs"]
     launches["fof_link"] = lc_launches["fof_link"]
     rows["cic_paint4"]["launches_periodic"] = (

@@ -20,11 +20,14 @@ it (see ROADMAP.md). main_lua is the fastpm-lua counterpart.
 
 Under torchrun (WORLD_SIZE > 1) main starts the process group, as the
 JAX CLI builds its device mesh (cli.py:817-846): NCCL with one GPU per
-rank (cuda:LOCAL_RANK), or gloo when the caller asks for the CPU. The
-ranks split the particles in x-slabs (solver.py); every rank builds the
-whole linear field and the 2LPT displacements of its own rows, rank 0
-gathers the rows for the snapshots and runs FOF on them, and writes the
-files a one-rank run writes.
+rank (cuda:LOCAL_RANK), or gloo when the caller asks for the CPU. -y
+NprocY (0, the default: a near-square 2D grid on 4 ranks or more, else
+1) makes it a px x py process grid (parallel.comm.Grid); the ranks
+split the particles in x-slabs on a grid of py = 1 (or -f) and in
+pencils otherwise (solver.py); every rank builds the whole linear field
+and the 2LPT displacements of its own rows, rank 0 gathers the rows for
+the snapshots and runs FOF on them, and writes the files a one-rank run
+writes.
 """
 
 from __future__ import annotations
@@ -64,13 +67,10 @@ __all__ = ["main", "main_lua", "run_fastpm", "build_cosmology",
 # read_grafic set there starts from the seed), so the port stops the run
 # until it serves them for real (ROADMAP.md queue 3)
 _LATER_PARAMS = ("read_grafic", "write_runpbic")
-# served on one rank only: the slab force of several ranks reads out no
-# potential or tidal tensor and takes no delta_k transfer or PGD, the
-# lightcone and RFOF run on one device's rows, and a RunPB initial
-# condition is read into one store of every row
-_ONE_RANK_PARAMS = ("lc_write_usmesh", "write_rfof", "compute_potential",
-                    "compute_tidal", "pgdc", "ncdm_linearresponse",
-                    "read_runpbic")
+# served on one rank only: the force of several ranks takes no delta_k
+# transfer or PGD, and the lightcone and RFOF run on one device's rows
+_ONE_RANK_PARAMS = ("lc_write_usmesh", "write_rfof", "pgdc",
+                    "ncdm_linearresponse")
 
 
 def check_served(p: Params, ranks: int = 1) -> None:
@@ -737,7 +737,9 @@ def prepare_runpbic(solver: Solver, path: str, a0: float, log: Log):
     file's (position, velocity) pair using the fitting growth rates
     f1 = Omega^(4/7), f2 = Omega^(6/11) (in host float64), reset the
     particles to the half-cell-shifted lattice of their ids, then evolve
-    with 2LPT to a0 on the solver's device (one rank)."""
+    with 2LPT to a0 on the solver's device. On several ranks every rank
+    reads the file and keeps, sorted by id, the rows of its own lattice
+    sites: its slab, or its pencil (the ids of its lattice rows)."""
     from .io.legacy import read_runpb_snapshot
 
     data = read_runpb_snapshot(path)
@@ -754,6 +756,16 @@ def prepare_runpbic(solver: Solver, path: str, a0: float, log: Log):
     ids = data["id"].astype(np.int64)
     x = data["x"].astype(np.float64)          # box units [0,1)
     v = data["v"].astype(np.float64)          # RunPB RSD units
+    p = solver.species["cdm"]
+    if solver.ring.nproc > 1:
+        # the file's rows sorted by id are the lattice in id order: the
+        # rank's rows are those at its lattice rows' ids
+        order = np.argsort(ids, kind="stable")
+        if not np.array_equal(ids[order], np.arange(nc ** 3)):
+            raise SystemExit("read_runpbic on several ranks needs the ids "
+                             "of an nc^3 lattice, each once")
+        keep = order[p.id.cpu().numpy()]
+        ids, x, v = ids[keep], x[keep], v[keep]
     strides = np.array([nc * nc, nc, 1], dtype=np.int64)
     lattice = np.stack([(ids // strides[d]) % nc for d in range(3)],
                        axis=-1)
@@ -771,7 +783,6 @@ def prepare_runpbic(solver: Solver, path: str, a0: float, log: Log):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
             solver.device)
 
-    p = solver.species["cdm"]
     cell = boxsize / nc
     solver.species["cdm"] = p.replace(
         x=column(q, np.float32), v=torch.zeros_like(p.v),
@@ -839,15 +850,19 @@ def _check_restart(p: Params, ranks: int = 1) -> None:
 
 def run_fastpm(p: Params, log=None, n_writers: int = 0,
                device=None, group=None, restart: str = None,
-               memory_bound_mb: int = 0) -> Solver:
+               memory_bound_mb: int = 0, grid=None) -> Solver:
     """The full run (src/fastpm.c:run_fastpm) on `device` (default: the
     first CUDA device; raises when there is none), over the ranks of
-    the process group `group` when one is given; from the snapshot at
+    the process group `group` when one is given (in x-slabs), or of the
+    process grid `grid` (a parallel.comm.Grid; pencils where py > 1);
+    from the snapshot at
     `restart` when one is given (one rank). Each transition logs its
     banner and the memory report, and MemoryBoundExceeded stops the run
     when memory_bound_mb is set and exceeded; the teardown logs the
     memory report and the kick, drift and force clocks (prof)."""
     device = resolve_device(device)
+    if grid is not None and group is None:
+        group = grid.group
     ranks = 1
     if group is not None:
         import torch.distributed as dist
@@ -861,7 +876,11 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
         a0 = float(np.ravel(read_snapshot_header(restart)["ScalingFactor"])[0])
         cfg.time_step = _prepare_time_step(list(p.time_step), a0)
         log.info("Restarting from %s at a = %0.4f", restart, a0)
-    solver = Solver(cfg, build_cosmology(p), device=device, group=group)
+    if grid is not None and ranks > 1:
+        log.info("Using a %s device mesh over %d devices", grid.shape,
+                 ranks)
+    solver = Solver(cfg, build_cosmology(p), device=device, group=group,
+                    grid=grid)
     if p.ncdm_linearresponse:
         z_t = (p.ncdm_transfer_redshift
                if p.ncdm_transfer_redshift is not None
@@ -931,14 +950,34 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     return solver
 
 
-def start_ranks(device=None):
-    """(device, process group) of this process. Under torchrun
-    (WORLD_SIZE > 1 in the environment, with RANK, LOCAL_RANK,
-    MASTER_ADDR and MASTER_PORT) this starts the default process group:
-    NCCL on cuda:LOCAL_RANK, or gloo when device is "cpu". Otherwise
-    (device, None): one rank."""
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
-        return resolve_device(device), None
+def grid_rows(n: int, nprocy: int = 0) -> int:
+    """The ranks along y of the process grid over n ranks (make_device_mesh,
+    fastpm_tpu/cli.py:817-843): nprocy = 0 picks a near-square 2D grid
+    for n >= 4 (int(sqrt(n)), backed off to a divisor), else 1; a given
+    nprocy must divide n (SystemExit otherwise)."""
+    if nprocy == 0:
+        ny = 1
+        if n >= 4:
+            ny = int(np.sqrt(n))
+            while n % ny:
+                ny -= 1
+        return ny
+    if n % nprocy:
+        raise SystemExit(f"-y {nprocy} does not divide {n} devices")
+    return int(nprocy)
+
+
+def start_ranks(device=None, nprocy: int = 0):
+    """(device, process group, process grid) of this process. Under
+    torchrun (WORLD_SIZE > 1 in the environment, with RANK, LOCAL_RANK,
+    MASTER_ADDR and MASTER_PORT) this starts the default process group,
+    NCCL on cuda:LOCAL_RANK, or gloo when device is "cpu", and the
+    px x py Grid over it of grid_rows(nprocy) rows along y. Otherwise
+    (device, None, None): one rank."""
+    n = int(os.environ.get("WORLD_SIZE", "1"))
+    if n <= 1:
+        return resolve_device(device), None, None
+    ny = grid_rows(n, nprocy)
     import torch
     import torch.distributed as dist
     if device is not None and torch.device(device).type == "cpu":
@@ -949,7 +988,8 @@ def start_ranks(device=None):
         torch.cuda.set_device(device)
         backend = "nccl"
     dist.init_process_group(backend)
-    return device, dist.group.WORLD
+    from .parallel.comm import Grid
+    return device, dist.group.WORLD, Grid(dist.group.WORLD, n // ny, ny)
 
 
 def main(argv=None, device=None):
@@ -963,9 +1003,10 @@ def main(argv=None, device=None):
     ap.add_argument("-f", dest="fftw", action="store_true",
                     help="force the 1D slab decomposition (the FFTW-MPI "
                          "analog; same as -y 1)")
-    ap.add_argument("-y", dest="nprocy", type=int, default=1,
-                    help="ranks along y of a 2D (pencil) decomposition "
-                    "(not in this slice: only 1)")
+    ap.add_argument("-y", dest="nprocy", type=int, default=0,
+                    help="ranks along y of the process grid (NprocY): "
+                         "0 = auto (a 1D slab over every rank; a near-"
+                         "square 2D pencil grid on 4 ranks or more)")
     ap.add_argument("-m", dest="memory_bound_mb", type=int, default=0,
                     help="abort cleanly (MemoryBoundExceeded) when memory "
                          "usage exceeds this many MB (0 = unbounded)")
@@ -979,14 +1020,10 @@ def main(argv=None, device=None):
     ap.add_argument("args", nargs="*", help="extra arguments exposed as "
                     "`args` in the parameter file")
     ns = ap.parse_args(argv)
-    if ns.nprocy > 1 and not ns.fftw:
-        raise SystemExit("fastpm_torch: -y NprocY > 1 (the pencil "
-                         "decomposition) is not served by this slice of "
-                         "the port (see ROADMAP.md)")
     import faulthandler
     faulthandler.enable()  # crash backtraces (src/stacktrace.c)
     p = load_params(ns.params, ns.args)
-    device, group = start_ranks(device)
+    device, group, grid = start_ranks(device, 1 if ns.fftw else ns.nprocy)
     kw = dict(n_writers=ns.W, device=device, restart=ns.restart,
               memory_bound_mb=ns.memory_bound_mb)
     try:
@@ -996,7 +1033,7 @@ def main(argv=None, device=None):
             else:
                 import torch.distributed as dist
                 run_fastpm(p, log=Log(echo=dist.get_rank() == 0),
-                           group=group, **kw)
+                           group=group, grid=grid, **kw)
                 # the ranks end together: rank 0 is done writing when
                 # any exits
                 dist.barrier()

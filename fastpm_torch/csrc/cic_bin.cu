@@ -37,7 +37,7 @@
 
 namespace {
 
-using fastpm_cic::XAxis;
+using fastpm_cic::OpenAxes;
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
@@ -58,7 +58,7 @@ __device__ __forceinline__ int line_of(const float* x, long long i, int nx,
                                        float icz) {
     int lo[3], hi[3];
     float f[3], t[3];
-    fastpm_cic::cell(x + 3 * i, nx, ny, nz, icx, icy, icz, XAxis{0, 0}, lo,
+    fastpm_cic::cell(x + 3 * i, nx, ny, nz, icx, icy, icz, OpenAxes{0, 0}, lo,
                      hi, f, t);
     return lo[0] * ny + lo[1];
 }

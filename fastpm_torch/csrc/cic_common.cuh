@@ -22,7 +22,13 @@
 // relx = remainder(bx + shift, n0) with shift = H - r0, r0 the slab's
 // first plane (fastpm_tpu/parallel/psolver.py:178-190 _cic_rel); only
 // relx < nx - 1 lies inside, and its +1 corner is relx + 1, unwrapped.
-// y and z stay periodic.
+// The pencil force opens y as well (the open_y mode of the homed TPU
+// kernels): its canvas is the rank's pencil widened by Hx planes and Hy
+// rows, ny = nly + 2Hy + 1 rows, and the base row sits at
+// rely = remainder(by + yshift, n1) with yshift = Hy - r0y
+// (psolver.py:1171-1184 _cic_rel2); only rely < ny - 1 lies inside, and
+// its +1 corner is not wrapped. z stays periodic (the one face the open_y
+// kernels fold, paint_pallas.py:996-998).
 
 #pragma once
 
@@ -30,11 +36,15 @@
 
 namespace fastpm_cic {
 
-// The x axis of a canvas: n0 == 0 periodic, else open over a global mesh
-// of n0 planes with the slab shift H - r0.
-struct XAxis {
+// The open axes of a canvas. x: n0 == 0 periodic, else open over a
+// global mesh of n0 planes with the slab shift H - r0. y (only where x is
+// open): n1 == 0 periodic, else open over a global mesh of n1 rows with
+// the pencil shift yshift = Hy - r0y.
+struct OpenAxes {
     int n0;
     int shift;
+    int n1;
+    int yshift;
 };
 
 __device__ __forceinline__ int wrap_cell(int i, int n) {
@@ -51,10 +61,10 @@ __device__ __forceinline__ int wrap(int b, int n) {
 
 // Base cell lo, +1 neighbour hi, fraction f and 1 - f per axis of the
 // particle at p (3 float32). Returns false for a particle beyond an
-// open x-slab (lo, hi, f and t are then not set).
+// open x-slab or pencil (lo, hi, f and t are then not set).
 __device__ __forceinline__ bool cell(const float* p, int nx, int ny, int nz,
                                      float icx, float icy, float icz,
-                                     XAxis ax, int lo[3], int hi[3],
+                                     OpenAxes ax, int lo[3], int hi[3],
                                      float f[3], float t[3]) {
     const float g[3] = {__fmul_rn(p[0], icx), __fmul_rn(p[1], icy),
                         __fmul_rn(p[2], icz)};
@@ -68,11 +78,17 @@ __device__ __forceinline__ bool cell(const float* p, int nx, int ny, int nz,
         lo[0] = wrap((int)b[0], nx);
         hi[0] = lo[0] + 1 == nx ? 0 : lo[0] + 1;
     }
-    const int nm[3] = {nx, ny, nz};
-    for (int d = 1; d < 3; ++d) {
-        lo[d] = wrap((int)b[d], nm[d]);
-        hi[d] = lo[d] + 1 == nm[d] ? 0 : lo[d] + 1;
+    if (ax.n1 > 0) {
+        const int rel = wrap(wrap((int)b[1], ax.n1) + ax.yshift, ax.n1);
+        if (rel >= ny - 1) return false;
+        lo[1] = rel;
+        hi[1] = rel + 1;
+    } else {
+        lo[1] = wrap((int)b[1], ny);
+        hi[1] = lo[1] + 1 == ny ? 0 : lo[1] + 1;
     }
+    lo[2] = wrap((int)b[2], nz);
+    hi[2] = lo[2] + 1 == nz ? 0 : lo[2] + 1;
     for (int d = 0; d < 3; ++d) {
         f[d] = __fsub_rn(g[d], b[d]);
         t[d] = __fsub_rn(1.0f, f[d]);
@@ -103,11 +119,11 @@ __device__ __forceinline__ void plane_corners(int dx, const int lo[3],
 
 // Fill idx[8] (flat index into an nx*ny*nz mesh) and w[8] for the
 // particle at p, dx-major. Returns false for a particle beyond an open
-// x-slab.
+// x-slab or pencil.
 __device__ __forceinline__ bool corners(const float* p, int nx, int ny,
                                         int nz, float icx, float icy,
                                         float icz, int idx[8], float w[8],
-                                        XAxis ax = XAxis{0, 0}) {
+                                        OpenAxes ax = OpenAxes{0, 0}) {
     int lo[3], hi[3];
     float f[3], t[3];
     if (!cell(p, nx, ny, nz, icx, icy, icz, ax, lo, hi, f, t)) return false;

@@ -4,7 +4,8 @@
 // add mass m times the 8 corner weights of cic_common.cuh at every row
 // into a canvas, with a scalar mass or a mass column, the rows read in
 // their order or through an index (K3's cell order); on an open x axis
-// a row beyond the slab deposits nothing and adds one to *bad.
+// (and, for the pencil force, an open y axis) a row beyond the slab or
+// pencil deposits nothing and adds one to *bad.
 //
 // What bounds a deposit on an H100 is the reductions the canvas takes
 // in L2. One thread a row with 8 scalar global atomics (the port's first
@@ -20,7 +21,8 @@
 //    (y span + 2) lines of nz floats, kept relative to the lowest base
 //    plane and row. The +1 corner is the next tile plane or row, mapped
 //    back with the periodic wrap when the tile is flushed (it never
-//    wraps on an open x axis: a row inside the slab has relx <= nx - 2).
+//    wraps on an open axis: a row inside the slab has relx <= nx - 2,
+//    one inside the pencil also rely <= ny - 2).
 // 3. Tile path, where the footprint is at most TILE_FLOATS_PER_ROW
 //    floats a row: in passes of as many lines as TILE_BYTES of dynamic
 //    shared memory hold, zero the tile, add the corners on its lines
@@ -72,11 +74,11 @@ struct Deposit {
     long long n;
     int nx, ny, nz;
     float icx, icy, icz;
-    XAxis ax;
+    OpenAxes ax;
     float mass;
     const float* masses;     // null: every row has `mass`
     float* canvas;
-    int* bad;                // open x axis only
+    int* bad;                // open axes only
     bool vec;                // nz % 4 == 0 and canvas 16-byte aligned
 };
 
@@ -125,7 +127,7 @@ deposit_kernel(const Deposit a) {
     if (r < a.n) {
         const long long i = a.order ? a.order[r] : r;
         in = cell(a.x + 3 * i, a.nx, a.ny, a.nz, a.icx, a.icy, a.icz,
-                  OPEN_X ? a.ax : XAxis{0, 0}, lo, hi, f, t);
+                  OPEN_X ? a.ax : OpenAxes{0, 0}, lo, hi, f, t);
         if (in) m = a.masses ? a.masses[i] : a.mass;
     }
     if (OPEN_X) {

@@ -1,7 +1,7 @@
 // K5: CIC paint of the TPU's two-pass deposit (4 corners a pass, one per
 // x plane of the cloud), with a scalar mass or a mass column, added into
 // a canvas the caller owns (a periodic mesh, or one rank's extended
-// x-slab).
+// x-slab or extended pencil).
 //
 // Replaces the TPU kernel fastpm_tpu/ops/paint_pallas.py:_paint_kernel4,
 // the 4-corners-per-pass deposit (pass p = dx scatters the corner
@@ -9,7 +9,8 @@
 // window accumulators on the MXU). Two factories reach it:
 // make_paint_from4_fn (a periodic mesh) and make_paint_from4_homed_fn
 // (the homed slab force's extended slab, open in x, mass column through
-// w8T_m), which the homed force takes with homed_kernel="from4".
+// w8T_m; with open_y the pencil force's extended pencil, open in x and
+// y), which the homed forces take with homed_kernel="from4".
 //
 // Contract: the same function as K1 (cic_paint.cu): the base cell,
 // fraction and corner weights of cic_common.cuh times the mass, added
@@ -32,22 +33,28 @@
 #include "cic_deposit.cuh"
 
 using fastpm_cic::Deposit;
-using fastpm_cic::XAxis;
+using fastpm_cic::OpenAxes;
 
 // Add n particles (x: n x 3 float32, device) of mass `mass`, or of
 // masses[i] when masses is not null, into canvas (nx*ny*nz float32,
 // device; not zeroed here) on `stream`. n0 == 0: periodic in x. n0 > 0:
 // the extended slab, open in x over a global mesh of n0 planes with
-// shift H - r0, and the count of particles beyond it is added to *bad
-// (one int32, device). Returns cudaGetLastError().
+// shift H - r0 (n1 > 0: the extended pencil, also open in y over a
+// global mesh of n1 rows with shift Hy - r0y), and the count of
+// particles beyond it is added to *bad (one int32, device). Returns
+// cudaGetLastError().
 extern "C" int fastpm_cic_paint4(const float* x, long long n, int nx,
                                  int ny, int nz, float icx, float icy,
-                                 float icz, int n0, int shift, float mass,
+                                 float icz, int n0, int shift, int n1,
+                                 int yshift, float mass,
                                  const float* masses, float* canvas,
                                  int* bad, cudaStream_t stream) {
-    if (n0 < 0 || (n0 > 0 && nx < 2)) return (int)cudaErrorInvalidValue;
+    if (n0 < 0 || (n0 > 0 && nx < 2) || n1 < 0 || (n1 > 0 && n0 == 0)
+        || (n1 > 0 && ny < 2))
+        return (int)cudaErrorInvalidValue;
     return fastpm_cic::launch_deposit(
-        Deposit{x, nullptr, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
+        Deposit{x, nullptr, n, nx, ny, nz, icx, icy, icz,
+                OpenAxes{n0, shift, n1, yshift},
                 mass, masses, canvas, n0 > 0 ? bad : nullptr,
                 fastpm_cic::deposit_vec(nz, canvas)},
         stream);

@@ -32,7 +32,7 @@
 #include "cic_deposit.cuh"
 
 using fastpm_cic::Deposit;
-using fastpm_cic::XAxis;
+using fastpm_cic::OpenAxes;
 
 // Add n particles (x: n x 3 float32, device) of mass `mass`, or of
 // masses[i] when masses (n float32, device) is not null, into canvas
@@ -46,7 +46,7 @@ extern "C" int fastpm_cic_paint_into(const float* x, long long n, int nx,
                                      const long long* order, float* canvas,
                                      cudaStream_t stream) {
     return fastpm_cic::launch_deposit(
-        Deposit{x, order, n, nx, ny, nz, icx, icy, icz, XAxis{0, 0}, mass,
+        Deposit{x, order, n, nx, ny, nz, icx, icy, icz, OpenAxes{0, 0}, mass,
                 masses, canvas, nullptr, fastpm_cic::deposit_vec(nz, canvas)},
         stream);
 }

@@ -1,13 +1,16 @@
 // K2, K4 and K6: CIC readout (gather) of 1 to 3 mesh fields at particles
-// in any order, periodic fields or one rank's extended x-slabs, in one
-// pass over the fields.
+// in any order, periodic fields, one rank's extended x-slabs, or (the
+// pencil force) its extended pencils, in one pass over the fields.
 //
 // Replaces three TPU kernels of fastpm_tpu/ops/readout_pallas.py:
 // - K2 _readout_kernel8 (:836), the one-pass gather of cell-sorted
 //   particles from wrap-padded canvas windows. make_readout3_from8_fn
 //   (:1248) reaches it for the order-free force's readout and, with one
 //   field, the 2LPT readouts; make_readout3_from8_homed_fn (:764) for the
-//   homed slab force's readout from the extended slabs (open in x);
+//   homed slab force's readout from the extended slabs (open in x), and
+//   with open_y the pencil force's from the extended pencils (open in x
+//   and y: the index and validity test of cic_common.cuh, a launch
+//   parameter of the same body);
 // - K6 _readout_kernel4 (:371), which gathers the 4 corners of each x
 //   plane of the cloud in a pass of its own, the caller adding the two
 //   passes (:1416-1419): make_readout3_from4_fn (:659) and
@@ -23,8 +26,8 @@
 // corners plus the sum over plane 1's (K6). Every product and sum is
 // rounded on its own in the plain version's order (no fused
 // multiply-add), so the result equals ops/cic.py's plain version bit
-// for bit. In the homed form a particle beyond the slab reads zero (its
-// paint counted it). Row i of the output is particle i's, so K4's rows
+// for bit. In the homed form a particle beyond the slab or pencil reads
+// zero (its paint counted it). Row i of the output is particle i's, so K4's rows
 // come back in the caller's order with no sort and no unsort.
 //
 // What bounds it on an H100: device-memory bytes. The fields read once,
@@ -65,7 +68,7 @@
 
 namespace {
 
-using fastpm_cic::XAxis;
+using fastpm_cic::OpenAxes;
 
 constexpr int THREADS = 256;
 
@@ -74,7 +77,7 @@ struct Params {
     long long n;
     int nx, ny, nz;
     float icx, icy, icz;
-    XAxis ax;
+    OpenAxes ax;
     const float* f[3];
     int k;         // fields: 1 to 3
     float* out;
@@ -128,7 +131,7 @@ readout_kernel(const Params a) {
     const bool inside =
         tid < cnt && fastpm_cic::corners(pos + 3 * tid, a.nx, a.ny, a.nz,
                                          a.icx, a.icy, a.icz, idx, w,
-                                         OPEN_X ? a.ax : XAxis{0, 0});
+                                         OPEN_X ? a.ax : OpenAxes{0, 0});
     // one field at a time: its 8 loads are summed before the next
     // field's issue
 #pragma unroll 1
@@ -161,19 +164,23 @@ bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 // may be null) at n particles (x: n x 3 float32, device) into out (n x k
 // float32, device) on `stream`. n0 == 0: periodic in x; n0 > 0: the
 // extended slab, open in x over a global mesh of n0 planes with shift
-// H - r0. two_planes (k == 3 only): K6's sum, plane by plane. Returns
-// cudaGetLastError().
+// H - r0; n1 > 0 (with n0 > 0): the extended pencil, also open in y over
+// a global mesh of n1 rows with shift Hy - r0y. two_planes (k == 3
+// only): K6's sum, plane by plane. Returns cudaGetLastError().
 extern "C" int fastpm_cic_readout(const float* x, long long n, int nx,
                                   int ny, int nz, float icx, float icy,
-                                  float icz, int n0, int shift,
-                                  int two_planes, const float* f0,
-                                  const float* f1, const float* f2, int k,
-                                  float* out, cudaStream_t stream) {
+                                  float icz, int n0, int shift, int n1,
+                                  int yshift, int two_planes,
+                                  const float* f0, const float* f1,
+                                  const float* f2, int k, float* out,
+                                  cudaStream_t stream) {
     if (k < 1 || k > 3 || (two_planes && k != 3) || n0 < 0
-        || (n0 > 0 && nx < 2))
+        || (n0 > 0 && nx < 2) || n1 < 0 || (n1 > 0 && n0 == 0)
+        || (n1 > 0 && ny < 2))
         return (int)cudaErrorInvalidValue;
     if (n <= 0) return (int)cudaGetLastError();
-    const Params a{x, n, nx, ny, nz, icx, icy, icz, XAxis{n0, shift},
+    const Params a{x, n, nx, ny, nz, icx, icy, icz,
+                   OpenAxes{n0, shift, n1, yshift},
                    {f0, f1, f2}, k, out, aligned16(x) && aligned16(out)};
     const bool open = n0 > 0;
     if (two_planes)

@@ -101,8 +101,8 @@ class PM:
     def k_index(self, d: int) -> np.ndarray:
         """The indices along dimension d of the k grid that this PM's
         k-space arrays hold: every plane in x and y, the hermitian half
-        in z. A rank's k shard holds a slice in y
-        (parallel.pfft.KShard)."""
+        in z. A rank's k shard holds a slice in y, and on the pencil one
+        in z too (parallel.pfft.KShard)."""
         n = self.Nmesh[d]
         return np.arange(n // 2 + 1 if d == 2 else n)
 
@@ -157,12 +157,13 @@ class PM:
     def hermitian_weights(self) -> torch.Tensor:
         """Float (1,1,Nz/2+1) weights: 2 for modes whose conjugate lives
         outside the compressed array, 1 on the kz=0 and kz=Nyquist planes
-        (powerspectrum.c:92-94, pm_compute_variance pmapi.c:290-308)."""
+        (powerspectrum.c:92-94, pm_compute_variance pmapi.c:290-308); 0
+        past the hermitian half (a pencil k shard's pad)."""
         def make():
             nz = self.Nmesh[2]
-            iz = np.arange(nz // 2 + 1)
+            iz = self.k_index(2)
             w = np.where((iz == 0) | (iz == nz // 2), 1.0, 2.0)
-            return self.broadcast(w, 2)
+            return self.broadcast(np.where(iz <= nz // 2, w, 0.0), 2)
         return self._const("hermitian_weights", make)
 
     def integer_kk(self) -> torch.Tensor:

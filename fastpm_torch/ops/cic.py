@@ -47,14 +47,18 @@ floor(g). The corner weights follow w8_from_frac: ((wx * wy) * wz).
 
 A homed form takes a `Slab`: the canvas or field is one rank's x-slab
 widened by H planes on the left and H + 1 on the right, open in x and
-periodic in y and z. A particle beyond it deposits nothing, reads zero
-and is counted: the paints return that count, the `bad` of the homed
-force's overflow contract, as an int32 tensor on the device.
+periodic in y and z. Or it takes a `Pencil` (the pencil force, the
+open_y mode of the homed TPU factories): one rank's pencil widened by Hx
+planes and Hy rows on the left and Hx + 1, Hy + 1 on the right, open in
+x and y and periodic in z. A particle beyond it deposits nothing, reads
+zero and is counted: the paints return that count, the `bad` of the
+homed force's overflow contract, as an int32 tensor on the device.
 
 Every wrapper dispatches on the device of x: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel (built at first use)
 or raises. Each wrapper counts its kernel launches in its `launches`
-attribute.
+attribute; the homed wrappers count their launches on a Pencil in
+`launches_open_y` as well.
 """
 
 from __future__ import annotations
@@ -68,7 +72,8 @@ import torch
 from .cudalib import get_lib as _get_lib
 from .cudalib import launch as _launch
 
-__all__ = ["Slab", "CellOrder", "cell_key", "sort_by_cell", "cell_order",
+__all__ = ["Slab", "Pencil", "CellOrder", "cell_key", "sort_by_cell",
+           "cell_order",
            "cell_order_plain", "slab_cell", "cic_paint",
            "cic_readout", "cic_paint_into", "cic_readout3",
            "cic_readout_ordered",
@@ -101,6 +106,42 @@ class Slab(NamedTuple):
     @property
     def shift(self) -> int:
         return self.H - self.r0
+
+
+class Pencil(NamedTuple):
+    """The extended pencil of one rank of the pencil force: the full
+    mesh has n0 planes in x and n1 rows in y, the rank's pencil starts at
+    plane r0x and row r0y, and the canvas holds it widened by Hx planes
+    and Hy rows on each side plus one ((nlx + 2Hx + 1, nly + 2Hy + 1,
+    Nz)). A base cell (bx, by) sits at relx = remainder(bx - r0x + Hx,
+    n0), rely = remainder(by - r0y + Hy, n1) (psolver.py:_cic_rel2);
+    relx >= nlx + 2Hx or rely >= nly + 2Hy is beyond the pencil. The y + 1
+    corner is not wrapped; only z is periodic."""
+
+    n0: int
+    r0x: int
+    Hx: int
+    n1: int
+    r0y: int
+    Hy: int
+
+    @property
+    def shift(self) -> int:
+        return self.Hx - self.r0x
+
+    @property
+    def yshift(self) -> int:
+        return self.Hy - self.r0y
+
+
+def _open_axes(slab):
+    """(n0, shift, n1, yshift) of the kernels' open axes: zeros for a
+    periodic mesh, n1 = yshift = 0 for a Slab."""
+    if slab is None:
+        return 0, 0, 0, 0
+    if isinstance(slab, Pencil):
+        return slab.n0, slab.shift, slab.n1, slab.yshift
+    return slab.n0, slab.shift, 0, 0
 
 
 def _inv32(inv_cell):
@@ -213,16 +254,24 @@ def _order_index(order, x):
     return idx
 
 
-def slab_cell(x: torch.Tensor, nmesh, inv_cell, slab: Slab):
-    """(base (N, 3) int64 on the extended slab, frac (N, 3), valid (N,)):
-    the x index is relx; rows beyond the slab get plane 0 and
-    valid False."""
+def slab_cell(x: torch.Tensor, nmesh, inv_cell, slab):
+    """(base (N, 3) int64 on the extended slab or pencil, frac (N, 3),
+    valid (N,)): the x index is relx (and on a Pencil the y index rely);
+    rows beyond the slab or pencil get plane (and row) 0 and valid
+    False."""
     nx, ny, nz = nmesh
-    base, f = cell_frac(x, (slab.n0, ny, nz), inv_cell)
+    pencil = isinstance(slab, Pencil)
+    base, f = cell_frac(x, (slab.n0, slab.n1 if pencil else ny, nz),
+                        inv_cell)
     relx = torch.remainder(base[:, 0] + slab.shift, slab.n0)
     valid = relx < nx - 1
-    base = torch.stack([torch.where(valid, relx, 0), base[:, 1],
-                        base[:, 2]], dim=-1)
+    by = base[:, 1]
+    if pencil:
+        by = torch.remainder(by + slab.yshift, slab.n1)
+        valid = valid & (by < ny - 1)
+        by = torch.where(valid, by, 0)
+    base = torch.stack([torch.where(valid, relx, 0), by, base[:, 2]],
+                       dim=-1)
     return base, f, valid
 
 
@@ -237,7 +286,8 @@ def _corners(x, nmesh, inv_cell, slab=None):
     else:
         base, f, valid = slab_cell(x, nmesh, inv_cell, slab)
     t = 1.0 - f
-    # an open x axis never reaches plane nx (relx <= nx - 2)
+    # an open axis never reaches plane nx (relx <= nx - 2) or row ny
+    # (rely <= ny - 2)
     hi = torch.where(base + 1 == torch.tensor(nmesh, device=x.device),
                      torch.zeros_like(base), base + 1)
     out = []
@@ -282,24 +332,25 @@ def cic_paint_plain(x: torch.Tensor, nmesh, inv_cell,
 
 
 def cic_paint_homed_plain(canvas: torch.Tensor, x: torch.Tensor, inv_cell,
-                          slab: Slab, mass=1.0) -> torch.Tensor:
-    """Plain homed K1: the deposit added into the extended slab canvas;
-    returns the count of rows beyond the slab."""
+                          slab, mass=1.0) -> torch.Tensor:
+    """Plain homed K1: the deposit added into the extended slab (or, with
+    a Pencil, extended pencil) canvas; returns the count of rows beyond
+    it."""
     return _deposit_plain(canvas, x, inv_cell, mass, slab)
 
 
 def cic_paint4_plain(canvas: torch.Tensor, x: torch.Tensor, inv_cell,
-                     mass=1.0, slab: Slab | None = None) -> torch.Tensor:
+                     mass=1.0, slab=None) -> torch.Tensor:
     """Plain K5: the same sum as K1's (the two passes only reorder the
-    additions), periodic or into a slab; returns the count of rows
-    beyond the slab (0 without one)."""
+    additions), periodic or into a Slab or Pencil; returns the count of
+    rows beyond it (0 without one)."""
     return _deposit_plain(canvas, x, inv_cell, mass, slab)
 
 
 def cic_readout_plain(fields, x: torch.Tensor, inv_cell,
-                      slab: Slab | None = None) -> torch.Tensor:
-    """Plain K2 and K4 (and homed K2 with a slab): gather of the 8
-    corners and a weighted sum, (N, k)."""
+                      slab=None) -> torch.Tensor:
+    """Plain K2 and K4 (and homed K2 with a Slab or Pencil): gather of
+    the 8 corners and a weighted sum, (N, k)."""
     nmesh = tuple(fields[0].shape)
     flat = [f.reshape(-1) for f in fields]
     out = torch.zeros((x.shape[0], len(fields)), dtype=torch.float32,
@@ -311,7 +362,7 @@ def cic_readout_plain(fields, x: torch.Tensor, inv_cell,
 
 
 def cic_readout4_plain(cx, cy, cz, x: torch.Tensor, inv_cell,
-                       slab: Slab | None = None) -> torch.Tensor:
+                       slab=None) -> torch.Tensor:
     """Plain K6: per x plane of the cloud, the weighted sum of its 4
     corners; the two planes' sums added, (N, 3)."""
     flat = [f.reshape(-1) for f in (cx, cy, cz)]
@@ -340,8 +391,15 @@ def _check_mesh(nmesh):
 def _check_slab(slab, nmesh):
     if slab is None:
         return
-    n0, r0, H = slab
-    if not (0 <= r0 < n0 and H >= 0 and nmesh[0] >= 2):
+    if isinstance(slab, Pencil):
+        n0, r0, H, n1, r0y, Hy = slab
+        ok = 0 <= r0y < n1 and Hy >= 0 and nmesh[1] >= 2
+    elif isinstance(slab, Slab):
+        n0, r0, H = slab
+        ok = True
+    else:
+        raise ValueError(f"{slab!r} is neither a Slab nor a Pencil")
+    if not (ok and 0 <= r0 < n0 and H >= 0 and nmesh[0] >= 2):
         raise ValueError(f"bad slab {slab} for the canvas {tuple(nmesh)}")
 
 
@@ -435,27 +493,37 @@ cic_paint_into.launches = 0
 
 
 def _paint_slab(name, canvas, x, inv_cell, mass, slab):
-    """Launch a paint entry point with the (n0, shift) x axis (0, 0:
-    periodic); returns the device count of rows beyond the slab."""
+    """Launch a paint entry point with the open axes of slab
+    (_open_axes: zeros for periodic); returns the device count of rows
+    beyond the slab or pencil."""
     nmesh, column = _check_canvas(canvas, x, mass)
     x = x.contiguous()
     masses = mass.contiguous() if column else None
     bad = torch.zeros((), dtype=torch.int32, device=x.device)
-    n0, shift = (slab.n0, slab.shift) if slab is not None else (0, 0)
     _launch(name, x.data_ptr(), x.shape[0], *nmesh, *_inv32(inv_cell),
-            n0, shift, 0.0 if column else float(mass),
+            *_open_axes(slab), 0.0 if column else float(mass),
             masses.data_ptr() if column else None, canvas.data_ptr(),
             bad.data_ptr(), device=x.device)
     return bad
 
 
+def _count(wrapper, slab):
+    """One launch of a homed wrapper's kernel; an open-y one (a Pencil)
+    is counted apart too."""
+    wrapper.launches += 1
+    if isinstance(slab, Pencil):
+        wrapper.launches_open_y += 1
+
+
 def cic_paint_homed(canvas: torch.Tensor, x: torch.Tensor, inv_cell,
-                    slab: Slab, mass=1.0) -> torch.Tensor:
+                    slab, mass=1.0) -> torch.Tensor:
     """Add mass (a scalar or an (N,) float32 tensor) at every particle
     into the extended slab canvas (a contiguous (nloc + 2H + 1, ny, nz)
-    float32 tensor on the device of x), in place; returns the count of
-    particles beyond the slab (int32, on the device). On CUDA this
-    launches homed K1 (csrc/cic_paint.cu)."""
+    float32 tensor on the device of x) of a Slab, or the extended pencil
+    canvas ((nlx + 2Hx + 1, nly + 2Hy + 1, nz)) of a Pencil, in place;
+    returns the count of particles beyond it (int32, on the device). On
+    CUDA this launches homed K1 (csrc/cic_paint.cu), open in y on a
+    Pencil."""
     _check_positions(x)
     _check_slab(slab, canvas.shape)
     if x.device.type == "cpu":
@@ -463,19 +531,21 @@ def cic_paint_homed(canvas: torch.Tensor, x: torch.Tensor, inv_cell,
         return cic_paint_homed_plain(canvas, x, inv_cell, slab, mass)
     bad = _paint_slab("fastpm_cic_paint_homed", canvas, x, inv_cell, mass,
                       slab)
-    cic_paint_homed.launches += 1
+    _count(cic_paint_homed, slab)
     return bad
 
 
 cic_paint_homed.launches = 0
+cic_paint_homed.launches_open_y = 0
 
 
 def cic_paint4(canvas: torch.Tensor, x: torch.Tensor, inv_cell, mass=1.0,
-               slab: Slab | None = None) -> torch.Tensor:
+               slab=None) -> torch.Tensor:
     """The deposit of the TPU's two-pass paint (from4): add mass (a scalar
     or an (N,) float32 tensor) at every particle into canvas, periodic,
-    or the extended slab canvas when slab is given; returns the count of
-    particles beyond the slab (int32, on the device; 0 without one). On
+    or the extended slab or pencil canvas when a Slab or Pencil is given;
+    returns the count of particles beyond it (int32, on the device; 0
+    without one). On
     CUDA this launches K5 (csrc/cic_paint4.cu, K1's tiled deposit over
     both x planes in one launch)."""
     _check_positions(x)
@@ -484,11 +554,12 @@ def cic_paint4(canvas: torch.Tensor, x: torch.Tensor, inv_cell, mass=1.0,
         _check_canvas(canvas, x, mass)
         return cic_paint4_plain(canvas, x, inv_cell, mass, slab)
     bad = _paint_slab("fastpm_cic_paint4", canvas, x, inv_cell, mass, slab)
-    cic_paint4.launches += 1
+    _count(cic_paint4, slab)
     return bad
 
 
 cic_paint4.launches = 0
+cic_paint4.launches_open_y = 0
 
 
 def _readout(fields, x, inv_cell, slab=None, two_planes=False):
@@ -500,9 +571,8 @@ def _readout(fields, x, inv_cell, slab=None, two_planes=False):
     ptrs = [f.data_ptr() for f in fields] + [None] * (3 - len(fields))
     out = torch.empty((x.shape[0], len(fields)), dtype=torch.float32,
                       device=x.device)
-    n0, shift = (slab.n0, slab.shift) if slab is not None else (0, 0)
     _launch("fastpm_cic_readout", x.data_ptr(), x.shape[0], *nmesh,
-            *_inv32(inv_cell), n0, shift, int(two_planes), *ptrs,
+            *_inv32(inv_cell), *_open_axes(slab), int(two_planes), *ptrs,
             len(fields), out.data_ptr(), device=x.device)
     return out
 
@@ -536,20 +606,22 @@ cic_readout.launches = 0
 
 
 def cic_readout_homed(fields, x: torch.Tensor, inv_cell,
-                      slab: Slab) -> torch.Tensor:
+                      slab) -> torch.Tensor:
     """Interpolate 1 to 3 extended slab fields ((nloc + 2H + 1, ny, nz)
-    float32) at every particle, (N, k) float32; a particle beyond the
-    slab reads zero. On CUDA this launches homed K2, K2's kernel with an
-    open x axis (csrc/cic_readout.cu)."""
+    float32) of a Slab, or extended pencil fields of a Pencil, at every
+    particle, (N, k) float32; a particle beyond it reads zero. On CUDA
+    this launches homed K2, K2's kernel with an open x axis (and on a
+    Pencil an open y axis; csrc/cic_readout.cu)."""
     fields = _check_readout(fields, x, slab)
     if x.device.type == "cpu":
         return cic_readout_plain(fields, x, inv_cell, slab)
     out = _readout(fields, x, inv_cell, slab)
-    cic_readout_homed.launches += 1
+    _count(cic_readout_homed, slab)
     return out
 
 
 cic_readout_homed.launches = 0
+cic_readout_homed.launches_open_y = 0
 
 
 def cic_readout3(cx, cy, cz, x: torch.Tensor, inv_cell,
@@ -594,19 +666,21 @@ cic_readout3.launches = 0
 
 
 def cic_readout4(cx, cy, cz, x: torch.Tensor, inv_cell,
-                 slab: Slab | None = None) -> torch.Tensor:
+                 slab=None) -> torch.Tensor:
     """Interpolate the three force fields at every particle, the 4
     corners of each x plane of the cloud summed apart and the two sums
-    added: (N, 3) float32. The fields are periodic, or extended slabs
-    when slab is given (a particle beyond the slab reads zero). On CUDA
+    added: (N, 3) float32. The fields are periodic, or extended slabs or
+    pencils when a Slab or Pencil is given (a particle beyond it reads
+    zero). On CUDA
     this launches K6, K2's kernel summing plane by plane, in one pass
     (csrc/cic_readout.cu)."""
     fields = _check_readout([cx, cy, cz], x, slab)
     if x.device.type == "cpu":
         return cic_readout4_plain(*fields, x, inv_cell, slab)
     out = _readout(fields, x, inv_cell, slab, two_planes=True)
-    cic_readout4.launches += 1
+    _count(cic_readout4, slab)
     return out
 
 
 cic_readout4.launches = 0
+cic_readout4.launches_open_y = 0

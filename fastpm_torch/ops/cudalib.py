@@ -88,8 +88,8 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
     P, I, L, F, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_float, ctypes.c_double)
     # (x, n, nx, ny, nz, icx, icy, icz, ...); the homed, two-pass and
-    # readout entries then take the x axis (n0, shift); all end with the
-    # stream
+    # readout entries then take the open axes (n0, shift, n1, yshift);
+    # all end with the stream
     head = [P, L, I, I, I, F, F, F]
     for name, tail in (
             ("fastpm_cic_paint", [F, P, P]),
@@ -97,10 +97,10 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
             ("fastpm_cic_paint_into", [F, P, P, P, P]),
             # bits, passes, workspace, order
             ("fastpm_cic_order", [I, I, P, P, P]),
-            ("fastpm_cic_paint_homed", [I, I, F, P, P, P, P]),
-            ("fastpm_cic_paint4", [I, I, F, P, P, P, P]),
+            ("fastpm_cic_paint_homed", [I, I, I, I, F, P, P, P, P]),
+            ("fastpm_cic_paint4", [I, I, I, I, F, P, P, P, P]),
             # two_planes, f0, f1, f2, k, out
-            ("fastpm_cic_readout", [I, I, I, P, P, P, I, P, P])):
+            ("fastpm_cic_readout", [I, I, I, I, I, P, P, P, I, P, P])):
         fn = getattr(lib, name)
         fn.restype = I
         fn.argtypes = head + tail

@@ -13,6 +13,11 @@ hop of the halo exchange wraps to the rank itself, the periodic fold of
 psolver.py:_halo_reduce for nproc == 1, and the same holds for a hop of
 a multiple of nproc. A Ring without a process group is one rank and
 runs no collective.
+
+A Grid is the 2D process mesh ("x", "y") of the pencil decomposition
+over a group: rank cx * py + cy, an x-ring of the ranks that share cy
+and a y-ring of those that share cx (the axes of the JAX package's
+device mesh, fastpm_tpu/cli.py:817-843).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["Ring"]
+__all__ = ["Ring", "Grid"]
 
 
 class Ring:
@@ -141,3 +146,56 @@ class Ring:
             dist.recv(part, self._peer(r), group=self.group)
             parts.append(part)
         return torch.cat(parts)
+
+
+class Grid:
+    """A px x py process grid over a group: rank r = cx * py + cy (the
+    JAX mesh's reshape(n // ny, ny) order, and the pencil block order b
+    = i * py + j of psolver.required_halo_planes_pencil). `xring` holds
+    the ranks with this rank's cy, in cx order; `yring` those with its
+    cx, in cy order; `flat` every rank, in rank order. psum and pmax
+    reduce over both axes. rank and nproc are the flat ring's, so a Grid
+    shards a store as a Ring does (Store.shard).
+
+    Every rank creates every subgroup, in the same order (x-rings, then
+    y-rings), as torch.distributed.new_group requires; an axis of one
+    rank is Ring(None), whose hops are local copies."""
+
+    def __init__(self, group=None, px: int = 1, py: int = 1):
+        self.group = group
+        self.flat = Ring(group)
+        self.px, self.py = int(px), int(py)
+        if self.px * self.py != self.flat.nproc:
+            raise ValueError(f"a {px} x {py} grid needs {px * py} ranks, "
+                             f"the group has {self.flat.nproc}")
+        self.rank, self.nproc = self.flat.rank, self.flat.nproc
+        self.cx, self.cy = divmod(self.rank, self.py)
+        members = ([[cx * self.py + cy for cx in range(self.px)]
+                    for cy in range(self.py)] if self.px > 1 else [],
+                   [[cx * self.py + cy for cy in range(self.py)]
+                    for cx in range(self.px)] if self.py > 1 else [])
+        rings = []
+        for axis, mine in zip(members, (self.cy, self.cx)):
+            ring = Ring(None)
+            for i, ranks in enumerate(axis):
+                g = dist.new_group([dist.get_global_rank(group, r)
+                                    for r in ranks])
+                if i == mine:
+                    ring = Ring(g)
+            rings.append(ring)
+        self.xring, self.yring = rings
+
+    @property
+    def shape(self) -> dict:
+        """The grid's axes as the JAX package logs its mesh: one axis for
+        a slab (py = 1), two for a pencil grid."""
+        return ({"x": self.px} if self.py == 1
+                else {"x": self.px, "y": self.py})
+
+    def psum(self, t):
+        """The sum over both axes (a new tensor) or a number."""
+        return self.flat.psum(t)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over both axes (a new tensor)."""
+        return self.flat.pmax(t)

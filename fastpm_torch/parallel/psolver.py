@@ -1,14 +1,16 @@
-"""The slab-decomposed force over a ring of ranks (the multi-rank hot
-loop).
+"""The force over the ranks, slab- or pencil-decomposed (the multi-rank
+hot loop).
 
-Port of the slab part of fastpm_tpu/parallel/psolver.py. Each rank holds
-a contiguous block of the particle rows. Two force designs:
+Port of the slab and pencil parts of fastpm_tpu/parallel/psolver.py.
+Each rank holds a contiguous block of the particle rows. Two force
+designs:
 
 v1 (any displacement, _force_local_multi, psolver.py:122-165): every
-rank paints its particles into a full-size canvas, one psum_scatter sums
-and cuts it into x-slabs, the slab FFT runs (pfft.SlabPM), and each
-force component is all-gathered back to a full field for the readout.
-O(Nmesh^3) memory per rank: the fallback when no halo width fits.
+rank paints its particles into a full-size canvas, which is summed and
+cut into this rank's x-slab (pfft.SlabPM) or pencil (pfft.PencilPM), the
+distributed FFT runs, and each force component is all-gathered back to
+a full field for the readout. O(Nmesh^3) memory per rank: the fallback
+when no halo width fits.
 
 homed (psolver.py:1-39, 461-664): the Lagrangian lattice is filled in
 x-major id order, so rank r's block of rows holds the particles whose
@@ -30,26 +32,39 @@ versions, the counterparts of _cic_rel, _paint_homed and _readout_homed
 (psolver.py:178-259), are in ops/cic.py (slab_cell,
 cic_paint_homed_plain, cic_readout_plain with a Slab).
 
-Not in this slice (see ROADMAP.md): the potential and tidal outputs,
-the pencil (2D) force, rehoming and the split force of the neutrino
-linear response.
+The pencil-homed force (psolver.py:1158-1425) is the 2D analog on a
+px x py Grid: the lattice is filled in pencil-blocked row order
+(store.lattice_store(blocks=(px, py))), so rank (cx, cy) holds the
+particles of its pencil; it paints into the pencil widened by Hx planes
+and Hy rows (a Pencil: the open-y mode of the homed kernels, whose
+plain versions take the Pencil too, the counterparts of _cic_rel2,
+_paint_homed2 and _readout_homed2), reduces the halo blocks along x over
+the x-ring and then along y over the y-ring (corners ride both hops),
+and gathers the fields back y first, then x.
+
+Both homed forces and v1 read out the potential and the tidal tensor
+when asked (the extra fields through the homed readout, K2's kernel).
+
+Not in this slice (see ROADMAP.md): rehoming and the split force of the
+neutrino linear response.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels import kernel_orders, apply_kernel_transfer
 from ..ops import cic
-from ..ops.cic import Slab
+from ..ops.cic import Slab, Pencil
 from ..store import Store
-from .comm import Ring
-from .pfft import SlabPM
+from .comm import Ring, Grid
+from .pfft import SlabPM, PencilPM
 
-__all__ = ["required_halo_planes", "halo_ladder", "pick_halo"]
+__all__ = ["required_halo_planes", "required_halo_planes_pencil",
+           "halo_ladder", "pick_halo"]
 
 
 def _total_mass(x, mass):
@@ -68,11 +83,42 @@ def _normalize(spm: SlabPM, canvas, total_mass, softening_type):
     return spm.apply_softening(delta_k, softening_type)
 
 
-def _force_local_multi(spm: SlabPM, painter, xs, masses,
-                       kernel_type: str, softening_type: str = "none"):
-    """Multi-species v1 force (full-canvas exchange). xs: every species'
-    local positions; masses: a scalar M0 or a local (N,) mass column per
-    species. Returns ([acc (N, 3) per species], delta_k shard)."""
+def _extra_groups(compute_potential: bool, compute_tidal: bool):
+    """The readouts past acc, at most three fields each: (name, the
+    members of apply_kernel_transfer)."""
+    return ([("potential", (0,))] if compute_potential else []) + (
+        [("tidal", (0, 1, 2)), ("tidal", (3, 4, 5))] if compute_tidal
+        else [])
+
+
+def _read_extras(engine, delta_k, kernel_type: str, outs, xs, read,
+                 compute_potential: bool, compute_tidal: bool):
+    """Fill outs[i]["potential"] (N,) and outs[i]["tidal"] (N, 6) of each
+    species: read(local fields, x) -> (N, k) reads the rank's local
+    inverses (gathered as the force's readout needs them)."""
+    parts = [dict() for _ in outs]
+    for name, membs in _extra_groups(compute_potential, compute_tidal):
+        locs = [engine.c2r_local(apply_kernel_transfer(
+            engine.kpm, delta_k, kernel_type, name, m)) for m in membs]
+        vals = read(locs, xs)
+        del locs
+        for part, v in zip(parts, vals):
+            part.setdefault(name, []).append(v)
+    for out, part in zip(outs, parts):
+        if "potential" in part:
+            out["potential"] = part["potential"][0][:, 0]
+        if "tidal" in part:
+            out["tidal"] = torch.cat(part["tidal"], dim=1)
+
+
+def _force_local_multi(spm, painter, xs, masses, kernel_type: str,
+                       softening_type: str = "none",
+                       compute_potential: bool = False,
+                       compute_tidal: bool = False):
+    """Multi-species v1 force (full-canvas exchange) over a SlabPM or a
+    PencilPM. xs: every species' local positions; masses: a scalar M0 or
+    a local (N,) mass column per species. Returns ([dict(acc (N, 3)[,
+    potential (N,), tidal (N, 6)]) per species], delta_k shard)."""
     canvas = None
     total = 0.0
     for x, mass in zip(xs, masses):
@@ -83,18 +129,33 @@ def _force_local_multi(spm: SlabPM, painter, xs, masses,
     del canvas
     fulls = [spm.gather_canvas(spm.c2r_local(apply_kernel_transfer(
         spm.kpm, delta_k, kernel_type, "acc", d))) for d in range(3)]
-    return [painter.readout3(*fulls, x) for x in xs], delta_k
+    outs = [dict(acc=painter.readout3(*fulls, x)) for x in xs]
+    del fulls
+
+    def read(locs, xs):
+        fulls = [spm.gather_canvas(f) for f in locs]
+        return [painter.readout_fields(fulls, x) for x in xs]
+
+    _read_extras(spm, delta_k, kernel_type, outs, xs, read,
+                 compute_potential, compute_tidal)
+    return outs, delta_k
 
 
-# ---- homed slab force: halo-exchange paint and readout -----------------
+# ---- homed forces: halo-exchange paint and readout --------------------
 
 
-def _halo_reduce(canvas_ext, ring: Ring, nloc: int, H: int):
-    """Ghost reduce: add each rank's halo blocks into the neighbours'
-    slabs (in place on canvas_ext) and return the complete local slab
-    (nloc planes).
+def _sl(dim: int, a: int, b: int):
+    """The index of [a, b) along dimension dim."""
+    return (slice(None),) * dim + (slice(a, b),)
 
-    When H spans more than one slab (H >= nloc) the ghost block is cut
+
+def _halo_reduce(canvas_ext, ring: Ring, nloc: int, H: int, dim: int = 0):
+    """Ghost reduce along dimension dim (0: the slab's and the pencil's
+    x exchange, 1: the pencil's y exchange): add each rank's halo blocks
+    into its ring neighbours' interiors (in place on canvas_ext) and
+    return the complete interior (nloc along dim).
+
+    When H spans more than one block (H >= nloc) the ghost block is cut
     into pieces sent m hops along the ring (pmghosts.c:31-131 reaches
     non-adjacent ranks too); on one rank every hop wraps to itself."""
     c = canvas_ext
@@ -107,9 +168,9 @@ def _halo_reduce(canvas_ext, ring: Ring, nloc: int, H: int):
         b = H - (m - 1) * nloc
         if b <= a:
             continue
-        blk = ring.ppermute(c[a:b], -m)
-        # lands on the receiver's slab tail
-        c[H + max(0, m * nloc - H):H + nloc] += blk
+        blk = ring.ppermute(c[_sl(dim, a, b)], -m)
+        # lands on the receiver's interior tail
+        c[_sl(dim, H + max(0, m * nloc - H), H + nloc)] += blk
     for m in range(1, Rr + 1):
         # my ghost planes of the m-th right neighbour: globals
         # [r0 + m nloc, r0 + min(nloc + H + 1, (m+1) nloc))
@@ -117,39 +178,40 @@ def _halo_reduce(canvas_ext, ring: Ring, nloc: int, H: int):
         b = min(nloc + H + 1, (m + 1) * nloc) + H
         if b <= a:
             continue
-        blk = ring.ppermute(c[a:b], m)
-        # lands on the receiver's slab head
-        c[H:H + (b - a)] += blk
-    return c[H:H + nloc]
+        blk = ring.ppermute(c[_sl(dim, a, b)], m)
+        # lands on the receiver's interior head
+        c[_sl(dim, H, H + (b - a))] += blk
+    return c[_sl(dim, H, H + nloc)]
 
 
-def _halo_gather(field_slab, ring: Ring, nloc: int, H: int):
-    """Readout mirror of _halo_reduce: the local slab widened with H
-    planes from the left and H + 1 from the right, fetched from as many
-    neighbours as the halo spans."""
+def _halo_gather(field, ring: Ring, nloc: int, H: int, dim: int = 0):
+    """Readout mirror of _halo_reduce along dimension dim: the local
+    interior widened with H planes from the left and H + 1 from the
+    right, fetched from as many ring neighbours as the halo spans."""
     R = max(1, -(-H // nloc)) if H else 0
     Rr = max(1, -(-(H + 1) // nloc))
     parts = []
     for m in range(R, 0, -1):
         # planes [H - min(H, m nloc), H - (m-1) nloc) are the m-th left
-        # neighbour's slab tail [max(0, m nloc - H), nloc)
+        # neighbour's interior tail [max(0, m nloc - H), nloc)
         if H - (m - 1) * nloc <= H - min(H, m * nloc):
             continue
-        parts.append(ring.ppermute(field_slab[max(0, m * nloc - H):nloc],
-                                   m))
-    parts.append(field_slab)
+        parts.append(ring.ppermute(
+            field[_sl(dim, max(0, m * nloc - H), nloc)], m))
+    parts.append(field)
     for m in range(1, Rr + 1):
-        # planes [m nloc, min(nloc + H + 1, (m+1) nloc)) past the slab
-        # start are the m-th right neighbour's slab head
+        # planes [m nloc, min(nloc + H + 1, (m+1) nloc)) past the
+        # interior's start are the m-th right neighbour's head
         n = min(nloc + H + 1, (m + 1) * nloc) - m * nloc
         if n <= 0:
             continue
-        parts.append(ring.ppermute(field_slab[:n], -m))
-    return torch.cat(parts)
+        parts.append(ring.ppermute(field[_sl(dim, 0, n)], -m))
+    return torch.cat(parts, dim=dim)
 
 
 # homed_kernel -> (paint(canvas, x, inv_cell, slab, mass) -> bad,
-#                  readout3([f0, f1, f2], x, inv_cell, slab) -> (N, 3))
+#                  readout3([f0, f1, f2], x, inv_cell, slab) -> (N, 3));
+# slab is a Slab or, for the pencil force, a Pencil
 _HOMED_TRIOS = {
     "from8": (cic.cic_paint_homed, cic.cic_readout_homed),
     "from4": (lambda c, x, inv, slab, m: cic.cic_paint4(c, x, inv, m, slab),
@@ -159,7 +221,7 @@ _HOMED_TRIOS = {
 
 
 def _homed_trio(homed_kernel: str = "from8"):
-    """(paint, readout3) of the homed force (psolver.py:366-396; the
+    """(paint, readout3) of the homed forces (psolver.py:366-396; the
     TPU package's third member, the prepare, is the cell sort of the
     carry here). from8: homed K1 and K2; from4: K5 and K6."""
     try:
@@ -169,84 +231,170 @@ def _homed_trio(homed_kernel: str = "from8"):
                          "(from8 or from4)") from None
 
 
-def _slab(spm: SlabPM, H: int):
-    """(Slab, extended canvas shape) of this rank for halo width H."""
+class _Homing(NamedTuple):
+    """One rank's homed geometry: the Slab or Pencil of the kernels, the
+    extended canvas's shape, and the halo exchange: reduce(canvas) ->
+    the complete interior, gather(field) -> the extended field."""
+
+    geom: object
+    ext: tuple
+    reduce: object
+    gather: object
+
+
+def _slab(spm: SlabPM, H: int) -> _Homing:
+    """The homing of this rank's x-slab for halo width H."""
     n0, n1, n2 = spm.pm.Nmesh
-    return Slab(n0, spm.r0, H), (spm.rshard[0] + 2 * H + 1, n1, n2)
+    nloc = spm.rshard[0]
+    return _Homing(Slab(n0, spm.r0, H), (nloc + 2 * H + 1, n1, n2),
+                   lambda c: _halo_reduce(c, spm.ring, nloc, H),
+                   lambda f: _halo_gather(f, spm.ring, nloc, H))
 
 
-def _grad3_fields_homed(spm: SlabPM, delta_k, kernel_type: str, gather):
+def _pencil(ppm: PencilPM, Hx: int, Hy: int) -> _Homing:
+    """The homing of this rank's pencil for halo widths (Hx, Hy): the
+    exchange reduces along x, then y, and gathers along y, then x
+    (psolver.py:1325-1331, 1362-1366)."""
+    n0, n1, n2 = ppm.pm.Nmesh
+    nlx, nly = ppm.rshard[:2]
+    g = ppm.grid
+
+    def reduce(c):
+        return _halo_reduce(_halo_reduce(c, g.xring, nlx, Hx, 0),
+                            g.yring, nly, Hy, 1)
+
+    def gather(f):
+        return _halo_gather(_halo_gather(f, g.yring, nly, Hy, 1),
+                            g.xring, nlx, Hx, 0)
+
+    return _Homing(Pencil(n0, ppm.r0[0], Hx, n1, ppm.r0[1], Hy),
+                   (nlx + 2 * Hx + 1, nly + 2 * Hy + 1, n2), reduce, gather)
+
+
+def _grad3_fields_homed(engine, delta_k, kernel_type: str, gather):
     """Shared tail of the homed force bodies: the potential transfer,
     the three gradient inverses, and the halo gather of each.
     gather(field) -> extended field."""
     potorder, gradorder, _d, deconv = kernel_orders(kernel_type)
     out = delta_k
     for _ in range(deconv):
-        out = spm.apply_decic(out)
-    pot_k = spm.apply_pot(out, potorder)
-    return [gather(g) for g in spm.c2r_grad3_local(pot_k, gradorder)]
+        out = engine.apply_decic(out)
+    pot_k = engine.apply_pot(out, potorder)
+    return [gather(g) for g in engine.c2r_grad3_local(pot_k, gradorder)]
 
 
-def _force_local_homed_multi(spm: SlabPM, xs, masses, kernel_type: str,
-                             H: int, softening_type: str = "none",
-                             homed_kernel: str = "from8"):
-    """Multi-species homed force (halo-exchange paint and readout), rows
-    in the caller's order. xs and masses as _force_local_multi. Returns
-    ([acc (N, 3) per species], bad, delta_k shard); bad is the global
-    count of particles beyond the halo (an int32 tensor; must be 0)."""
+def _homed_multi(engine, hom: _Homing, xs, masses, kernel_type: str,
+                 softening_type: str, homed_kernel: str,
+                 compute_potential: bool, compute_tidal: bool):
+    """The multi-species body of both homed forces: paint every species
+    into the extended canvas, reduce the halo, the distributed FFT, the
+    gathered force fields read out at every species (and the potential
+    and tidal tensor through the homed readout)."""
     paint, readout3 = _homed_trio(homed_kernel)
-    nloc = spm.rshard[0]
-    slab, ext = _slab(spm, H)
-    inv = spm.pm.InvCellSize
-    canvas = torch.zeros(ext, dtype=torch.float32, device=xs[0].device)
+    inv = engine.pm.InvCellSize
+    canvas = torch.zeros(hom.ext, dtype=torch.float32, device=xs[0].device)
     bad = torch.zeros((), dtype=torch.int32, device=xs[0].device)
     total = 0.0
     for x, mass in zip(xs, masses):
-        bad = bad + paint(canvas, x, inv, slab, mass)
+        bad = bad + paint(canvas, x, inv, hom.geom, mass)
         total = total + _total_mass(x, mass)
-    delta_k = _normalize(spm, _halo_reduce(canvas, spm.ring, nloc, H),
-                         total, softening_type)
+    delta_k = _normalize(engine, hom.reduce(canvas), total, softening_type)
     del canvas
-    fields = _grad3_fields_homed(
-        spm, delta_k, kernel_type,
-        lambda g: _halo_gather(g, spm.ring, nloc, H))
-    return ([readout3(fields, x, inv, slab) for x in xs],
-            spm.ring.psum(bad), delta_k)
+    fields = _grad3_fields_homed(engine, delta_k, kernel_type, hom.gather)
+    outs = [dict(acc=readout3(fields, x, inv, hom.geom)) for x in xs]
+    del fields
+
+    def read(locs, xs):
+        fs = [hom.gather(f) for f in locs]
+        return [cic.cic_readout_homed(fs, x, inv, hom.geom) for x in xs]
+
+    _read_extras(engine, delta_k, kernel_type, outs, xs, read,
+                 compute_potential, compute_tidal)
+    return outs, engine.ring.psum(bad), delta_k
 
 
-def _force_local_homed_carry(spm: SlabPM, store: Store, kernel_type: str,
-                             H: int, softening_type: str = "none",
-                             homed_kernel: str = "from8"):
-    """Order-free homed force of one species with a scalar mass (the
-    rank-local analog of gravity.compute_force_carry): every column of
-    the store rides the sort by extended-slab cell, the paint and
-    readout see cell-sorted rows, and the values come out aligned with
-    the sorted rows. The caller wraps the positions first.
-
-    Returns (store sorted with acc filled, bad, delta_k shard)."""
+def _homed_carry(engine, hom: _Homing, store: Store, kernel_type: str,
+                 softening_type: str, homed_kernel: str):
+    """The order-free body of both homed forces: one scalar-mass species
+    whose every column rides the sort by extended cell."""
     paint, readout3 = _homed_trio(homed_kernel)
-    nloc = spm.rshard[0]
-    slab, ext = _slab(spm, H)
-    inv = spm.pm.InvCellSize
+    ext = hom.ext
+    inv = engine.pm.InvCellSize
     if (ext[0] + 1) * ext[1] * ext[2] >= 2 ** 31:
-        raise ValueError(f"extended slab {ext} overflows the int32 cell key")
-    base, _f, valid = cic.slab_cell(store.x, ext, inv, slab)
-    # rows beyond the slab sort after every cell, as the TPU package's
-    # key (relx = nloc + 2H + 1) sorts them
+        raise ValueError(f"extended canvas {ext} overflows the int32 cell "
+                         "key")
+    base, _f, valid = cic.slab_cell(store.x, ext, inv, hom.geom)
+    # rows beyond the slab or pencil sort after every cell, as the TPU
+    # package's key (relx = nx_l + 1) sorts them
     relx = torch.where(valid, base[:, 0], ext[0])
     key = ((relx * ext[1] + base[:, 1]) * ext[2] + base[:, 2]).to(torch.int32)
     store = store.replace(acc=None).take(
         torch.sort(key, stable=True).indices)
     canvas = torch.zeros(ext, dtype=torch.float32, device=store.x.device)
-    bad = paint(canvas, store.x, inv, slab, 1.0)
-    delta_k = _normalize(spm, _halo_reduce(canvas, spm.ring, nloc, H),
+    bad = paint(canvas, store.x, inv, hom.geom, 1.0)
+    delta_k = _normalize(engine, hom.reduce(canvas),
                          _total_mass(store.x, 1.0), softening_type)
     del canvas
-    fields = _grad3_fields_homed(
-        spm, delta_k, kernel_type,
-        lambda g: _halo_gather(g, spm.ring, nloc, H))
-    acc = readout3(fields, store.x, inv, slab)
-    return store.replace(acc=acc), spm.ring.psum(bad), delta_k
+    fields = _grad3_fields_homed(engine, delta_k, kernel_type, hom.gather)
+    acc = readout3(fields, store.x, inv, hom.geom)
+    return store.replace(acc=acc), engine.ring.psum(bad), delta_k
+
+
+def _force_local_homed_multi(spm: SlabPM, xs, masses, kernel_type: str,
+                             H: int, softening_type: str = "none",
+                             homed_kernel: str = "from8",
+                             compute_potential: bool = False,
+                             compute_tidal: bool = False):
+    """Multi-species homed slab force (halo-exchange paint and readout;
+    psolver.py:461-575), rows in the caller's order. xs and masses as
+    _force_local_multi. Returns ([dict(acc[, potential, tidal]) per
+    species], bad, delta_k shard); bad is the global count of particles
+    beyond the halo (an int32 tensor; must be 0)."""
+    return _homed_multi(spm, _slab(spm, H), xs, masses, kernel_type,
+                        softening_type, homed_kernel, compute_potential,
+                        compute_tidal)
+
+
+def _force_local_homed_carry(spm: SlabPM, store: Store, kernel_type: str,
+                             H: int, softening_type: str = "none",
+                             homed_kernel: str = "from8"):
+    """Order-free homed slab force of one species with a scalar mass (the
+    rank-local analog of gravity.compute_force_carry; psolver.py:
+    599-664): every column of the store rides the sort by extended-slab
+    cell, the paint and readout see cell-sorted rows, and the values
+    come out aligned with the sorted rows. The caller wraps the
+    positions first.
+
+    Returns (store sorted with acc filled, bad, delta_k shard)."""
+    return _homed_carry(spm, _slab(spm, H), store, kernel_type,
+                        softening_type, homed_kernel)
+
+
+def _force_local_homed_pencil_multi(ppm: PencilPM, xs, masses,
+                                    kernel_type: str, Hx: int, Hy: int,
+                                    softening_type: str = "none",
+                                    homed_kernel: str = "from8",
+                                    compute_potential: bool = False,
+                                    compute_tidal: bool = False):
+    """Multi-species pencil-homed force (psolver.py:1258-1388): the
+    homed kernels in their open-y mode on the extended pencil, the halo
+    reduced along x then y, the PencilPM FFT, the fields gathered along
+    y then x. Rows must be pencil-blocked; a scalar mass or a mass
+    column per species. Returns as _force_local_homed_multi."""
+    return _homed_multi(ppm, _pencil(ppm, Hx, Hy), xs, masses, kernel_type,
+                        softening_type, homed_kernel, compute_potential,
+                        compute_tidal)
+
+
+def _force_local_homed_pencil_carry(ppm: PencilPM, store: Store,
+                                    kernel_type: str, Hx: int, Hy: int,
+                                    softening_type: str = "none",
+                                    homed_kernel: str = "from8"):
+    """Order-free pencil-homed force of one scalar-mass species
+    (psolver.py:667-722): rows sorted by the extended 2D cell, every
+    column riding the sort. Returns as _force_local_homed_carry."""
+    return _homed_carry(ppm, _pencil(ppm, Hx, Hy), store, kernel_type,
+                        softening_type, homed_kernel)
 
 
 def halo_ladder(nloc: int, n0: int = None):
@@ -264,32 +412,76 @@ def halo_ladder(nloc: int, n0: int = None):
     return out
 
 
+def _stray(col, inv: float, r0: int, nloc: int, n: int):
+    """The largest distance (in planes) by which a coordinate column's
+    base cells lie outside [r0, r0 + nloc) on a periodic axis of n."""
+    b = torch.remainder(torch.floor(
+        col * float(np.float32(inv))).to(torch.int64), n)
+    rel = torch.remainder(b - r0, n)
+    # planes beyond the right edge, or beyond the left one
+    d = torch.minimum(rel - (nloc - 1), n - rel)
+    d = torch.where(rel < nloc, 0, d)
+    return d.max() if d.numel() else torch.zeros((), dtype=torch.int64,
+                                                 device=col.device)
+
+
 def required_halo_planes(pm, ring: Ring, x: torch.Tensor) -> int:
     """The measured halo requirement: the largest distance (in mesh
     planes) by which any rank's particle strays outside its rank's
     x-slab (psolver.py:1447-1472). Positions must be wrapped. Every
     rank gets the same number."""
-    n0 = pm.Nmesh[0]
-    nloc = n0 // ring.nproc
-    r0 = ring.rank * nloc
-    bx = torch.remainder(torch.floor(
-        x[:, 0] * float(np.float32(pm.InvCellSize[0]))).to(torch.int64), n0)
-    rel = torch.remainder(bx - r0, n0)
-    # planes beyond the right edge, or beyond the left one
-    d = torch.minimum(rel - (nloc - 1), n0 - rel)
-    d = torch.where(rel < nloc, 0, d)
-    local = d.max() if d.numel() else torch.zeros((), dtype=torch.int64,
-                                                  device=x.device)
+    nloc = pm.Nmesh[0] // ring.nproc
+    local = _stray(x[:, 0], pm.InvCellSize[0], ring.rank * nloc, nloc,
+                   pm.Nmesh[0])
     return int(ring.pmax(local.reshape(1)))
 
 
-def pick_halo(pm, ring: Ring, xs: Sequence[torch.Tensor]):
-    """The homed halo width for these species' wrapped positions: the
-    first rung of the ladder with one plane of slack over the
-    measurement (at least 1), or None when none fits (the v1 force)."""
-    nloc = pm.Nmesh[0] // ring.nproc
+def required_halo_planes_pencil(pm, grid: Grid, x: torch.Tensor):
+    """The measured 2D halo requirement of pencil-blocked rows (hx, hy):
+    the largest distance (in planes) by which any rank's particle strays
+    outside its pencil's x window and its y window (psolver.py:
+    1391-1425). Positions must be wrapped. Every rank gets the same
+    pair."""
+    n0, n1, _ = pm.Nmesh
+    nlx, nly = n0 // grid.px, n1 // grid.py
+    local = torch.stack([
+        _stray(x[:, 0], pm.InvCellSize[0], grid.cx * nlx, nlx, n0),
+        _stray(x[:, 1], pm.InvCellSize[1], grid.cy * nly, nly, n1)])
+    hx, hy = grid.pmax(local).tolist()
+    return int(hx), int(hy)
+
+
+def pick_halo(pm, comm, xs: Sequence[torch.Tensor], homes=None):
+    """The homed halo for these species' wrapped positions on a Ring or
+    a Grid, by the rule of solver.py:425-463: on a grid with py > 1 and
+    rows pencil-blocked as the grid ((px, py) in every entry of homes,
+    the stores' home_blocks), ("pencil", Hx, Hy), the first rungs of the
+    ladders with one plane of slack over the measurement (at least 1);
+    otherwise, for rows in x-major order (no home_blocks), the slab
+    width H over every rank; None when none fits (the v1 force)."""
+    homes = list(homes) if homes is not None else [None] * len(xs)
+    n0, n1, _ = pm.Nmesh
+    ring = comm
+    if isinstance(comm, Grid):
+        ring = comm.flat
+        px, py = comm.px, comm.py
+        if py > 1:
+            if (all(h == (px, py) for h in homes) and n0 % px == 0
+                    and n1 % py == 0 and n1 % px == 0):
+                hx = hy = 1
+                for x in xs:
+                    rx, ry = required_halo_planes_pencil(pm, comm, x)
+                    hx, hy = max(hx, rx), max(hy, ry)
+                Hx = next((h for h in halo_ladder(n0 // px, n0)
+                           if h >= hx + 1), None)
+                Hy = next((h for h in halo_ladder(n1 // py, n1)
+                           if h >= hy + 1), None)
+                if Hx is not None and Hy is not None:
+                    return ("pencil", Hx, Hy)
+    if any(h is not None for h in homes):
+        return None        # blocked rows are not x-major: no slab
+    nloc = n0 // ring.nproc
     hreq = 1
     for x in xs:
         hreq = max(hreq, required_halo_planes(pm, ring, x))
-    return next((h for h in halo_ladder(nloc, pm.Nmesh[0])
-                 if h >= hreq + 1), None)
+    return next((h for h in halo_ladder(nloc, n0) if h >= hreq + 1), None)

@@ -5,22 +5,28 @@ Port of fastpm_tpu/solver.py: the CDM and ncdm species, every force mode
 (fastpm, pm, cola, za, 2lpt; zola is fastpm), the PGD correction, the
 neutrino linear response, the variable-resolution force mesh (VPM)
 table, and the reference's event architecture (events fire between the
-kick / drift / force actions), on one device or on the slab
-decomposition over the ranks of a torch.distributed process group.
+kick / drift / force actions), on one device, or over the ranks of a
+torch.distributed process group in the slab decomposition or, on a 2D
+process grid (parallel.comm.Grid), the pencil decomposition.
 
 On one rank the force step is gravity.compute_force_carry for one
 scalar-mass species and gravity.compute_force (every species into one
 canvas) otherwise, or when the potential or the tidal tensor is asked
-for (SolverConfig.compute_potential / compute_tidal; one rank only). With stale_every = N > 1, N - 1 of every N carry
-forces are stale (gravity.compute_force_stale: the carried order, no
-sort; solver.py:548-572). On several, each rank holds a contiguous block of
-every species' rows (Store.shard) and the force is the homed slab force
-of parallel/psolver.py: the order-free carry for one scalar-mass species
-with the CIC painter, the multi-species body otherwise, and the v1
-full-canvas force when no halo width fits (solver.py:589-876). The halo
-width is measured, kept while it holds, and measured again when a force
-finds a particle beyond it; that force is then run again, so no result
-with a particle beyond the halo is ever used (solver.py:1332-1368).
+for (SolverConfig.compute_potential / compute_tidal). With stale_every
+= N > 1, N - 1 of every N carry forces are stale
+(gravity.compute_force_stale: the carried order, no sort;
+solver.py:548-572). On several, each rank holds a contiguous block of
+every species' rows (Store.shard) and the force is a homed force of
+parallel/psolver.py (solver.py:589-876): on a grid of py > 1 whose
+lattice is pencil-blocked, the pencil force, else the slab force over
+every rank; the order-free carry for one scalar-mass species with the
+CIC painter and neither the potential nor the tidal tensor, the
+multi-species body otherwise; and the v1 full-canvas force when no halo
+width fits. The halo width is measured, kept while it holds, and
+measured again when a force finds a particle beyond it; that force is
+then run again, so no result with a particle beyond the halo is ever
+used (solver.py:1332-1368). The pencil's k shard loses its kz pad
+before anything downstream sees delta_k (solver.py:872-875).
 
 The force modes cola, za and 2lpt keep the LPT columns dx1 and dx2 in
 the store, which every row permutation carries. With the neutrino linear
@@ -32,8 +38,7 @@ the force's softened (and transferred) delta_k and fills the pgdc
 column, which the next drift consumes.
 
 Not in this slice (NotImplementedError; see ROADMAP.md): rehome,
-baryons, the pencil (2D) decomposition, and PGD and the linear response
-on several ranks.
+baryons, and PGD and the linear response on several ranks.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from .gravity import (compute_force, compute_force_carry,
                       compute_force_stale, carry_eligible)
 from .lpt import lpt_solve, lpt_evolve
 from .parallel.comm import Ring
-from .parallel.pfft import SlabPM
+from .parallel.pfft import SlabPM, PencilPM
 from .parallel import psolver
 from . import transfers, events as ev, prof
 from .units import RHO_CRIT, HUBBLE_CONSTANT, HUBBLE_DISTANCE
@@ -156,20 +161,26 @@ class Solver:
 
     group: a torch.distributed process group over which the particles
     and the force are decomposed in x-slabs (one rank per device); None
-    runs on one device alone. Every rank builds the same Solver."""
+    runs on one device alone. grid: a parallel.comm.Grid over the
+    group instead; with py > 1 the lattice is pencil-blocked for it and
+    the force takes the pencil decomposition (solver.py:183-195). Every
+    rank builds the same Solver."""
 
     def __init__(self, config: SolverConfig,
                  cosmology: Optional[Cosmology] = None, device=None,
-                 group=None):
+                 group=None, grid=None):
         self.device = resolve_device(device)
-        self.ring = Ring(group)
+        if grid is not None and group is not None and group is not grid.group:
+            raise ValueError("grid is over another group than `group`")
+        self.ring = grid.flat if grid is not None else Ring(group)
+        # what the force decomposes over: a grid with py > 1 (pencils),
+        # else the ring of every rank (x-slabs)
+        self.comm = (grid if grid is not None and grid.py > 1
+                     else self.ring)
         self.config = config
         self.cosmology = cosmology if cosmology is not None else FIDUCIAL
-        if self.ring.nproc > 1:
-            for name in ("pgdc", "compute_potential", "compute_tidal"):
-                if getattr(config, name):
-                    raise NotImplementedError(
-                        f"{name} on several ranks {_LATER}")
+        if self.ring.nproc > 1 and config.pgdc:
+            raise NotImplementedError(f"pgdc on several ranks {_LATER}")
         self.event_handlers = ev.EventHandlers()
 
         nc = config.nc
@@ -189,9 +200,14 @@ class Solver:
                    + (("rand",) if config.need_rand else ())
                    + (("potential",) if config.compute_potential else ())
                    + (("tidal",) if config.compute_tidal else ()))
+        # on a 2D grid the lattice is pencil-blocked, so that a rank's
+        # rows are its pencil's particles
+        blocks = None
+        if self.comm is grid and nc % grid.px == 0 and nc % grid.py == 0:
+            blocks = (grid.px, grid.py)
         self.species: Dict[str, Store] = {CDM: lattice_store(
             self.basepm, Nc=nc, shift=shift, columns=columns, name="cdm",
-            rand_ntask=config.rand_ntask).shard(self.ring)}
+            rand_ntask=config.rand_ntask, blocks=blocks).shard(self.ring)}
         # the neutrino linear-response state (setup_linear_response)
         self.lra = None
         self.pgd = None
@@ -206,8 +222,9 @@ class Solver:
             self.species[CDM] = p.replace(pgdc=torch.zeros_like(p.x))
         # deferred check_values flag of the last force (_settle_cv)
         self._cv_pending = None
-        # the slab engines and measured halo widths, per force mesh
-        self._slab_pms = {}
+        # the force engines (by mesh and decomposition) and measured halo
+        # widths, per force mesh
+        self._engines = {}
         self._halo = {}
         # force steps by the path they took
         self.force_paths = Counter()
@@ -327,8 +344,7 @@ class Solver:
                 logk, vals, key = self._lra_table(pm, dk, a_f)
                 return transfers.apply_fk_interp(pm, dk, logk, vals, key)
         if self.sharded:
-            stores, delta_k = self._sharded_force(pm, painter, stores)
-            kpm = self._slab_pm(pm).kpm
+            stores, delta_k, kpm = self._sharded_force(pm, painter, stores)
         elif carry_eligible(painter, stores, cfg.compute_potential,
                             cfg.compute_tidal):
             stores, delta_k = self._carry_force(pm, painter, stores.pop(),
@@ -426,57 +442,85 @@ class Solver:
             self.force_paths["carry"] += 1
         return [p], delta_k
 
-    # ---- the slab force over the ranks (parallel/psolver.py) ----
+    # ---- the force over the ranks (parallel/psolver.py) ----
 
-    def _slab_pm(self, pm: PM) -> SlabPM:
-        spm = self._slab_pms.get(pm.Nmesh)
-        if spm is None:
-            spm = self._slab_pms[pm.Nmesh] = SlabPM(pm, self.ring)
-        return spm
+    def _engine(self, pm: PM, pencil: bool):
+        """The distributed FFT engine of a force mesh: PencilPM over the
+        grid, or SlabPM over every rank (pfft.py:55-65 picks by the
+        mesh's axes)."""
+        key = (pm.Nmesh, pencil)
+        eng = self._engines.get(key)
+        if eng is None:
+            eng = self._engines[key] = (PencilPM(pm, self.comm) if pencil
+                                        else SlabPM(pm, self.ring))
+        return eng
 
     def _pick_halo(self, pm: PM, painter: Painter, stores):
-        """The homed force's halo width for this force mesh (None: the v1
+        """The homed force's halo for this force mesh (None: the v1
+        force; ("pencil", Hx, Hy): the pencil force; an int: the slab
         force): measured once, with one plane of slack
         (psolver.pick_halo), and kept until a force overflows it. The
         homed paint is CIC only."""
         if pm.Nmesh not in self._halo:
             self._halo[pm.Nmesh] = (
-                psolver.pick_halo(pm, self.ring, [p.x for p in stores])
+                psolver.pick_halo(pm, self.comm, [p.x for p in stores],
+                                  [p.home_blocks for p in stores])
                 if painter.type == "cic" and painter.diffdir < 0 else None)
         return self._halo[pm.Nmesh]
 
     def _sharded_force(self, pm: PM, painter: Painter, stores):
-        """The force over the ranks; returns (stores with acc filled,
-        this rank's delta_k shard). A homed force that finds a particle
-        beyond its halo is discarded: the halo is measured again from
-        the same positions and the force run again."""
+        """The force over the ranks; returns (stores with acc, and the
+        potential and tidal tensor where asked, filled; this rank's
+        delta_k shard without the pencil's kz pad; that shard's KShard).
+        A homed force that finds a particle beyond its halo is
+        discarded: the halo is measured again from the same positions
+        and the force run again."""
         cfg = self.config
-        spm = self._slab_pm(pm)
+        pot, tid = cfg.compute_potential, cfg.compute_tidal
         xs = [p.x for p in stores]
         masses = [p.mass if p.mass is not None else float(np.float32(p.M0))
                   for p in stores]
+
+        def filled(outs):
+            # a species without the column allocated keeps it None
+            return [p.replace(**{k: v for k, v in o.items()
+                                 if k == "acc" or getattr(p, k) is not None})
+                    for p, o in zip(stores, outs)]
+
         while True:
             H = self._pick_halo(pm, painter, stores)
+            pencil = isinstance(H, tuple)
             if H is None:
-                accs, delta_k = psolver._force_local_multi(
-                    spm, painter, xs, masses, cfg.kernel_type,
-                    cfg.softening_type)
-                self.force_paths["v1"] += 1
-                return ([p.replace(acc=a) for p, a in zip(stores, accs)],
-                        delta_k)
-            if carry_eligible(painter, stores):
-                p, bad, delta_k = psolver._force_local_homed_carry(
-                    spm, stores[0], cfg.kernel_type, H, cfg.softening_type)
-                out, path = [p], "homed-carry"
+                eng = self._engine(pm, self.comm is not self.ring)
+                outs, delta_k = psolver._force_local_multi(
+                    eng, painter, xs, masses, cfg.kernel_type,
+                    cfg.softening_type, pot, tid)
+                out, path, bad = filled(outs), "v1", 0
             else:
-                accs, bad, delta_k = psolver._force_local_homed_multi(
-                    spm, xs, masses, cfg.kernel_type, H,
-                    cfg.softening_type)
-                out = [p.replace(acc=a) for p, a in zip(stores, accs)]
-                path = "homed-multi"
+                eng = self._engine(pm, pencil)
+                if pencil:
+                    carry = psolver._force_local_homed_pencil_carry
+                    multi = psolver._force_local_homed_pencil_multi
+                    halo = H[1:]
+                else:
+                    carry = psolver._force_local_homed_carry
+                    multi = psolver._force_local_homed_multi
+                    halo = (H,)
+                if carry_eligible(painter, stores, pot, tid):
+                    p, bad, delta_k = carry(eng, stores[0], cfg.kernel_type,
+                                            *halo, cfg.softening_type)
+                    out, path = [p], "carry"
+                else:
+                    outs, bad, delta_k = multi(
+                        eng, xs, masses, cfg.kernel_type, *halo,
+                        cfg.softening_type, compute_potential=pot,
+                        compute_tidal=tid)
+                    out, path = filled(outs), "multi"
+                path = ("pencil-" if pencil else "homed-") + path
             if int(bad) == 0:
                 self.force_paths[path] += 1
-                return out, delta_k
+                kpm = eng.kpm_out
+                return out, delta_k[:, :, :kpm.kshape[2]], kpm
             # the overflow contract (store.c:507-509): measure again
             self.force_paths["overflow"] += 1
             del self._halo[pm.Nmesh]

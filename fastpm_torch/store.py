@@ -19,7 +19,9 @@ Port of fastpm_tpu/store.py. Column semantics follow the reference:
   by the drift (pgdcorrection.c)
 
 Row order carries no meaning: the force step returns the store in
-cell-sorted order, and writers sort by id.
+cell-sorted order, and writers sort by id. What the order of a fresh
+store means for its sharding is its home_blocks: None for the x-major
+lattice order, (px, py) for pencil-blocked rows (lattice_store).
 """
 
 from __future__ import annotations
@@ -68,6 +70,10 @@ class Store:
     q_scale: tuple = (1.0, 1.0, 1.0)
     q_nc: tuple = (0, 0, 0)
     name: str = "1"
+    # (px, py): the rows are pencil-blocked for a px x py grid
+    # (lattice_store(blocks=...)), so a Grid's shard of them is the
+    # rank's pencil; None: x-major
+    home_blocks: Optional[tuple] = None
 
     @property
     def np_local(self) -> int:
@@ -151,9 +157,10 @@ class Store:
 
     def shard(self, ring) -> "Store":
         """This rank's contiguous block of the rows (rank r of P keeps
-        rows [N r / P, N (r + 1) / P)). A lattice store is filled in
-        x-major id order, so rank r keeps the particles of x-slab r
-        (solver.py:_shard_store)."""
+        rows [N r / P, N (r + 1) / P)) on a Ring or a Grid (rank r = cx
+        py + cy). A lattice store is filled in x-major id order, so rank
+        r keeps the particles of x-slab r (solver.py:_shard_store); one
+        filled pencil-blocked for the grid, those of its pencil."""
         if ring.nproc == 1:
             return self
         n = self.np_local
@@ -216,12 +223,19 @@ def _rank_emulated_rand(Nc, seed: int, ntask: int) -> np.ndarray:
 
 def lattice_store(pm: PM, Nc=None, shift=0.0, columns=("v", "acc", "id"),
                   M0: float = 1.0, name: str = "1",
-                  rand_seed: int = 1231584, rand_ntask: int = 1) -> Store:
+                  rand_seed: int = 1231584, rand_ntask: int = 1,
+                  blocks=None) -> Store:
     """Uniform Lagrangian lattice of Nc^3 particles on pm.device
     (fastpm_store_fill, store.c:723-805): id = raveled lattice index,
     x = q = index * scale + shift. columns may also name "rand" (the
     reference's rank-emulated ranlxd stream of rand_ntask ranks, built
-    on the host and copied over), "potential" and "tidal" (zeros)."""
+    on the host and copied over), "potential" and "tidal" (zeros).
+
+    blocks=(px, py): the rows in pencil-blocked order (store.py:270-347
+    of the JAX package): row block b = i py + j holds the sites with ix
+    in x-block i (Nc0 / px wide) and iy in y-block j (Nc1 / py wide),
+    x-major within the block, so that a px x py Grid's shard of the rows
+    is the rank's pencil. Ids stay the global raveled lattice index."""
     if Nc is None:
         Nc = pm.Nmesh
     if np.isscalar(Nc):
@@ -233,17 +247,33 @@ def lattice_store(pm: PM, Nc=None, shift=0.0, columns=("v", "acc", "id"),
     dev = pm.device
 
     i = torch.arange(n, dtype=torch.int64, device=dev)
-    s01 = Nc[1] * Nc[2]
-    i0 = i // s01
-    r = i - i0 * s01
-    i1 = r // Nc[2]
-    i2 = r - i1 * Nc[2]
+    if blocks is None:
+        s01 = Nc[1] * Nc[2]
+        i0 = i // s01
+        r = i - i0 * s01
+        i1 = r // Nc[2]
+        i2 = r - i1 * Nc[2]
+    else:
+        px, py = int(blocks[0]), int(blocks[1])
+        if Nc[0] % px or Nc[1] % py:
+            raise ValueError(f"Nc {tuple(Nc)} must divide blocks {blocks}")
+        bx, by = Nc[0] // px, Nc[1] // py
+        bsz = bx * by * Nc[2]
+        b, w = i // bsz, i % bsz
+        l0 = w // (by * Nc[2])
+        rr = w - l0 * (by * Nc[2])
+        i1 = (b % py) * by + rr // Nc[2]
+        i2 = rr % Nc[2]
+        i0 = (b // py) * bx + l0
+        i = (i0 * Nc[1] + i1) * Nc[2] + i2
     idx = torch.stack([i0, i1, i2], dim=-1).to(torch.float32)
     x = (idx * torch.tensor(scale, dtype=torch.float32, device=dev)
          + torch.tensor(shift, dtype=torch.float32, device=dev))
 
     kw = dict(x=x, a_x=0.0, a_v=0.0, M0=M0, q_shift=tuple(shift),
-              q_scale=scale, q_nc=tuple(Nc), name=name)
+              q_scale=scale, q_nc=tuple(Nc), name=name,
+              home_blocks=None if blocks is None
+              else (int(blocks[0]), int(blocks[1])))
     if "v" in columns:
         kw["v"] = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     if "acc" in columns:
@@ -251,9 +281,11 @@ def lattice_store(pm: PM, Nc=None, shift=0.0, columns=("v", "acc", "id"),
     if "id" in columns:
         kw["id"] = i
     if "rand" in columns:
-        # the rows are in x-major lattice order, the order of the stream
-        kw["rand"] = torch.from_numpy(_rank_emulated_rand(
+        # the stream is in x-major lattice order: each row takes its own
+        # site's value (its id)
+        rand = torch.from_numpy(_rank_emulated_rand(
             Nc, rand_seed, rand_ntask).astype(np.float32)).to(dev)
+        kw["rand"] = rand if blocks is None else rand[i]
     if "potential" in columns:
         kw["potential"] = torch.zeros(n, dtype=torch.float32, device=dev)
     if "tidal" in columns:

@@ -360,3 +360,74 @@ def test_paint4_edges_on_cuda():
                      if torch.is_tensor(mass) else mass * int(valid.sum()))
             assert float(got.double().sum()) == pytest.approx(
                 total, rel=1e-6), kind
+
+
+@pytest.mark.cuda
+def test_open_y_kernels_on_cuda():
+    """The open-y mode of homed K1, K2, K5 and K6 (a Pencil: the pencil
+    force's extended pencil) against their plain versions at a 64^3
+    mesh: rank (1, 0) and rank (0, 1) of a 2 x 2 grid with Hx = Hy = 4,
+    rows inside the pencil, in its halo bands and corners and beyond it
+    (counted exactly), in cell order and shuffled; a scalar mass and a
+    mass column; the readouts with 1 and 3 fields; the launches counted
+    under launches_open_y."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    n, box, H, count = 64, 128.0, 4, 200003
+    inv = (n / box,) * 3
+    g = torch.Generator(device=dev).manual_seed(21)
+    cell = box / n
+    for r0x, r0y in ((n // 2, 0), (0, n // 2)):
+        pencil = cic.Pencil(n, r0x, H, n, r0y, H)
+        ext = (n // 2 + 2 * H + 1, n // 2 + 2 * H + 1, n)
+        x = torch.rand((count, 3), generator=g, device=dev) * box
+        for d, r0 in ((0, r0x), (1, r0y)):
+            # the pencil, its halos and 3 planes beyond on each side
+            span = n // 2 + 2 * H + 6
+            x[:, d] = ((r0 - H - 3 + span * torch.rand(
+                count, generator=g, device=dev)) * cell) % box
+        base, _f, valid = cic.slab_cell(x, ext, inv, pencil)
+        assert 0 < int((~valid).sum()) < count
+        key = (base[:, 0] * ext[1] + base[:, 1]) * ext[2] + base[:, 2]
+        key = torch.where(valid, key, ext[0] * ext[1] * ext[2])
+        xs = x[torch.sort(key, stable=True).indices]
+        xr = x[torch.randperm(count, generator=g, device=dev)]
+        masses = torch.rand(count, generator=g, device=dev) + 0.5
+        fields = [torch.randn(ext, generator=g, device=dev)
+                  for _ in range(3)]
+        before = {f.__name__: f.launches_open_y for f in (
+            cic.cic_paint_homed, cic.cic_paint4, cic.cic_readout_homed,
+            cic.cic_readout4)}
+        for xx in (xs, xr):
+            for mass in (1.5, masses):
+                for fn, plain in (
+                        (lambda c, m: cic.cic_paint_homed(c, xx, inv,
+                                                          pencil, m),
+                         lambda c, m: cic.cic_paint_homed_plain(
+                             c, xx, inv, pencil, m)),
+                        (lambda c, m: cic.cic_paint4(c, xx, inv, m, pencil),
+                         lambda c, m: cic.cic_paint4_plain(c, xx, inv, m,
+                                                           pencil))):
+                    got, want = (torch.zeros(ext, device=dev)
+                                 for _ in range(2))
+                    bad, bad_plain = fn(got, mass), plain(want, mass)
+                    assert int(bad) == int(bad_plain) == int(
+                        (~valid).sum())
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=2e-6)
+            for k in (1, 3):
+                torch.testing.assert_close(
+                    cic.cic_readout_homed(fields[:k], xx, inv, pencil),
+                    cic.cic_readout_plain(fields[:k], xx, inv, pencil),
+                    rtol=1e-5, atol=2e-6)
+            torch.testing.assert_close(
+                cic.cic_readout4(*fields, xx, inv, pencil),
+                cic.cic_readout4_plain(*fields, xx, inv, pencil),
+                rtol=1e-5, atol=2e-6)
+        after = {f.__name__: f.launches_open_y for f in (
+            cic.cic_paint_homed, cic.cic_paint4, cic.cic_readout_homed,
+            cic.cic_readout4)}
+        assert {k: after[k] - before[k] for k in after} == dict(
+            cic_paint_homed=4, cic_paint4=4, cic_readout_homed=4,
+            cic_readout4=2)

@@ -1,6 +1,8 @@
 """The port imports neither jax nor the JAX package, and its entry points
 never fall back to the CPU on their own."""
 
+import contextlib
+import io
 import os
 import subprocess
 import sys
@@ -81,23 +83,33 @@ def test_unserved_parameter_stops_the_cli(tmp_path):
         conf.write_text(base + line + "\n")
         with pytest.raises(SystemExit, match=line.split()[0]):
             main([str(conf)], device="cpu")
-    # the lightcone, RFOF, potential, tidal, PGD, the linear response and
-    # a RunPB initial condition are served on one rank and stop a run of
-    # several
+    # the lightcone, RFOF, PGD and the linear response are served on one
+    # rank and stop a run of several
     for line in ('lc_write_usmesh = "lc"', 'write_rfof = "rfof"',
-                 "compute_potential = true", "compute_tidal = true",
-                 "pgdc = true", "ncdm_linearresponse = true",
-                 'read_runpbic = "ic"'):
+                 "pgdc = true", "ncdm_linearresponse = true"):
         one = tmp_path / "one.lua"
         one.write_text(base + line + "\n")
         params = load_params(str(one))
         check_served(params)
         with pytest.raises(SystemExit, match=line.split()[0]):
             check_served(params, ranks=2)
+    # the potential, the tidal tensor and a RunPB initial condition are
+    # served on several ranks too
+    for line in ("compute_potential = true", "compute_tidal = true",
+                 'read_runpbic = "ic"'):
+        one = tmp_path / "one.lua"
+        one.write_text(base + line + "\n")
+        check_served(load_params(str(one)), ranks=2)
     # restart is served on one rank; subsampled runs cannot restart
     sub = tmp_path / "sub.lua"
     sub.write_text(base + "particle_fraction = 0.5\n")
     with pytest.raises(SystemExit, match="restart"):
         main(["-r", str(tmp_path / "snapshot"), str(sub)], device="cpu")
-    with pytest.raises(SystemExit, match="NprocY"):
-        main(["-y", "2", str(conf)], device="cpu")
+    # -y 2 is served: on one rank it runs the one device, as the JAX
+    # package's make_device_mesh does
+    ps = os.path.join(os.path.dirname(__file__), "fixtures",
+                      "powerspec.txt")
+    conf.write_text(base + 'read_powerspectrum = "%s"\n' % ps
+                    + "random_seed = 1\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(["-y", "2", str(conf)], device="cpu") == 0

@@ -1,5 +1,5 @@
 """Rank-side code of the port's multi-rank tests
-(tests/test_torch_parallel.py).
+(tests/test_torch_parallel.py, tests/test_torch_pencil.py).
 
 `run` is started on each rank of a gloo process group with
 torch.multiprocessing (start method spawn). It imports torch and the
@@ -18,7 +18,8 @@ HOMED_KERNELS = ("from8", "from4")
 
 
 def run(rank, nproc, port, job, inp, out):
-    """One rank of `job` ("cases", "cola" or "cli")."""
+    """One rank of `job` ("cases", "cola", "pencil", or "cli" followed by
+    the CLI's flags)."""
     import faulthandler
     # a rank killed by a signal prints where it was to the test's stderr
     faulthandler.enable()
@@ -26,16 +27,25 @@ def run(rank, nproc, port, job, inp, out):
     # gloo on the loopback interface by address: no host name lookups,
     # which a host without name service may fail
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
-    if job == "cli":
-        # the CLI starts the process group itself, as under torchrun
+    if job.split()[0] == "cli":
+        # the CLI starts the process group itself, as under torchrun;
+        # each rank's standard output, and the message of a SystemExit,
+        # go to <out>/cli.rank<r>.txt
         os.environ.update(WORLD_SIZE=str(nproc), RANK=str(rank),
                           LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                           MASTER_PORT=str(port))
         import contextlib
         import io
         from fastpm_torch import cli
-        with contextlib.redirect_stdout(io.StringIO()):
-            cli.main([inp], device="cpu")
+        text = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(text):
+                cli.main(job.split()[1:] + [inp], device="cpu")
+        except SystemExit as e:
+            text.write("SystemExit: %s\n" % e)
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "cli.rank%d.txt" % rank), "w") as f:
+            f.write(text.getvalue())
         return
     dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
                             rank=rank, world_size=nproc)
@@ -51,6 +61,17 @@ def run(rank, nproc, port, job, inp, out):
             np.savez(os.path.join(out, "rank%d.npz" % rank), x=p.x.numpy(),
                      v=p.v.numpy(), id=p.id.numpy(), dx1=p.dx1.numpy(),
                      paths=np.array(sorted(s.force_paths.elements())))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        return
+    if job == "pencil":
+        try:
+            from fastpm_torch.parallel.comm import Grid
+            data = dict(np.load(inp))
+            grid = Grid(dist.group.WORLD, int(data["px"]), int(data["py"]))
+            np.savez(os.path.join(out, "rank%d.npz" % rank),
+                     **pencil(grid, data))
             dist.barrier()
         finally:
             dist.destroy_process_group()
@@ -135,9 +156,9 @@ def forces(ring, data):
         mass = (_rows(ring, data[name + "_mass"])
                 if name + "_mass" in data else 1.0)
         for hk in HOMED_KERNELS:
-            (acc,), bad, _dk = psolver._force_local_homed_multi(
+            (out,), bad, _dk = psolver._force_local_homed_multi(
                 spm, (x,), (mass,), "1_4", H, homed_kernel=hk)
-            res["%s_%s_acc" % (name, hk)] = acc.numpy()
+            res["%s_%s_acc" % (name, hk)] = out["acc"].numpy()
             res["%s_%s_bad" % (name, hk)] = np.int64(bad)
     x, v = _rows(ring, data["carry_x"]), _rows(ring, data["carry_v"])
     ids = _rows(ring, data["carry_id"])
@@ -149,17 +170,19 @@ def forces(ring, data):
             res["carry_%s_%s" % (hk, c)] = getattr(p, c).numpy()
         res["carry_%s_bad" % hk] = np.int64(bad)
     pm1 = PM(int(data["v1_nc"]), float(data["v1_box"]))
-    (acc,), _dk = psolver._force_local_multi(
+    (out,), _dk = psolver._force_local_multi(
         SlabPM(pm1, ring), Painter(pm1, "cic"), (_rows(ring, data["v1_x"]),),
         (1.0,), "1_4")
-    res["v1_acc"] = acc.numpy()
+    res["v1_acc"] = out["acc"].numpy()
     return res
 
 
 def run_solver(nc, box, time_step, ps, seed, device="cpu", group=None,
-               force_mode="fastpm"):
+               force_mode="fastpm", grid=None, **config):
     """A Solver (pm_nc_factor 1) from the port's own linear field,
-    evolved; the solver (shared with the parent's one-rank run)."""
+    evolved; the solver (shared with the parent's one-rank run). grid: a
+    process grid instead of the group's slab; config: more SolverConfig
+    fields."""
     from fastpm_torch.solver import Solver, SolverConfig
     from fastpm_torch.cosmology import Cosmology
     from fastpm_torch.powerspectrum import FuncK
@@ -167,8 +190,8 @@ def run_solver(nc, box, time_step, ps, seed, device="cpu", group=None,
     c = Cosmology(h=0.6774, Omega_m=0.307494, T_cmb=0.0, growth_mode="lcdm")
     s = Solver(SolverConfig(nc=nc, boxsize=box, time_step=list(time_step),
                             force_mode=force_mode, pm_nc_factor=1,
-                            check_values=True), c, device=device,
-               group=group)
+                            check_values=True, **config), c, device=device,
+               group=group, grid=grid)
     dk, _ = ic.linear_field(s.lptpm, c, FuncK.from_file(ps), seed=seed,
                             aout=1.0)
     s.setup_lpt(dk, time_step[0])
@@ -196,8 +219,122 @@ def solver(ring, data):
               id=_rows(ring, np.arange(len(x))))
     s._halo[pm.Nmesh] = 2
     s.force_paths.clear()
-    (p,), _dk = s._sharded_force(pm, Painter(pm, "cic"), [p])
+    (p,), _dk, _kpm = s._sharded_force(pm, Painter(pm, "cic"), [p])
     res.update(replay_acc=p.acc.numpy(), replay_id=p.id.numpy(),
                replay_H=np.int64(s._halo[pm.Nmesh]),
                replay_paths=np.array(sorted(s.force_paths.elements())))
     return res
+
+
+# ---- the pencil decomposition (tests/test_torch_pencil.py) ------------
+
+
+def pencil(grid, data):
+    """On a px x py Grid: the rings' members, PencilPM's FFTs and shard
+    transfers, the halo requirement, the pencil multi (both homed
+    kernels, a mass column, the potential and tidal tensor, multi-hop,
+    the overflow count) and carry, v1 over PencilPM; where the inputs
+    ask, the slab multi's potential and tidal tensor over every rank,
+    the sharded Solver and read_runpbic."""
+    from fastpm_torch.mesh import PM
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.store import Store
+    from fastpm_torch.parallel.pfft import PencilPM, SlabPM
+    from fastpm_torch.parallel import psolver
+    me = torch.tensor([grid.rank])
+    res = {"xring": grid.xring.all_gather(me).numpy(),
+           "yring": grid.yring.all_gather(me).numpy()}
+
+    field = data["fft_field"]
+    ppm = PencilPM(PM(field.shape, float(data["fft_box"])), grid)
+    (x0, y0), (nlx, nly) = ppm.r0, ppm.rshard[:2]
+    dk = ppm.r2c_local(torch.from_numpy(np.ascontiguousarray(
+        field[x0:x0 + nlx, y0:y0 + nly])))
+    res.update(
+        fft_dk=dk.numpy(), fft_back=ppm.c2r_local(dk).numpy(),
+        fft_transfer=ppm.apply_decic(ppm.apply_grad(
+            ppm.apply_pot(dk, 1), 1, 1)).numpy(),
+        fft_grad3=torch.stack(ppm.c2r_grad3_local(
+            ppm.apply_pot(dk, 0), 1)).numpy(),
+        fft_laplace=ppm.apply_laplace(dk, 2).numpy(),
+        fft_fk=ppm.apply_fk_interp(dk, torch.from_numpy(data["fk_logk"]),
+                                   torch.from_numpy(data["fk_vals"]))
+        .numpy())
+
+    pm = PM(int(data["force_nc"]), float(data["force_box"]))
+    ppm = PencilPM(pm, grid)
+    pot_tid = dict(compute_potential=True, compute_tidal=True)
+    for name in str(data["cases"]).split():
+        x = _rows(grid, data[name + "_x"])
+        Hx, Hy = (int(h) for h in data[name + "_H"])
+        res[name + "_req"] = np.array(
+            psolver.required_halo_planes_pencil(pm, grid, x))
+        mass = (_rows(grid, data[name + "_mass"])
+                if name + "_mass" in data else 1.0)
+        for hk in HOMED_KERNELS:
+            (out,), bad, _dk = psolver._force_local_homed_pencil_multi(
+                ppm, (x,), (mass,), "1_4", Hx, Hy, homed_kernel=hk,
+                **(pot_tid if name == "a" else {}))
+            for k, v in out.items():
+                res["%s_%s_%s" % (name, hk, k)] = v.numpy()
+            res["%s_%s_bad" % (name, hk)] = np.int64(bad)
+    x, v = _rows(grid, data["carry_x"]), _rows(grid, data["carry_v"])
+    ids = _rows(grid, data["carry_id"])
+    Hx, Hy = (int(h) for h in data["carry_H"])
+    for hk in HOMED_KERNELS:
+        p, bad, _dk = psolver._force_local_homed_pencil_carry(
+            ppm, Store(x=x, v=v, id=ids), "1_4", Hx, Hy, homed_kernel=hk)
+        for c in ("x", "v", "id", "acc"):
+            res["carry_%s_%s" % (hk, c)] = getattr(p, c).numpy()
+        res["carry_%s_bad" % hk] = np.int64(bad)
+    (out,), _dk = psolver._force_local_multi(
+        ppm, Painter(pm, "cic"), (_rows(grid, data["a_x"]),), (1.0,), "1_4")
+    res["v1_acc"] = out["acc"].numpy()
+
+    if "slab_x" in data:
+        # the slab multi over every rank, x-major rows
+        ring = grid.flat
+        (out,), bad, _dk = psolver._force_local_homed_multi(
+            SlabPM(pm, ring), (_rows(ring, data["slab_x"]),), (1.0,),
+            "1_4", int(data["slab_H"]), **pot_tid)
+        for k, v in out.items():
+            res["slab_" + k] = v.numpy()
+        res["slab_bad"] = np.int64(bad)
+    # the Solver as is ("plain"), and with the potential and tidal tensor
+    # ("pot_tid")
+    for variant in str(data.get("solver_variants", "")).split():
+        extra = ({} if variant == "plain" else
+                 dict(compute_potential=True, compute_tidal=True))
+        s = run_solver(int(data["solver_nc"]), float(data["solver_box"]),
+                       data["solver_steps"], str(data["solver_ps"]),
+                       int(data["solver_seed"]), group=grid.group,
+                       grid=grid, **extra)
+        p = s.species["cdm"]
+        cols = ("x", "v", "id") + (("potential", "tidal") if extra else ())
+        res.update({"solver_%s_%s" % (variant, c): getattr(p, c).numpy()
+                    for c in cols})
+        res["solver_%s_paths" % variant] = np.array(
+            sorted(s.force_paths.elements()))
+    if "runpb" in data:
+        p = runpb_ic(str(data["runpb"]), int(data["runpb_nc"]),
+                     float(data["runpb_box"]), float(data["runpb_a"]),
+                     grid=grid)
+        for c in ("x", "v", "id", "dx1", "dx2"):
+            res["runpb_" + c] = getattr(p, c).numpy()
+    return res
+
+
+def runpb_ic(path, nc, box, a0, grid=None):
+    """The CDM store a cola Solver sets up from a RunPB IC file
+    (cli.prepare_runpbic), on one rank or over a grid."""
+    from fastpm_torch.solver import Solver, SolverConfig
+    from fastpm_torch.cosmology import Cosmology
+    from fastpm_torch.cli import prepare_runpbic
+    from fastpm_torch.diagnostics import Log
+    c = Cosmology(h=0.6774, Omega_m=0.307494, growth_mode="lcdm")
+    s = Solver(SolverConfig(nc=nc, boxsize=box, time_step=[a0, 1.0],
+                            force_mode="cola", pm_nc_factor=1,
+                            use_shift=True), c, device="cpu",
+               grid=grid)
+    prepare_runpbic(s, path, a0, Log(echo=False))
+    return s.species["cdm"]
