@@ -173,6 +173,23 @@ L. the pencil (2D) decomposition: the open-y mode of homed K1, K5, K2
    compute_force by id; ms a step and peak memory of the pencil forces
    beside the slab's, and a torch.profiler breakdown of the pencil
    carry;
+M. the options the JAX package runs on a device mesh, at full width on a
+   one-rank NCCL process group, once on its ring (the slab: homed K1 and
+   K2) and once on its 1 x 1 grid (the pencil: their open-y mode),
+   through cli.run_fastpm and Solver with group / grid: phase I's linear
+   response run against phase I's by id and history; phase H's cola +
+   PGD against its pgdc (2e-3 of its largest: two card runs), and PGD
+   over the group against one device on one state (1e-4); phase 7's
+   physics
+   restarted from its a = 0.55 snapshot against its z = 0 state by id;
+   phase G's lightcone with write_rfof against its usmesh ids and FOF
+   halos (the lightcone's and the z = 0 snapshot's; fof_link launched
+   for RFOF too); and on the ring phase 7's
+   physics with rehome=True against the dense slab carry, with the rows
+   each migration hop moved. Each run's wall, force actions (CUDA
+   events), peak memory and launches are printed and checked; the LRA,
+   cola + PGD and rehome force steps are timed, and the LRA step and the
+   rehome body profiled (device idle share);
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -1122,9 +1139,19 @@ def ncdm_agreement(dev, tmp, nc=16, box=128.0):
             raise SystemExit("ncdm device agreement failed")
 
 
+def main_text(nc, box, nstep, out):
+    """Phase 7's Lua text: SMALL_LUA with snapshots at a = 0.55 (the
+    third of 5 steps; phase M restarts from it) and a = 1."""
+    text = SMALL_LUA % dict(nc=nc, box=box, nstep=nstep, zout="0.0",
+                            out=out,
+                            ps=os.path.join(FIXTURES, "powerspec.txt"))
+    return text.replace("output_redshifts = {0.0}", "aout = {0.55, 1.0}")
+
+
 def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
     """Phase 7: the main path at full size through run_fastpm; returns
-    the launch counts of the run, the solver and its force mesh."""
+    the launch counts of the run, the solver and its force mesh, the
+    kernels' rows and the output directory."""
     import numpy as np
     import torch
     from fastpm_torch import cli, gravity
@@ -1134,9 +1161,8 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
     from fastpm_torch.ops import cic
 
     out = os.path.join(tmp, "main")
-    conf = write_lua(os.path.join(tmp, "main.lua"), SMALL_LUA % dict(
-        nc=nc, box=box, nstep=nstep, zout="0.0", out=out,
-        ps=os.path.join(FIXTURES, "powerspec.txt")))
+    conf = write_lua(os.path.join(tmp, "main.lua"),
+                     main_text(nc, box, nstep, out))
     reset_peak()
     reset_launches()
     t0 = time.perf_counter()
@@ -1149,7 +1175,7 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
 
     nforce = nstep
     print("main path: %d^3 particles, %d^3 force mesh, %d force steps, "
-          "wall %.2f s (IC, 2LPT, steps, P(k), snapshot)"
+          "wall %.2f s (IC, 2LPT, steps, P(k), snapshots at a = 0.55 and 1)"
           % (nc, 2 * nc, nforce, wall))
     print("main path: launches K1 cic_paint %d (want %d), K2 cic_readout "
           "%d (want %d = force steps + 6 LPT readouts), K3 %d and K4 %d "
@@ -1205,7 +1231,7 @@ def main_path(dev, tmp, nc=256, box=768.0, nstep=5):
           "K2 (3 fields) kernel_ms %.4f" % (rows["cic_paint"]["ms_z0"],
                                             rows["cic_readout"]["ms_z0"]))
     del x, fields
-    return launches, solver, pm, rows
+    return launches, solver, pm, rows, out
 
 
 def ncdm_path(dev, tmp, nc=256, box=768.0):
@@ -2384,7 +2410,7 @@ def lightcone_path(dev, tmp, nc=256, box=2048.0):
                              "from its plain version" % k)
         print("lightcone path: K4 cic_readout_ordered with %d field(s) "
               "given the cell order: equal to its plain version" % k)
-    return launches
+    return launches, dict(out=out, wall=wall, launches=launches)
 
 
 # the PGD parameters of BASELINE.md's config ladder (COLA + PGD)
@@ -2531,6 +2557,10 @@ def modes_path(dev, tmp, nc=256, box=768.0, nstep=5):
               % (name, ms, ", pgdc" if pgd else "", nc ** 3 / ms * 1e3))
         if pgd:
             launches = run_launches
+            # the run's final pgdc by id, phase M's reference
+            o = p.id.argsort()
+            ref = dict(id=p.id[o].cpu().numpy(), pgdc=p.pgdc[o].cpu().numpy(),
+                       force_ms=force_ms, step_ms=ms)
             q, dk = step()
             alpha = solver.pgd.alpha(1.0)
             pgd_ms = time_ms(lambda: solver.pgd.compute_with_alpha(
@@ -2550,7 +2580,7 @@ def modes_path(dev, tmp, nc=256, box=768.0, nstep=5):
                   % (pgd_ms, c2r_ms, k2_ms))
             del q, dk, pot, fields
         del solver, p, store, x
-    return launches
+    return launches, ref
 
 
 def check_binning(pm, dk):
@@ -2602,6 +2632,33 @@ def check_binning(pm, dk):
     return time_ms(lambda: measure_power(pm, dk), reps=5)
 
 
+def lra_text(n, b, pmf, out):
+    """tests/test_torch_lra.py's LRA_RUN at nc n, boxsize b and
+    pm_nc_factor pmf, its files in out."""
+    src = load_test_module("test_torch_lra").LRA_RUN % dict(
+        out=out, ps=os.path.join(FIXTURES, "powerspec.txt"))
+    for pat, rep in ((r"(?m)^nc = .*$", "nc = %d" % n),
+                     (r"(?m)^boxsize = .*$", "boxsize = %r" % b),
+                     (r"(?m)^pm_nc_factor = .*$",
+                      "pm_nc_factor = %d" % pmf)):
+        src = re.sub(pat, rep, src)
+    return src
+
+
+def lra_full_text(nc, box, out):
+    """Phase I's run: LRA_RUN at full width on a force mesh of twice the
+    particles' and no files."""
+    return "\n".join(l for l in lra_text(nc, box, 2, out).splitlines()
+                     if not l.startswith(("write_", "aout")))
+
+
+def by_id(store):
+    """(id, x, v) of a store's rows in id order, on the host."""
+    p = store.compact()
+    o = p.id.argsort()
+    return tuple(getattr(p, c)[o].cpu().numpy() for c in ("id", "x", "v"))
+
+
 def lra_path(dev, tmp, nc=256, box=1024.0):
     """Phase I: tests/test_lra.py's LRA_RUN physics (m_ncdm 0.2, n_shell
     0, z_transfer 4, ODE growth, T_cmb 2.725; 5 steps from a = 0.2) at nc
@@ -2619,20 +2676,8 @@ def lra_path(dev, tmp, nc=256, box=1024.0):
     from fastpm_torch.diagnostics import Log
     from fastpm_torch.painter import Painter
 
-    lra = load_test_module("test_torch_lra")
-
-    def text(n, b, pmf, out):
-        src = lra.LRA_RUN % dict(out=out, ps=os.path.join(
-            FIXTURES, "powerspec.txt"))
-        for pat, rep in ((r"(?m)^nc = .*$", "nc = %d" % n),
-                         (r"(?m)^boxsize = .*$", "boxsize = %r" % b),
-                         (r"(?m)^pm_nc_factor = .*$",
-                          "pm_nc_factor = %d" % pmf)):
-            src = re.sub(pat, rep, src)
-        return src
-
-    full = "\n".join(l for l in text(nc, box, 2, tmp).splitlines()
-                     if not l.startswith(("write_", "aout")))
+    text = lra_text
+    full = lra_full_text(nc, box, tmp)
     # in-run hooks: each force action (CUDA events), each step's table
     # (host clock from a synchronise: the measure_power fetch, the
     # response update and the table's upload) and its update alone
@@ -2684,6 +2729,11 @@ def lra_path(dev, tmp, nc=256, box=1024.0):
                         cic_readout=nforce + 6):
         raise SystemExit("lra path did not run through K1 / K2: %s"
                          % launches)
+    # the run's final state and history, phase M's reference
+    ref = dict(zip(("id", "x", "v"), by_id(solver.species["cdm"])),
+               scalefact=np.asarray(solver.lra.scalefact),
+               delta_tot=np.asarray(solver.lra.delta_tot), wall=wall,
+               force_ms=[s_.elapsed_time(e) for s_, e in pairs])
     pm = solver.find_pm(1.0)
     painter = Painter(pm, "cic")
     store = solver.species["cdm"].wrap(pm.BoxSize)
@@ -2738,7 +2788,7 @@ def lra_path(dev, tmp, nc=256, box=1024.0):
             and dt <= 0.03
             and not os.path.exists(os.path.join(o2, "fastpm_0.6000"))):
         raise SystemExit("lra restart equivalence failed")
-    return launches
+    return launches, ref
 
 
 def goldens_and_ics(dev, nc=64, nc_full=256):
@@ -3250,6 +3300,377 @@ def cli_files_tools(dev, tmp, solver, pm, nc=256, box=768.0, nstep=5):
                 step_ms_clocks_off=off, step_ms_clocks_on=on)
 
 
+def run_launches():
+    """The counts of every kernel, and of the homed kernels' launches on
+    a Pencil (key name + "_open_y")."""
+    out = read_launches()
+    out.update({name + "_open_y": wrapper(name).launches_open_y
+                for name in HOMED})
+    return out
+
+
+def close_by_id(label, got, want, cell, tol=1e-3):
+    """Two (id, x, v) triples in id order, each from a run on the card:
+    the ids equal, max |dx| in cells and max |dv| over the rms of v
+    within tol. Two card runs of one field already differ by 1.5-2.0e-4
+    of a cell at z = 0 (the deposit's float32 atomics in no fixed order;
+    phase K), so the bound is 5 times that, not phase 6's 1e-4 for a
+    CPU run against a card run. Returns the two errors."""
+    import numpy as np
+    ex = float(np.abs(got[1] - want[1]).max()) / cell
+    ev = float(np.abs(got[2] - want[2]).max() / want[2].std())
+    ok = np.array_equal(got[0], want[0]) and ex <= tol and ev <= tol
+    print("%s: ids %s, max |dx| %.3g cell, max |dv| %.3g rms (bounds %g)"
+          % (label, "equal" if np.array_equal(got[0], want[0]) else
+             "DIFFER", ex, ev, tol))
+    if not ok:
+        raise SystemExit("%s disagrees" % label)
+    return ex, ev
+
+
+def homed_want(kind, paints, reads, **others):
+    """Phase M's expected counts: the homed paint and readout (on a
+    Pencil too for the pencil), every other kernel as given or 0."""
+    want = dict({k: 0 for k in KERNELS}, **others)
+    want.update(cic_paint_homed=paints, cic_readout_homed=reads)
+    for name in HOMED:
+        want[name + "_open_y"] = want[name] if kind == "pencil" else 0
+    return want
+
+
+def check_launches(label, got, want, skip=()):
+    """SystemExit unless every count of want but those in skip is got's."""
+    bad = {k: (got[k], want[k]) for k in want
+           if k not in skip and got[k] != want[k]}
+    print("%s: launches %s" % (label, {k: c for k, c in got.items() if c}))
+    if bad:
+        raise SystemExit("%s did not run through its kernels (got, want): "
+                         "%s" % (label, bad))
+
+
+def ranks_path(dev, tmp, main_out, main_store, lra_ref, pgd_ref, lc_ref,
+               nc=256, nstep=5, box=768.0, lra_box=1024.0, lc_box=2048.0):
+    """Phase M: the options the JAX package runs on a device mesh, over
+    a one-rank NCCL process group, once on its ring (x-slabs: homed K1
+    and K2) and once on its 1 x 1 Grid (pencils: their open-y mode),
+    through the entry points (cli.run_fastpm with group / grid, Solver):
+    phase I's LRA run against phase I's by id and history; phase H's
+    cola + PGD against its pgdc; phase 7's physics restarted from its
+    a = 0.55 snapshot against its z = 0 state; phase G's lightcone with
+    write_rfof against its usmesh rows and FOF halos; and, on the ring
+    only, phase 7's physics with rehome=True against the dense slab
+    carry, with the rows each migration moved. Each run's wall, peak
+    memory and launches (the counters set to 0 just before it) are
+    printed and checked; the LRA, PGD and rehome force steps are timed
+    and profiled. Returns {run: launches}."""
+    import dataclasses
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from fastpm_torch import cli, gravity
+    from fastpm_torch.config.params import load_params, load_params_from_string
+    from fastpm_torch.diagnostics import Log, attach_standard_handlers
+    from fastpm_torch.io.bigfile import BigFile
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.parallel import psolver
+    from fastpm_torch.parallel.comm import Grid
+    from fastpm_torch.solver import Solver
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d" % port,
+                            rank=0, world_size=1)
+    out_launches = {}
+
+    def check(label, got, want, skip=()):
+        out_launches[label] = got
+        check_launches("phase M " + label, got, want, skip)
+
+    def run(label, fn):
+        """fn() -> solver, with the launch counters, the peak and the
+        force actions' CUDA events around it."""
+        base = reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        with timed_forces() as pairs:
+            solver = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = run_launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        force_ms = [a.elapsed_time(b) for a, b in pairs]
+        print("phase M %s: wall %.2f s, force actions %s ms (CUDA events), "
+              "the run's peak %.3f GB over %.3f GB live, force paths %s"
+              % (label, wall, ["%.2f" % t for t in force_ms], peak / 1e9,
+                 base / 1e9, dict(solver.force_paths)))
+        return solver, got
+
+    try:
+        ones = torch.ones(1, device=dev)
+        dist.all_reduce(ones)
+        group = dist.group.WORLD
+        grids = {"slab": None, "pencil": Grid(group, 1, 1)}
+        print("phase M: one-rank NCCL group (all_reduce %g); the slab on "
+              "its ring, the pencil on its 1 x 1 grid" % float(ones))
+        main_ref = by_id(main_store)
+        for kind, grid in grids.items():
+            where = dict(device=dev, group=group, grid=grid)
+            carry = "pencil-carry" if kind == "pencil" else "homed-carry"
+
+            # ---- phase I's linear response ----
+            params = load_params_from_string(lra_full_text(nc, lra_box, tmp))
+            solver, got = run("%s LRA" % kind, lambda: cli.run_fastpm(
+                params, log=Log(echo=False), **where))
+            # the force through the homed kernels, the 2LPT readouts
+            # through K2
+            check("%s LRA" % kind, got, homed_want(
+                kind, nstep, nstep, cic_readout=6))
+            close_by_id("phase M %s LRA against phase I by id" % kind,
+                        by_id(solver.species["cdm"]),
+                        (lra_ref["id"], lra_ref["x"], lra_ref["v"]),
+                        lra_box / nc)
+            rel = float(np.abs(np.asarray(solver.lra.delta_tot)
+                               / lra_ref["delta_tot"] - 1).max())
+            print("phase M %s LRA: history %d entries, times equal %s, "
+                  "deltas rel %.3g of phase I's (bound 1e-4)"
+                  % (kind, len(solver.lra.scalefact), np.array_equal(
+                      solver.lra.scalefact, lra_ref["scalefact"]), rel))
+            if not (np.array_equal(solver.lra.scalefact,
+                                   lra_ref["scalefact"]) and rel <= 1e-4):
+                raise SystemExit("phase M %s LRA history disagrees" % kind)
+            pm = solver.find_pm(1.0)
+            times = iter(1.0 + 0.01 * np.arange(1, 100))
+            step = lambda: solver.force(pm, float(next(times)))
+            ms = time_ms(step, reps=5)
+            print("phase M %s LRA: force step %.2f ms with the response (a "
+                  "new history entry each; phase I's run force actions %s "
+                  "ms on one device)" % (kind, ms, ["%.2f" % t for t in
+                                                   lra_ref["force_ms"]]))
+            profile_force(step, label="phase M %s LRA force profile" % kind)
+            del solver, step
+
+            # ---- phase H's cola + PGD ----
+            text = main_text(nc, box, nstep, os.path.join(tmp, "mcola"))
+            text = "\n".join(l for l in text.splitlines()
+                             if not l.startswith(("write_", "aout")))
+            params = load_params_from_string(text)
+            cfg = dataclasses.replace(
+                cli.build_config(params), force_mode="cola", pgdc=True,
+                pgdc_alpha0=0.8, pgdc_A=4.0, pgdc_B=8.0, pgdc_kl=2.0,
+                pgdc_ks=10.0)
+
+            def cola_pgd():
+                s_ = Solver(cfg, cli.build_cosmology(params), **where)
+                log = attach_standard_handlers(s_, Log(echo=False))
+                dk, _ = cli.prepare_deltak(s_, params, log)
+                s_.setup_lpt(dk, params.time_step[0])
+                del dk
+                s_.evolve(cfg.time_step)
+                return s_
+
+            solver, got = run("%s cola + PGD" % kind, cola_pgd)
+            check("%s cola + PGD" % kind, got, homed_want(
+                kind, nstep, 2 * nstep, cic_readout=6))
+            p = solver.species["cdm"]
+            o = p.id.argsort()
+            pgdc = p.pgdc[o].cpu().numpy()
+            scale = float(np.abs(pgd_ref["pgdc"]).max())
+            err = float(np.abs(pgdc - pgd_ref["pgdc"]).max())
+            # two card runs differ by the deposit's run-to-run spread,
+            # which 5 steps amplify in pgdc (4.5e-4 of its largest in
+            # this phase's second run): the runs within 2e-3, and PGD
+            # itself within 1e-4 on one state, below
+            print("phase M %s cola + PGD against phase H's run: ids equal "
+                  "%s, max |d pgdc| %.3g = %.3g of its largest (bound 2e-3)"
+                  % (kind, np.array_equal(p.id[o].cpu().numpy(),
+                                          pgd_ref["id"]), err, err / scale))
+            if not (np.array_equal(p.id[o].cpu().numpy(), pgd_ref["id"])
+                    and err <= 2e-3 * scale):
+                raise SystemExit("phase M %s: pgdc disagrees with phase H"
+                                 % kind)
+            # on the run's final state: the force with PGD over the
+            # group against the single-device force and PGD
+            pm = solver.find_pm(1.0)
+            solver.force(pm, 1.0)
+            p = solver.species["cdm"]
+            q, dk = gravity.compute_force_carry(pm, Painter(pm, "cic"),
+                                                p.wrap(pm.BoxSize))
+            want = solver.pgd.compute_with_alpha(pm, q.x, dk,
+                                                 solver.pgd.alpha(1.0))
+            got = p.pgdc[p.id.argsort()]
+            want = want[q.id.argsort()]
+            err = float((got - want).abs().max() / want.abs().max())
+            print("phase M %s PGD on one state: over the group against "
+                  "one device, max |d pgdc| %.3g of its largest (bound "
+                  "1e-4)" % (kind, err))
+            if not err <= 1e-4:
+                raise SystemExit("phase M %s: PGD over the group disagrees "
+                                 "with one device" % kind)
+            del q, dk, got, want
+            ms = time_ms(lambda: solver.force(pm, 1.0), reps=5)
+            print("phase M %s cola + PGD: force step with PGD %.2f ms "
+                  "(phase H on one device: force step %.2f ms, its run's "
+                  "force actions %s ms)" % (kind, ms, pgd_ref["step_ms"],
+                                           ["%.2f" % t for t in
+                                            pgd_ref["force_ms"]]))
+            del solver, p
+
+            # ---- phase 7's physics restarted at a = 0.55 ----
+            out = os.path.join(tmp, "mrestart_" + kind)
+            params = load_params_from_string(main_text(nc, box, nstep, out))
+            snap = os.path.join(main_out, "fastpm_0.5500")
+            solver, got = run("%s restart" % kind, lambda: cli.run_fastpm(
+                params, log=Log(echo=False), restart=snap, **where))
+            # forces at a = 0.55, 0.775 and 1
+            check("%s restart" % kind, got, homed_want(kind, 3, 3))
+            got_ref = by_id(solver.species["cdm"])
+            ex = float(np.abs(got_ref[1] - main_ref[1]).max())
+            ev = float(np.abs(got_ref[2] - main_ref[2]).max())
+            print("phase M %s restart from phase 7's a = 0.55 snapshot: ids "
+                  "equal %s, max |dx| %.3g Mpc/h, max |dv| %.3g (internal; "
+                  "bounds 2e-3 and 2e-3, phase I's restart bounds), a = 0.55 "
+                  "not rewritten %s" % (
+                      kind, np.array_equal(got_ref[0], main_ref[0]), ex, ev,
+                      not os.path.exists(os.path.join(out,
+                                                      "fastpm_0.5500"))))
+            if not (np.array_equal(got_ref[0], main_ref[0]) and ex <= 2e-3
+                    and ev <= 2e-3 and not os.path.exists(
+                        os.path.join(out, "fastpm_0.5500"))):
+                raise SystemExit("phase M %s restart disagrees with phase "
+                                 "7" % kind)
+            del solver, got_ref
+
+            # ---- phase G's lightcone with RFOF ----
+            conf, out = lightcone_lua(tmp, "lightcone.lua", "mlc_" + kind, (
+                (r"(?m)^nc = .*$", "nc = %d" % nc),
+                (r"(?m)^boxsize = .*$", "boxsize = %r" % lc_box),
+                (r"(?m)^lc_usmesh_fof_padding = .*$",
+                 "lc_usmesh_fof_padding = 20.0\nlc_usmesh_healpix_nside = 32"
+                 "\nwrite_rfof = \"%s/rfof\"" % os.path.join(
+                     tmp, "mlc_" + kind))))
+            params = load_params(conf)
+            nlc = len(params.time_step)
+            solver, got = run("%s lightcone" % kind, lambda: cli.run_fastpm(
+                params, log=Log(echo=False), **where))
+            # the force: the homed multi with the potential and the tidal
+            # tensor (4 readouts a step); FOF and RFOF through fof_link
+            check("%s lightcone" % kind, got, homed_want(
+                kind, nlc, 4 * nlc,
+                cic_readout=lc_ref["launches"]["cic_readout"]),
+                skip=("fof_link",))
+            if got["fof_link"] <= lc_ref["launches"]["fof_link"]:
+                raise SystemExit("phase M %s lightcone: fof_link %d, not "
+                                 "more than phase G's %d without RFOF"
+                                 % (kind, got["fof_link"],
+                                    lc_ref["launches"]["fof_link"]))
+            del solver
+            cols = []
+            for d in (out, lc_ref["out"]):
+                bf = BigFile(os.path.join(d, "usmesh"))
+                cols.append((np.sort(bf.open_block("1/ID").read_all()
+                                     .reshape(-1)),
+                             len(bf.open_block("LL-0.200/Length")
+                                 .read_all())))
+            (ids, nh), (ids0, nh0) = cols
+            common = np.intersect1d(ids, ids0).size
+            nrfof = len(BigFile(os.path.join(out, "usmesh")).open_block(
+                "RFOF/Length").read_all())
+            # the z = 0 snapshot's catalogs: FOF against phase G's, and
+            # the RFOF one this run adds
+            z0 = [BigFile(os.path.join(d, "fof_1.0000")).open_block(
+                "LL-0.200/Length").read_all() for d in (out, lc_ref["out"])]
+            rfof0 = BigFile(os.path.join(out, "rfof_1.0000")).open_block(
+                "RFOF/Length").read_all()
+            print("phase M %s lightcone: usmesh %d rows (phase G %d), "
+                  "distinct ids in common %d of %d; lightcone FOF halos %d "
+                  "(phase G %d), RFOF halos %d; z = 0 FOF %d halos of %d "
+                  "rows (phase G %d of %d), z = 0 RFOF %d halos" % (
+                      kind, len(ids), len(ids0), common,
+                      np.unique(ids0).size, nh, nh0, nrfof, len(z0[0]),
+                      z0[0].sum(), len(z0[1]), z0[1].sum(), len(rfof0)))
+            if not (abs(len(ids) - len(ids0)) <= 1e-4 * len(ids0)
+                    and common >= (1 - 1e-4) * np.unique(ids0).size
+                    and abs(nh - nh0) <= 1e-3 * nh0 and len(z0[1]) > 0
+                    and abs(len(z0[0]) - len(z0[1])) <= 1e-3 * len(z0[1])
+                    and len(rfof0) > 0):
+                raise SystemExit("phase M %s lightcone disagrees with phase "
+                                 "G" % kind)
+            print("phase M %s lightcone: wall beside phase G's %.2f s"
+                  % (kind, lc_ref["wall"]))
+
+        # ---- rehoming on the ring: phase 7's physics, rehome and dense ----
+        text = main_text(nc, box, nstep, os.path.join(tmp, "mrehome"))
+        text = "\n".join(l for l in text.splitlines()
+                         if not l.startswith(("write_", "aout")))
+        params = load_params_from_string(text)
+        moved = []
+        hop = psolver._hop
+
+        def counted_hop(store, ring, h):
+            moved.append(int(store.alive.sum()))
+            return hop(store, ring, h)
+
+        states = {}
+        for name, rehome in (("dense", False), ("rehome", True)):
+            cfg = dataclasses.replace(cli.build_config(params),
+                                      rehome=rehome)
+
+            def main_physics():
+                s_ = Solver(cfg, cli.build_cosmology(params), device=dev,
+                            group=group)
+                dk, _ = cli.prepare_deltak(s_, params, Log(echo=False))
+                s_.setup_lpt(dk, params.time_step[0])
+                del dk
+                s_.evolve(cfg.time_step)
+                return s_
+
+            psolver._hop = counted_hop
+            try:
+                solver, got = run("slab %s" % name, main_physics)
+            finally:
+                psolver._hop = hop
+            check("slab %s" % name, got, homed_want(
+                "slab", nstep, nstep, cic_readout=6))
+            paths = dict(solver.force_paths)
+            want_path = "homed-rehome" if rehome else "homed-carry"
+            if paths != {want_path: nstep}:
+                raise SystemExit("phase M slab %s: force paths %s" % (name,
+                                                                     paths))
+            states[name] = solver
+        print("phase M slab rehome: rows sent per hop (to the right, to the "
+              "left; a force each) %s of %d particles; the store's rows %d"
+              % (moved, nc ** 3, states["rehome"].species["cdm"].np_local))
+        close_by_id("phase M slab rehome against the dense slab carry",
+                    by_id(states["rehome"].species["cdm"]),
+                    by_id(states["dense"].species["cdm"]), box / nc)
+        # one force step of each body from its own z = 0 state
+        pm = states["dense"].find_pm(1.0)
+        eng = states["dense"]._engine(pm, False)
+        dense = states["dense"].species["cdm"].wrap(pm.BoxSize)
+        rehomed = states["rehome"].species["cdm"].wrap(pm.BoxSize)
+        H = psolver.pick_halo_rehomed(pm, eng.ring, rehomed)
+        Hd = psolver.pick_halo(pm, eng.ring, [dense.x])
+        for label, step in (
+                ("dense homed carry (H = %d)" % Hd,
+                 lambda: psolver._force_local_homed_carry(
+                     eng, dense, "1_4", Hd)),
+                ("rehome body (H = %d, R = %d rows)" % (H, rehomed.np_local),
+                 lambda: psolver._force_local_homed_rehome(
+                     eng, rehomed, "1_4", H))):
+            reset_peak()
+            ms = time_ms(step, reps=5)
+            print("phase M slab %s: %.2f ms a force step, peak %.3f GB"
+                  % (label, ms, torch.cuda.max_memory_allocated() / 1e9))
+        profile_force(lambda: psolver._force_local_homed_rehome(
+            eng, rehomed, "1_4", H), label="phase M rehome body profile")
+        del states, dense, rehomed
+    finally:
+        dist.destroy_process_group()
+    return out_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3287,16 +3708,19 @@ def main():
         device_agreement(dev, tmp)
         ncdm_agreement(dev, tmp)
         # each path's launches are read from its own run
-        launches, solver, pm, more = main_path(dev, tmp)
+        launches, solver, pm, more, main_out = main_path(dev, tmp)
         rows.update(halos(dev, solver.species["cdm"], 768.0, 256))
         ncdm_launches, more_ncdm = ncdm_path(dev, tmp)
         lightcone_goldens(dev, tmp)
-        lc_launches = lightcone_path(dev, tmp)
-        modes_path(dev, tmp)
-        lra_path(dev, tmp)
+        lc_launches, lc_ref = lightcone_path(dev, tmp)
+        _modes_launches, pgd_ref = modes_path(dev, tmp)
+        _lra_launches, lra_ref = lra_path(dev, tmp)
         goldens_and_ics(dev)
         lpt_witness(dev)
         phase_k = cli_files_tools(dev, tmp, solver, pm)
+        # phase M: the options of the ranks on a one-rank group
+        m_launches = ranks_path(dev, tmp, main_out, solver.species["cdm"],
+                                lra_ref, pgd_ref, lc_ref)
     homed_launches = homed_force(dev, solver.species["cdm"], pm)
     # phase L: the pencil's kernels, then its force
     pencil_rows = check_kernels_pencil(dev)
@@ -3325,6 +3749,13 @@ def main():
     launches["fof_link"] = lc_launches["fof_link"]
     rows["cic_paint4"]["launches_periodic"] = (
         bench_launches["paint4"]["cic_paint4"])
+    # phase M: the launches of each run
+    for name in HOMED + ("fof_link", "cic_readout"):
+        rows[name]["launches_phase_m"] = {
+            run: n[name] for run, n in m_launches.items()}
+        if name in HOMED:
+            rows[name]["launches_open_y_phase_m"] = {
+                run: n[name + "_open_y"] for run, n in m_launches.items()}
     # phase K: the launches of write_nonlineark (run 1) and of each tool
     for name in K_KERNELS:
         rows[name]["launches_phase_k"] = {

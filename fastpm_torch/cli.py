@@ -12,8 +12,8 @@ handlers for the per-step power spectrum and memory report,
 interpolated bigfile snapshots (with the potential and tidal tensor,
 subsampled, and with the linear response's history, where asked),
 RunPB snapshots, the nonlinear density field, FOF and RFOF catalogs,
-and on one rank the particle lightcone (prepare_lc: usmesh slices,
-HEALPix shell maps and lightcone halos). The IC pipeline writes the
+and the particle lightcone (prepare_lc: usmesh slices, HEALPix shell
+maps and lightcone halos). The IC pipeline writes the
 white noise and the linear field (k and real space) where asked. A
 parameter the port does not serve stops the run with SystemExit naming
 it (see ROADMAP.md). main_lua is the fastpm-lua counterpart.
@@ -25,9 +25,10 @@ NprocY (0, the default: a near-square 2D grid on 4 ranks or more, else
 1) makes it a px x py process grid (parallel.comm.Grid); the ranks
 split the particles in x-slabs on a grid of py = 1 (or -f) and in
 pencils otherwise (solver.py); every rank builds the whole linear field
-and the 2LPT displacements of its own rows, rank 0 gathers the rows for
-the snapshots and runs FOF on them, and writes the files a one-rank run
-writes.
+and the 2LPT displacements of its own rows, or reads a restart snapshot
+and keeps the rows of its own lattice sites; rank 0 gathers the rows for
+the snapshots and runs FOF and RFOF on them, gathers the rows each rank
+finds crossing the lightcone and writes what a one-rank run writes.
 """
 
 from __future__ import annotations
@@ -67,22 +68,14 @@ __all__ = ["main", "main_lua", "run_fastpm", "build_cosmology",
 # read_grafic set there starts from the seed), so the port stops the run
 # until it serves them for real (ROADMAP.md queue 3)
 _LATER_PARAMS = ("read_grafic", "write_runpbic")
-# served on one rank only: the force of several ranks takes no delta_k
-# transfer or PGD, and the lightcone and RFOF run on one device's rows
-_ONE_RANK_PARAMS = ("lc_write_usmesh", "write_rfof", "pgdc",
-                    "ncdm_linearresponse")
 
 
-def check_served(p: Params, ranks: int = 1) -> None:
-    """SystemExit naming the first parameter the port does not serve
-    (on `ranks` ranks)."""
+def check_served(p: Params) -> None:
+    """SystemExit naming the first parameter the port does not serve."""
     bad = [name for name in _LATER_PARAMS if p.get(name, None)]
-    if ranks > 1:
-        bad += [name for name in _ONE_RANK_PARAMS if p.get(name, None)]
     if bad:
         raise SystemExit(f"fastpm_torch: parameter {bad[0]!r} is not "
-                         "served by the port%s (see ROADMAP.md)"
-                         % (" on several ranks" if ranks > 1 else ""))
+                         "served by the port (see ROADMAP.md)")
 
 
 def build_cosmology(p: Params) -> Cosmology:
@@ -450,7 +443,14 @@ def prepare_lc(solver: Solver, p: Params, log: Log):
     their tails carried to the next batch, subsamples (ell-limited or
     uniform, in host float64 as the reference), sorts by aemit and
     appends the slice to the usmesh file. Only what is written, the
-    small host-exact columns and a few scalars cross to the host."""
+    small host-exact columns and a few scalars cross to the host.
+
+    Over ranks each rank intersects its own rows, the flush threshold is
+    taken on the count over every rank (so that a slice flushes at the a
+    of a one-rank run), and each ready event gathers every rank's
+    crossings on rank 0, which paints the maps from them (the sum of the
+    ranks' maps), runs the FOF and RFOF with their tails and writes the
+    files alone."""
     import torch
     from .lightcone import LightCone, USMesh, volume_density_from_ell
     from .healpix import paint_hpmap_nest_device, nside2npix
@@ -477,10 +477,11 @@ def prepare_lc(solver: Solver, p: Params, log: Log):
     # np_alloc_factor); sets the ready-flush threshold
     # (lightcone-usmesh.c:584 checks np > 0.5 np_upper)
     nupper = int(p.lc_usmesh_alloc_factor * p.np_alloc_factor * p.nc ** 3)
-    mesh = USMesh(lc, lambda: solver.species["cdm"], tiles,
+    # a rehomed store's dead rows cross nothing
+    mesh = USMesh(lc, lambda: solver.species["cdm"].compact(), tiles,
                   amin=lc_amin, amax=lc_amax,
                   target_volume=p.lc_usmesh_alloc_factor * p.boxsize ** 3,
-                  np_upper=nupper)
+                  np_upper=nupper, ring=solver.ring)
 
     nslices = int(p.lc_usmesh_nslices)
     log.info("Generating an AemitIndex with %d layers for usmesh. ",
@@ -605,8 +606,36 @@ def prepare_lc(solver: Solver, p: Params, log: Log):
         return {k: rec_d[k][order].cpu().numpy()
                 for k in ("x", "v", "id", "aemit", "rand") if k in rec_d}
 
+    def gathered(rec_d):
+        """Every rank's crossings on rank 0 (None elsewhere, and when no
+        rank has any): the columns of a rank without crossings are
+        empty."""
+        p = solver.species["cdm"]
+        shapes = dict(x=((3,), torch.float32), v=((3,), torch.float32),
+                      aemit=((), torch.float32))
+        for name in ("id", "rand"):
+            col = getattr(p, name)
+            if col is not None:
+                shapes[name] = (tuple(col.shape[1:]), col.dtype)
+        cols = {k: (rec_d[k] if rec_d is not None
+                    else torch.zeros((0,) + shape, dtype=dt, device=dev))
+                for k, (shape, dt) in shapes.items()}
+        cols = {k: solver.ring.gather_rows(t) for k, t in cols.items()}
+        if solver.ring.rank != 0 or cols["aemit"].shape[0] == 0:
+            return None
+        cols["n"] = int(cols["aemit"].shape[0])
+        return cols
+
     def ready(event):
         rec_d = event.mesh.drain_device()
+        totals = None
+        if solver.sharded:
+            # the header's counts are over every rank
+            totals = {name: solver.global_count(name)
+                      for name in solver.iter_species()}
+            rec_d = gathered(rec_d)
+            if solver.ring.rank != 0:
+                return
         n = 0 if rec_d is None else rec_d["n"]
         log.info("Unstructured LightCone ready : ai = %g af = %g, n = %d",
                  event.ai, event.af, n)
@@ -692,7 +721,8 @@ def prepare_lc(solver: Solver, p: Params, log: Log):
         if state["first"]:
             log.info("Creating usmesh catalog in %s", filebase)
             write_snapshot_header(bf, solver.cosmology, p.time_step[-1],
-                                  p.nc, p.boxsize, solver.species)
+                                  p.nc, p.boxsize, solver.species,
+                                  counts=totals)
             bf.open_block("Header").attrs.set("ParamFile", p.source)
         else:
             log.info("Appending usmesh catalog to %s", filebase)
@@ -758,13 +788,7 @@ def prepare_runpbic(solver: Solver, path: str, a0: float, log: Log):
     v = data["v"].astype(np.float64)          # RunPB RSD units
     p = solver.species["cdm"]
     if solver.ring.nproc > 1:
-        # the file's rows sorted by id are the lattice in id order: the
-        # rank's rows are those at its lattice rows' ids
-        order = np.argsort(ids, kind="stable")
-        if not np.array_equal(ids[order], np.arange(nc ** 3)):
-            raise SystemExit("read_runpbic on several ranks needs the ids "
-                             "of an nc^3 lattice, each once")
-        keep = order[p.id.cpu().numpy()]
+        keep = _lattice_rows(solver, ids, "read_runpbic")
         ids, x, v = ids[keep], x[keep], v[keep]
     strides = np.array([nc * nc, nc, 1], dtype=np.int64)
     lattice = np.stack([(ids // strides[d]) % nc for d in range(3)],
@@ -792,13 +816,29 @@ def prepare_runpbic(solver: Solver, path: str, a0: float, log: Log):
     solver.setup_lpt(None, a0)
 
 
+def _lattice_rows(solver: Solver, ids: np.ndarray, what: str):
+    """The rows of a file (with these ids) that this rank holds in a
+    straight run: the file's rows sorted by id are the lattice in id
+    order, and the rank keeps those at the ids of its own lattice rows
+    (its slab, or its pencil), in their order. SystemExit unless the ids
+    are an nc^3 lattice's, each once."""
+    order = np.argsort(ids, kind="stable")
+    if not np.array_equal(ids[order], np.arange(solver.config.nc ** 3)):
+        raise SystemExit(f"{what} on several ranks needs the ids of an "
+                         "nc^3 lattice, each once")
+    return order[solver.species["cdm"].id.cpu().numpy()]
+
+
 def restore_species(solver: Solver, path: str, dataset: str, log: Log):
     """Read the CDM species back from a snapshot on the solver's device,
     inverting the unit conversion (prepare_cdm's restart path,
     src/fastpm.c:616-648); returns (store, a0). The snapshot's velocity
     is peculiar km/s, the internal one v * a / 100; ids come back as
     int64 from either package's snapshots. The LPT displacements are
-    restored where the snapshot has them (force modes cola, za, 2lpt)."""
+    restored where the snapshot has them (force modes cola, za, 2lpt).
+    On several ranks each rank keeps the rows of its own lattice sites,
+    as in a straight run (_lattice_rows), so that the restarted run
+    picks the same halo and force."""
     import torch
     data = read_species(path, dataset)
     attrs = data["_attrs"]
@@ -807,14 +847,17 @@ def restore_species(solver: Solver, path: str, dataset: str, log: Log):
     if abs(a_x - a_v) > 1e-12:
         raise SystemExit("restart snapshot must be synced (a_x == a_v)")
     dev = solver.device
+    ids = data["id"].reshape(-1)
+    keep = (_lattice_rows(solver, ids.astype(np.int64), "restart")
+            if solver.ring.nproc > 1 else slice(None))
 
     def column(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a[keep])).to(dev)
 
     updates = dict(
         x=column(data["x"].astype(np.float32)),
         v=column((data["v"] * a_x / 100.0).astype(np.float32)),
-        id=column(data["id"].reshape(-1)))
+        id=column(ids))
     for name in ("dx1", "dx2"):
         if solver._keep_lpt and name in data:
             updates[name] = column(data[name].astype(np.float32))
@@ -833,13 +876,10 @@ def restore_species(solver: Solver, path: str, dataset: str, log: Log):
     return store, a_x
 
 
-def _check_restart(p: Params, ranks: int = 1) -> None:
-    """SystemExit when a restart cannot be served: on several ranks (the
-    port's), with subsampling or with the lightcone (the JAX package's
-    two refusals, cli.py:856-858, 898-902)."""
-    if ranks > 1:
-        raise SystemExit("fastpm_torch: restart (-r) is not served by "
-                         "the port on several ranks (see ROADMAP.md)")
+def _check_restart(p: Params) -> None:
+    """SystemExit when a restart cannot be served: with subsampling or
+    with the lightcone (the JAX package's two refusals, cli.py:856-858,
+    898-902)."""
     if p.particle_fraction != 1:
         raise SystemExit("Cannot restart because subsampling of "
                          "particles is enabled.")
@@ -855,8 +895,8 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     first CUDA device; raises when there is none), over the ranks of
     the process group `group` when one is given (in x-slabs), or of the
     process grid `grid` (a parallel.comm.Grid; pencils where py > 1);
-    from the snapshot at
-    `restart` when one is given (one rank). Each transition logs its
+    from the snapshot at `restart` when one is given. Each transition
+    logs its
     banner and the memory report, and MemoryBoundExceeded stops the run
     when memory_bound_mb is set and exceeded; the teardown logs the
     memory report and the kick, drift and force clocks (prof)."""
@@ -867,12 +907,12 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     if group is not None:
         import torch.distributed as dist
         ranks = dist.get_world_size(group)
-    check_served(p, ranks)
+    check_served(p)
     if log is None:
         log = Log()
     cfg = build_config(p)
     if restart:
-        _check_restart(p, ranks)
+        _check_restart(p)
         a0 = float(np.ravel(read_snapshot_header(restart)["ScalingFactor"])[0])
         cfg.time_step = _prepare_time_step(list(p.time_step), a0)
         log.info("Restarting from %s at a = %0.4f", restart, a0)
@@ -1011,7 +1051,7 @@ def main(argv=None, device=None):
                     help="abort cleanly (MemoryBoundExceeded) when memory "
                          "usage exceeds this many MB (0 = unbounded)")
     ap.add_argument("-r", dest="restart", default=None,
-                    help="restart from snapshot path (one rank)")
+                    help="restart from snapshot path")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace (Chrome JSON) of "
                          "the run to DIR; the kick, drift and force "

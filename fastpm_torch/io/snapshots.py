@@ -59,8 +59,10 @@ def _host(a) -> np.ndarray:
 
 def write_snapshot_header(bf: BigFile, c: Cosmology, aout: float,
                           nc: int, boxsize: float,
-                          species: Dict[str, Store]) -> float:
-    """Returns the RSD factor (logged by the reference, golden value)."""
+                          species: Dict[str, Store], counts=None) -> float:
+    """Returns the RSD factor (logged by the reference, golden value).
+    counts: each species' particle count, when the stores are one
+    rank's rows of several (default: their rows)."""
     hh = bf.create_block("Header")
     a = hh.attrs
     gi = c.growth_info(aout)
@@ -86,7 +88,7 @@ def write_snapshot_header(bf: BigFile, c: Cosmology, aout: float,
         p = species.get(name)
         if p is not None:
             mass_table[idx] = p.M0
-            tot[idx] = p.np_local
+            tot[idx] = p.np_local if counts is None else counts[name]
     a.set("Omega0", float(c.Omega_cdm), "f8")
     a.set("TotNumPart", np.asarray(tot, dtype=np.int64), "i8")
     a.set("MassTable", np.asarray(mass_table, dtype=np.float64), "f8")

@@ -225,12 +225,15 @@ _SOLVE_COLUMNS = ("x", "v", "acc", "dx1", "dx2", "pgdc")
 
 class USMesh:
     """Unstructured-mesh (particle) lightcone buffer
-    (fastpm_usmesh_init/intersect)."""
+    (fastpm_usmesh_init/intersect). With a ring (parallel.comm.Ring) the
+    source is this rank's rows, np_upper the capacity over every rank,
+    and the ready event flushes when the rows buffered over every rank
+    pass half of it."""
 
     def __init__(self, lc: LightCone, source_getter, tileshifts,
                  amin: float = 0.0, amax: float = 1.0,
                  target_volume: float = 0.0, np_upper: int = 1 << 62,
-                 name: str = "1"):
+                 name: str = "1", ring=None):
         self.lc = lc
         self.source_getter = source_getter  # () -> Store (current state)
         self.tileshifts = np.asarray(tileshifts, dtype=np.float64)
@@ -241,6 +244,7 @@ class USMesh:
         self.target_volume = target_volume
         self.np_upper = np_upper
         self.name = name
+        self.ring = ring
         self.event_handlers = ev.EventHandlers()
         self.buffer: List[dict] = []
         self.np_buffered = 0
@@ -410,7 +414,9 @@ class USMesh:
                     self.buffer.append(rec)
                     self.np_buffered += rec["n"]
             self.af = af
-            if self.np_buffered > 0.5 * self.np_upper:
+            buffered = (self.np_buffered if self.ring is None
+                        else self.ring.psum(self.np_buffered))
+            if buffered > 0.5 * self.np_upper:
                 self.emit(ev.TIMESTEP_CUR)
 
     def _shell_hits_bbox(self, xmin, xmax, shift, r1, r2):

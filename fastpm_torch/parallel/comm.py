@@ -129,23 +129,43 @@ class Ring:
         return torch.cat(parts)
 
     def gather_rows(self, t: torch.Tensor):
-        """Every rank's rows of t (any length along dim 0) concatenated in
-        rank order on rank 0, None elsewhere."""
+        """Every rank's rows of t (any length along dim 0, none too)
+        concatenated in rank order on rank 0, None elsewhere."""
         if self.nproc == 1:
             return t
         t = t.contiguous()
         n = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
         counts = [int(c) for c in self.all_gather(n)]
         if self.rank != 0:
-            dist.send(t, self._peer(0), group=self.group)
+            if counts[self.rank]:
+                dist.send(t, self._peer(0), group=self.group)
             return None
         parts = [t]
         for r in range(1, self.nproc):
             part = torch.empty((counts[r],) + tuple(t.shape[1:]),
                                dtype=t.dtype, device=t.device)
-            dist.recv(part, self._peer(r), group=self.group)
+            if counts[r]:
+                dist.recv(part, self._peer(r), group=self.group)
             parts.append(part)
         return torch.cat(parts)
+
+    def exchange_rows(self, t: torch.Tensor, counts):
+        """Rows by destination: t's rows are in destination order, the
+        first counts[0] for rank 0, the next counts[1] for rank 1, and so
+        on; returns the rows every rank sent here, in rank order
+        (all_to_all_single with split sizes). The counts go first, in one
+        all_to_all of nproc numbers."""
+        if self.nproc == 1:
+            return t.clone()
+        send = torch.tensor(list(counts), dtype=torch.int64,
+                            device=t.device)
+        recv = [int(c) for c in self.all_to_all(send, 0, 0)]
+        out = torch.empty((sum(recv),) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.all_to_all_single(out, t.contiguous(), output_split_sizes=recv,
+                               input_split_sizes=[int(c) for c in counts],
+                               group=self.group)
+        return out
 
 
 class Grid:

@@ -44,9 +44,21 @@ and gathers the fields back y first, then x.
 
 Both homed forces and v1 read out the potential and the tidal tensor
 when asked (the extra fields through the homed readout, K2's kernel).
+Each body takes the neutrino linear response as a transfer hook on the
+rank's softened k shard (the JAX package's pre / post split,
+psolver.py:943-1116, as one call): a homed body sums its overflow count
+over the ranks first and, when a particle lies beyond the halo, returns
+before the hook runs, so that a force the solver replays never updates
+the response's history twice.
 
-Not in this slice (see ROADMAP.md): rehoming and the split force of the
-neutrino linear response.
+Rehoming (_force_local_homed_rehome, psolver.py:723-940) is the slab
+carry of a rehomed store (store.py) followed by the end-of-step
+migration of the rows that crossed into a neighbour's slab, two bucket
+hops along the ring, every column in its own dtype.
+
+On one rank the whole mesh is the rank's slab (or pencil): nothing
+strays beyond it, so pick_halo takes H = 2 there (the support's plane
+and one of slack) and every halo hop folds onto the rank itself.
 """
 
 from __future__ import annotations
@@ -64,7 +76,7 @@ from .comm import Ring, Grid
 from .pfft import SlabPM, PencilPM
 
 __all__ = ["required_halo_planes", "required_halo_planes_pencil",
-           "halo_ladder", "pick_halo"]
+           "halo_ladder", "pick_halo", "pick_halo_rehomed", "reader"]
 
 
 def _total_mass(x, mass):
@@ -114,11 +126,13 @@ def _read_extras(engine, delta_k, kernel_type: str, outs, xs, read,
 def _force_local_multi(spm, painter, xs, masses, kernel_type: str,
                        softening_type: str = "none",
                        compute_potential: bool = False,
-                       compute_tidal: bool = False):
+                       compute_tidal: bool = False, transfer=None):
     """Multi-species v1 force (full-canvas exchange) over a SlabPM or a
     PencilPM. xs: every species' local positions; masses: a scalar M0 or
-    a local (N,) mass column per species. Returns ([dict(acc (N, 3)[,
-    potential (N,), tidal (N, 6)]) per species], delta_k shard)."""
+    a local (N,) mass column per species; transfer(delta_k) -> delta_k,
+    when given, maps the softened k shard before the potential kernel.
+    Returns ([dict(acc (N, 3)[, potential (N,), tidal (N, 6)]) per
+    species], delta_k shard)."""
     canvas = None
     total = 0.0
     for x, mass in zip(xs, masses):
@@ -127,6 +141,8 @@ def _force_local_multi(spm, painter, xs, masses, kernel_type: str,
     delta_k = _normalize(spm, spm.reduce_canvas(canvas), total,
                          softening_type)
     del canvas
+    if transfer is not None:
+        delta_k = transfer(delta_k)
     fulls = [spm.gather_canvas(spm.c2r_local(apply_kernel_transfer(
         spm.kpm, delta_k, kernel_type, "acc", d))) for d in range(3)]
     outs = [dict(acc=painter.readout3(*fulls, x)) for x in xs]
@@ -283,13 +299,28 @@ def _grad3_fields_homed(engine, delta_k, kernel_type: str, gather):
     return [gather(g) for g in engine.c2r_grad3_local(pot_k, gradorder)]
 
 
+def _transferred(engine, delta_k, bad, transfer):
+    """(delta_k through the transfer hook, the global overflow count),
+    or (None, count) when a particle lies beyond the halo: the count is
+    summed before the hook, which then does not run."""
+    bad = engine.ring.psum(bad)
+    if transfer is None:
+        return delta_k, bad
+    if int(bad):
+        return None, bad
+    return transfer(delta_k), bad
+
+
 def _homed_multi(engine, hom: _Homing, xs, masses, kernel_type: str,
                  softening_type: str, homed_kernel: str,
-                 compute_potential: bool, compute_tidal: bool):
+                 compute_potential: bool, compute_tidal: bool,
+                 transfer=None):
     """The multi-species body of both homed forces: paint every species
     into the extended canvas, reduce the halo, the distributed FFT, the
-    gathered force fields read out at every species (and the potential
-    and tidal tensor through the homed readout)."""
+    transfer hook, the gathered force fields read out at every species
+    (and the potential and tidal tensor through the homed readout). With
+    a hook and a particle beyond the halo it returns (None, bad, None)
+    before the hook."""
     paint, readout3 = _homed_trio(homed_kernel)
     inv = engine.pm.InvCellSize
     canvas = torch.zeros(hom.ext, dtype=torch.float32, device=xs[0].device)
@@ -300,6 +331,9 @@ def _homed_multi(engine, hom: _Homing, xs, masses, kernel_type: str,
         total = total + _total_mass(x, mass)
     delta_k = _normalize(engine, hom.reduce(canvas), total, softening_type)
     del canvas
+    delta_k, bad = _transferred(engine, delta_k, bad, transfer)
+    if delta_k is None:
+        return None, bad, None
     fields = _grad3_fields_homed(engine, delta_k, kernel_type, hom.gather)
     outs = [dict(acc=readout3(fields, x, inv, hom.geom)) for x in xs]
     del fields
@@ -310,13 +344,15 @@ def _homed_multi(engine, hom: _Homing, xs, masses, kernel_type: str,
 
     _read_extras(engine, delta_k, kernel_type, outs, xs, read,
                  compute_potential, compute_tidal)
-    return outs, engine.ring.psum(bad), delta_k
+    return outs, bad, delta_k
 
 
 def _homed_carry(engine, hom: _Homing, store: Store, kernel_type: str,
-                 softening_type: str, homed_kernel: str):
+                 softening_type: str, homed_kernel: str, transfer=None):
     """The order-free body of both homed forces: one scalar-mass species
-    whose every column rides the sort by extended cell."""
+    whose every column rides the sort by extended cell. With a transfer
+    hook and a particle beyond the halo it returns (None, bad, None)
+    before the hook."""
     paint, readout3 = _homed_trio(homed_kernel)
     ext = hom.ext
     inv = engine.pm.InvCellSize
@@ -335,29 +371,32 @@ def _homed_carry(engine, hom: _Homing, store: Store, kernel_type: str,
     delta_k = _normalize(engine, hom.reduce(canvas),
                          _total_mass(store.x, 1.0), softening_type)
     del canvas
+    delta_k, bad = _transferred(engine, delta_k, bad, transfer)
+    if delta_k is None:
+        return None, bad, None
     fields = _grad3_fields_homed(engine, delta_k, kernel_type, hom.gather)
     acc = readout3(fields, store.x, inv, hom.geom)
-    return store.replace(acc=acc), engine.ring.psum(bad), delta_k
+    return store.replace(acc=acc), bad, delta_k
 
 
 def _force_local_homed_multi(spm: SlabPM, xs, masses, kernel_type: str,
                              H: int, softening_type: str = "none",
                              homed_kernel: str = "from8",
                              compute_potential: bool = False,
-                             compute_tidal: bool = False):
+                             compute_tidal: bool = False, transfer=None):
     """Multi-species homed slab force (halo-exchange paint and readout;
-    psolver.py:461-575), rows in the caller's order. xs and masses as
-    _force_local_multi. Returns ([dict(acc[, potential, tidal]) per
-    species], bad, delta_k shard); bad is the global count of particles
-    beyond the halo (an int32 tensor; must be 0)."""
+    psolver.py:461-575), rows in the caller's order. xs, masses and
+    transfer as _force_local_multi. Returns ([dict(acc[, potential,
+    tidal]) per species], bad, delta_k shard); bad is the global count of
+    particles beyond the halo (an int32 tensor; must be 0)."""
     return _homed_multi(spm, _slab(spm, H), xs, masses, kernel_type,
                         softening_type, homed_kernel, compute_potential,
-                        compute_tidal)
+                        compute_tidal, transfer)
 
 
 def _force_local_homed_carry(spm: SlabPM, store: Store, kernel_type: str,
                              H: int, softening_type: str = "none",
-                             homed_kernel: str = "from8"):
+                             homed_kernel: str = "from8", transfer=None):
     """Order-free homed slab force of one species with a scalar mass (the
     rank-local analog of gravity.compute_force_carry; psolver.py:
     599-664): every column of the store rides the sort by extended-slab
@@ -365,9 +404,10 @@ def _force_local_homed_carry(spm: SlabPM, store: Store, kernel_type: str,
     come out aligned with the sorted rows. The caller wraps the
     positions first.
 
-    Returns (store sorted with acc filled, bad, delta_k shard)."""
+    Returns (store sorted with acc filled, bad, delta_k shard); transfer
+    as _force_local_multi."""
     return _homed_carry(spm, _slab(spm, H), store, kernel_type,
-                        softening_type, homed_kernel)
+                        softening_type, homed_kernel, transfer)
 
 
 def _force_local_homed_pencil_multi(ppm: PencilPM, xs, masses,
@@ -375,7 +415,8 @@ def _force_local_homed_pencil_multi(ppm: PencilPM, xs, masses,
                                     softening_type: str = "none",
                                     homed_kernel: str = "from8",
                                     compute_potential: bool = False,
-                                    compute_tidal: bool = False):
+                                    compute_tidal: bool = False,
+                                    transfer=None):
     """Multi-species pencil-homed force (psolver.py:1258-1388): the
     homed kernels in their open-y mode on the extended pencil, the halo
     reduced along x then y, the PencilPM FFT, the fields gathered along
@@ -383,18 +424,150 @@ def _force_local_homed_pencil_multi(ppm: PencilPM, xs, masses,
     column per species. Returns as _force_local_homed_multi."""
     return _homed_multi(ppm, _pencil(ppm, Hx, Hy), xs, masses, kernel_type,
                         softening_type, homed_kernel, compute_potential,
-                        compute_tidal)
+                        compute_tidal, transfer)
 
 
 def _force_local_homed_pencil_carry(ppm: PencilPM, store: Store,
                                     kernel_type: str, Hx: int, Hy: int,
                                     softening_type: str = "none",
-                                    homed_kernel: str = "from8"):
+                                    homed_kernel: str = "from8",
+                                    transfer=None):
     """Order-free pencil-homed force of one scalar-mass species
     (psolver.py:667-722): rows sorted by the extended 2D cell, every
     column riding the sort. Returns as _force_local_homed_carry."""
     return _homed_carry(ppm, _pencil(ppm, Hx, Hy), store, kernel_type,
-                        softening_type, homed_kernel)
+                        softening_type, homed_kernel, transfer)
+
+
+def reader(engine, H, painter=None):
+    """read(fields, x) -> (N, k): the rank's 1-3 local fields (as the
+    engine's c2r_local gives them) at the rows x, for the force of halo
+    H (pick_halo's pick): through the homed readout on the extended slab
+    or pencil, or for v1 (H None) on the gathered full fields with the
+    painter's readout. PGD reads its fields through it."""
+    if H is None:
+        return lambda fields, x: painter.readout_fields(
+            [engine.gather_canvas(f) for f in fields], x)
+    hom = (_pencil(engine, *H[1:]) if isinstance(H, tuple)
+           else _slab(engine, H))
+    inv = engine.pm.InvCellSize
+    return lambda fields, x: cic.cic_readout_homed(
+        [hom.gather(f) for f in fields], x, inv, hom.geom)
+
+
+# ---- rehoming: the slab carry with end-of-step migration ---------------
+
+
+def _rows(lo: int, n: int, size: int, nrows: int, device):
+    """(index of rows [lo, lo + n) padded to size rows, and which of the
+    size rows are among them)."""
+    i = torch.arange(size, device=device)
+    return torch.clamp(lo + i, max=max(nrows - 1, 0)), i < n
+
+
+def _hop(store: Store, ring: Ring, hop: int) -> Store:
+    """A bucket of rows sent hop places along the ring (the store of the
+    rows received from the rank hop places back). Each column keeps its
+    dtype: the columns of one dtype travel as one (B, k) matrix, so the
+    int64 ids and the uint8 alive flags cross exactly."""
+    cols = store.columns()
+    groups = {}
+    for name, t in cols:
+        groups.setdefault(t.dtype, []).append((name, t))
+    out = {}
+    for members in groups.values():
+        got = ring.ppermute(torch.cat([t.reshape(t.shape[0], -1)
+                                       for _, t in members], 1), hop)
+        j = 0
+        for name, t in members:
+            w = t[0].numel() if t.ndim > 1 else 1
+            out[name] = got[:, j:j + w].reshape(t.shape)
+            j += w
+    return store.replace(**out)
+
+
+def _force_local_homed_rehome(spm: SlabPM, store: Store, kernel_type: str,
+                              H: int, softening_type: str = "none",
+                              homed_kernel: str = "from8"):
+    """The order-free homed slab force of a rehomed store with the
+    end-of-step migration (psolver.py:723-940): R = cap + 2B rows a rank
+    (Store.alive, rehome_bucket B). The rows sort by extended-slab cell,
+    the dead rows and those beyond the slab last; the force paints and
+    reads out the alive rows inside it. On the sorted rows the alive
+    ones whose base plane lies in the left halo (relx < H) are a prefix
+    and those in the right halo (relx >= H + nloc) a suffix: the prefix
+    goes one hop left and the suffix one hop right, B rows each. The
+    result holds the stayers (at most cap, padded with dead rows), then
+    the rows from the left and from the right. The caller wraps the
+    positions first; H <= nloc, so a mover belongs to the next rank.
+
+    Returns (the migrated store with acc, bad, delta_k shard). bad is the
+    global count of alive rows beyond the halo and of rows past a bucket
+    or the capacity; when it is not 0 the force is not run and (None,
+    bad, None) comes back (the caller converts the store anew)."""
+    nloc = spm.rshard[0]
+    if H > nloc:
+        raise ValueError("rehoming needs H <= nloc")
+    hom = _slab(spm, H)
+    ext = hom.ext
+    inv = spm.pm.InvCellSize
+    if (ext[0] + 1) * ext[1] * ext[2] >= 2 ** 31:
+        raise ValueError(f"extended canvas {ext} overflows the int32 cell "
+                         "key")
+    B = int(store.rehome_bucket)
+    R = store.np_local
+    cap = R - 2 * B
+    dev = store.x.device
+    base, _f, valid = cic.slab_cell(store.x, ext, inv, hom.geom)
+    alive = store.alive > 0
+    ok = alive & valid
+    relx = torch.where(ok, base[:, 0], ext[0])
+    key = ((relx * ext[1] + base[:, 1]) * ext[2] + base[:, 2]).to(
+        torch.int32)
+    counts = torch.stack([(ok & (relx < H)).sum(),
+                          (ok & (relx < H + nloc)).sum(), ok.sum(),
+                          (alive & ~valid).sum()])
+    n_l, n_r0, E, beyond = (int(c) for c in counts.tolist())
+    n_stay, n_right = n_r0 - n_l, E - n_r0
+    over = (beyond + max(0, n_l - B) + max(0, n_right - B)
+            + max(0, n_stay - cap))
+    bad = spm.ring.psum(torch.tensor(over, dtype=torch.int32, device=dev))
+    if int(bad):
+        return None, bad, None
+    store = store.replace(acc=None).take(
+        torch.sort(key, stable=True).indices)
+
+    paint, readout3 = _homed_trio(homed_kernel)
+    x = store.x[:E]
+    canvas = torch.zeros(ext, dtype=torch.float32, device=dev)
+    paint(canvas, x, inv, hom.geom, 1.0)
+    delta_k = _normalize(spm, hom.reduce(canvas), _total_mass(x, 1.0),
+                         softening_type)
+    del canvas
+    fields = _grad3_fields_homed(spm, delta_k, kernel_type, hom.gather)
+    acc = torch.zeros((R, 3), dtype=torch.float32, device=dev)
+    acc[:E] = readout3(fields, x, inv, hom.geom)
+    del fields
+    store = store.replace(acc=acc)
+
+    # the migration: the left bucket one hop left, the right one right
+    parts = []
+    for lo, n, size in ((n_l, n_stay, cap), (0, n_l, B), (n_r0, n_right, B)):
+        idx, live = _rows(lo, n, size, R, dev)
+        parts.append(store.take(idx).replace(alive=live.to(torch.uint8)))
+    keep, left, right = parts
+    from_left = _hop(right, spm.ring, 1)
+    from_right = _hop(left, spm.ring, -1)
+    out = {name: torch.cat([t, getattr(from_left, name),
+                            getattr(from_right, name)])
+           for name, t in keep.columns()}
+    return store.replace(**out), bad, delta_k
+
+
+def _ladder(nloc: int, n0: int, nproc: int):
+    """halo_ladder over nproc ranks; on one rank (the whole axis its
+    own) the rung over the support's plane alone: nothing strays."""
+    return [2] if nproc == 1 else halo_ladder(nloc, n0)
 
 
 def halo_ladder(nloc: int, n0: int = None):
@@ -425,13 +598,16 @@ def _stray(col, inv: float, r0: int, nloc: int, n: int):
                                                  device=col.device)
 
 
-def required_halo_planes(pm, ring: Ring, x: torch.Tensor) -> int:
+def required_halo_planes(pm, ring: Ring, x: torch.Tensor,
+                         alive=None) -> int:
     """The measured halo requirement: the largest distance (in mesh
     planes) by which any rank's particle strays outside its rank's
-    x-slab (psolver.py:1447-1472). Positions must be wrapped. Every
-    rank gets the same number."""
+    x-slab (psolver.py:1447-1472); with alive (a rehomed store's), that
+    of the alive rows (solver.py:381-402). Positions must be wrapped.
+    Every rank gets the same number."""
     nloc = pm.Nmesh[0] // ring.nproc
-    local = _stray(x[:, 0], pm.InvCellSize[0], ring.rank * nloc, nloc,
+    x0 = x[:, 0] if alive is None else x[alive > 0, 0]
+    local = _stray(x0, pm.InvCellSize[0], ring.rank * nloc, nloc,
                    pm.Nmesh[0])
     return int(ring.pmax(local.reshape(1)))
 
@@ -453,28 +629,29 @@ def required_halo_planes_pencil(pm, grid: Grid, x: torch.Tensor):
 
 def pick_halo(pm, comm, xs: Sequence[torch.Tensor], homes=None):
     """The homed halo for these species' wrapped positions on a Ring or
-    a Grid, by the rule of solver.py:425-463: on a grid with py > 1 and
-    rows pencil-blocked as the grid ((px, py) in every entry of homes,
-    the stores' home_blocks), ("pencil", Hx, Hy), the first rungs of the
-    ladders with one plane of slack over the measurement (at least 1);
-    otherwise, for rows in x-major order (no home_blocks), the slab
-    width H over every rank; None when none fits (the v1 force)."""
+    a Grid, by the rule of solver.py:425-463: on a grid with py > 1 (or
+    the 1 x 1 grid of one rank) and rows pencil-blocked as the grid
+    ((px, py) in every entry of homes, the stores' home_blocks),
+    ("pencil", Hx, Hy), the first rungs of the ladders with one plane of
+    slack over the measurement (at least 1); otherwise, for rows in
+    x-major order (no home_blocks), the slab width H over every rank;
+    None when none fits (the v1 force)."""
     homes = list(homes) if homes is not None else [None] * len(xs)
     n0, n1, _ = pm.Nmesh
     ring = comm
     if isinstance(comm, Grid):
         ring = comm.flat
         px, py = comm.px, comm.py
-        if py > 1:
+        if py > 1 or comm.nproc == 1:
             if (all(h == (px, py) for h in homes) and n0 % px == 0
                     and n1 % py == 0 and n1 % px == 0):
                 hx = hy = 1
                 for x in xs:
                     rx, ry = required_halo_planes_pencil(pm, comm, x)
                     hx, hy = max(hx, rx), max(hy, ry)
-                Hx = next((h for h in halo_ladder(n0 // px, n0)
+                Hx = next((h for h in _ladder(n0 // px, n0, comm.nproc)
                            if h >= hx + 1), None)
-                Hy = next((h for h in halo_ladder(n1 // py, n1)
+                Hy = next((h for h in _ladder(n1 // py, n1, comm.nproc)
                            if h >= hy + 1), None)
                 if Hx is not None and Hy is not None:
                     return ("pencil", Hx, Hy)
@@ -484,4 +661,16 @@ def pick_halo(pm, comm, xs: Sequence[torch.Tensor], homes=None):
     hreq = 1
     for x in xs:
         hreq = max(hreq, required_halo_planes(pm, ring, x))
-    return next((h for h in halo_ladder(nloc, n0) if h >= hreq + 1), None)
+    return next((h for h in _ladder(nloc, n0, ring.nproc)
+                 if h >= hreq + 1), None)
+
+
+def pick_halo_rehomed(pm, ring: Ring, store: Store):
+    """The rehome body's halo for a rehomed store (solver.py:413-424):
+    the first rung with one plane of slack over its alive rows'
+    requirement that a migration allows (H <= nloc); None when none
+    does (the solver then falls back to the dense store)."""
+    nloc = pm.Nmesh[0] // ring.nproc
+    hreq = max(1, required_halo_planes(pm, ring, store.x, store.alive))
+    return next((h for h in _ladder(nloc, pm.Nmesh[0], ring.nproc)
+                 if hreq + 1 <= h <= nloc), None)

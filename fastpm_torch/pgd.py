@@ -13,6 +13,12 @@ kernel is built for; the JAX package reads out one component at a time
 (pgd.py:52-60), the same contract. Other painters keep the per-component
 readout. The band filter's table depends only on the mesh and is kept
 per PM.
+
+Over ranks (compute_local) the filter acts on the rank's k shard (a
+parallel.pfft.KShard), the three gradient fields come back through the
+engine's c2r_grad3_local with order 1, and the force's reader
+(parallel.psolver.reader) reads them at the store's rows: homed K2 after
+the halo gather on a slab or pencil, the gathered full fields for v1.
 """
 
 from __future__ import annotations
@@ -71,3 +77,13 @@ class PGDCorrection:
         if painter.is_cic:
             return cic.cic_readout(fields, pos, pm.InvCellSize)
         return torch.stack([painter.readout(f, pos) for f in fields], -1)
+
+    def compute_local(self, engine, read, pos, delta_k, alpha_fac):
+        """compute_with_alpha over the ranks: delta_k is the rank's k
+        shard of engine (a SlabPM or PencilPM, the kz pad kept), pos the
+        rank's rows and read(fields, x) the force's reader of local
+        fields (psolver.reader)."""
+        pot = self._pot_transfer_alpha(engine.kpm, delta_k, alpha_fac)
+        fields = engine.c2r_grad3_local(pot, 1)
+        del pot
+        return read(list(fields), pos)

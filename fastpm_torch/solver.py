@@ -9,36 +9,48 @@ kick / drift / force actions), on one device, or over the ranks of a
 torch.distributed process group in the slab decomposition or, on a 2D
 process grid (parallel.comm.Grid), the pencil decomposition.
 
-On one rank the force step is gravity.compute_force_carry for one
-scalar-mass species and gravity.compute_force (every species into one
-canvas) otherwise, or when the potential or the tidal tensor is asked
-for (SolverConfig.compute_potential / compute_tidal). With stale_every
-= N > 1, N - 1 of every N carry forces are stale
+Without a process group the force step is gravity.compute_force_carry
+for one scalar-mass species and gravity.compute_force (every species
+into one canvas) otherwise, or when the potential or the tidal tensor
+is asked for (SolverConfig.compute_potential / compute_tidal). With
+stale_every = N > 1, N - 1 of every N carry forces are stale
 (gravity.compute_force_stale: the carried order, no sort;
-solver.py:548-572). On several, each rank holds a contiguous block of
-every species' rows (Store.shard) and the force is a homed force of
-parallel/psolver.py (solver.py:589-876): on a grid of py > 1 whose
-lattice is pencil-blocked, the pencil force, else the slab force over
-every rank; the order-free carry for one scalar-mass species with the
-CIC painter and neither the potential nor the tidal tensor, the
+solver.py:548-572). Over a group (of one rank too, so that one card
+drives the ranks' path; the JAX package runs a one-device mesh on its
+global path), each rank holds a contiguous block of every species' rows
+(Store.shard) and the force is a homed force of parallel/psolver.py
+(solver.py:589-876): on a grid of py > 1 (or the 1 x 1 grid of one
+rank) whose lattice is pencil-blocked, the pencil force, else the slab
+force over every rank; the order-free carry for one scalar-mass species
+with the CIC painter and neither the potential nor the tidal tensor, the
 multi-species body otherwise; and the v1 full-canvas force when no halo
 width fits. The halo width is measured, kept while it holds, and
 measured again when a force finds a particle beyond it; that force is
 then run again, so no result with a particle beyond the halo is ever
 used (solver.py:1332-1368). The pencil's k shard loses its kz pad
-before anything downstream sees delta_k (solver.py:872-875).
+before anything downstream but PGD sees delta_k (solver.py:872-875).
+
+With rehome (opt-in, slab carry only) the store takes the rehomed
+layout (store.py; solver.py:335-380) and each force migrates the rows
+that crossed a slab edge to their owner (psolver's rehome body), so the
+halo stays at the support plus one step's drift. A force whose halo,
+bucket or capacity overflows is discarded, the store converted anew and
+the force run again; where no migration-legal halo fits, the store goes
+back to dense (solver.py:605-672).
 
 The force modes cola, za and 2lpt keep the LPT columns dx1 and dx2 in
 the store, which every row permutation carries. With the neutrino linear
 response on, each force measures P(k) of the softened delta_k (one small
-fetch of its bins to the host), updates the response history
+fetch of its bins to the host, summed over the ranks, so that every rank
+updates the same history), updates the response history
 (neutrinos_lra.DeltaTotTable) and multiplies delta_k by the transfer
-before the potential kernel (the forces' delta_transfer hook). PGD reads
-the force's softened (and transferred) delta_k and fills the pgdc
-column, which the next drift consumes.
+before the potential kernel (the forces' transfer hook; over ranks the
+rank's k shard, after the overflow count: a replayed force updates the
+history once). PGD reads the force's softened (and transferred) delta_k
+and fills the pgdc column, which the next drift consumes; over ranks
+through the force's own readout (psolver.reader).
 
-Not in this slice (NotImplementedError; see ROADMAP.md): rehome,
-baryons, and PGD and the linear response on several ranks.
+Not in this slice (NotImplementedError; see ROADMAP.md): baryons.
 """
 
 from __future__ import annotations
@@ -89,13 +101,15 @@ def _f32(a: float) -> float:
 class SolverConfig:
     """Mirror of FastPMConfig (api/fastpm/solver.h) with lua-schema
     defaults (src/lua-runtime-fastpm.lua), restricted to what this
-    slice serves. rehome keeps the JAX package's name so that asking for
-    it fails loudly.
+    slice serves.
 
     stale_every: with N > 1, on one device, N - 1 of every N carry forces
     reuse the carried order of the one before (no environment default,
     unlike the JAX package's FASTPM_TPU_STALE); the sharded and
-    multi-species forces ignore it."""
+    multi-species forces ignore it. rehome: over a process group, the
+    slab carry with end-of-step migration (no environment default,
+    unlike the JAX package's FASTPM_TPU_REHOME); other forces ignore
+    it."""
 
     nc: int
     boxsize: float
@@ -143,8 +157,6 @@ class SolverConfig:
             self.use_dx1_only = True
         if self.force_mode not in ("fastpm", "pm", "cola", "za", "2lpt"):
             raise ValueError(f"unknown force_mode {self.force_mode!r}")
-        if self.rehome:
-            raise NotImplementedError(f"rehome {_LATER}")
 
     @property
     def vpm_table(self) -> List[Tuple[float, float]]:
@@ -162,9 +174,10 @@ class Solver:
     group: a torch.distributed process group over which the particles
     and the force are decomposed in x-slabs (one rank per device); None
     runs on one device alone. grid: a parallel.comm.Grid over the
-    group instead; with py > 1 the lattice is pencil-blocked for it and
-    the force takes the pencil decomposition (solver.py:183-195). Every
-    rank builds the same Solver."""
+    group instead; with py > 1, or on the 1 x 1 grid of one rank, the
+    lattice is pencil-blocked for it and the force takes the pencil
+    decomposition (solver.py:183-195). Every rank builds the same
+    Solver."""
 
     def __init__(self, config: SolverConfig,
                  cosmology: Optional[Cosmology] = None, device=None,
@@ -173,14 +186,12 @@ class Solver:
         if grid is not None and group is not None and group is not grid.group:
             raise ValueError("grid is over another group than `group`")
         self.ring = grid.flat if grid is not None else Ring(group)
-        # what the force decomposes over: a grid with py > 1 (pencils),
-        # else the ring of every rank (x-slabs)
-        self.comm = (grid if grid is not None and grid.py > 1
-                     else self.ring)
+        # what the force decomposes over: a grid with py > 1 or of one
+        # rank (pencils), else the ring of every rank (x-slabs)
+        self.comm = (grid if grid is not None
+                     and (grid.py > 1 or grid.nproc == 1) else self.ring)
         self.config = config
         self.cosmology = cosmology if cosmology is not None else FIDUCIAL
-        if self.ring.nproc > 1 and config.pgdc:
-            raise NotImplementedError(f"pgdc on several ranks {_LATER}")
         self.event_handlers = ev.EventHandlers()
 
         nc = config.nc
@@ -234,7 +245,8 @@ class Solver:
 
     @property
     def sharded(self) -> bool:
-        return self.ring.nproc > 1
+        """Whether the force runs over a process group (of one rank too)."""
+        return self.ring.group is not None
 
     def add_species(self, name: str, store: Store) -> None:
         """Add a species from every rank's full store; a rank keeps its
@@ -246,7 +258,7 @@ class Solver:
 
     def global_count(self, name: str) -> int:
         """The number of particles of a species over every rank."""
-        return int(self.ring.psum(self.species[name].np_local))
+        return int(self.ring.psum(self.species[name].count()))
 
     def iter_species(self):
         for name in SPECIES_ORDER:
@@ -314,9 +326,7 @@ class Solver:
     # ---- actions ----
 
     def do_force(self, trans, states: StateTable, iend: int) -> None:
-        cfg = self.config
         pm = self.find_pm(trans.a_f)
-        painter = Painter(pm, cfg.painter_type, cfg.painter_support)
         N = sum(self.global_count(n) for n in self.iter_species())
         a_n = states.find_next_force_time(iend)
         self.event_handlers.emit(
@@ -324,54 +334,7 @@ class Solver:
             a_f=trans.a_f, a_n=a_n, N=N, delta_k=None)
         # settle the PREVIOUS force's deferred finite-ness flag
         self._settle_cv()
-
-        # decompose analog: the periodic wrap (solver.c:571-592). The
-        # solver lets go of the old stores so the cell sort's permuted
-        # copy is the only one alive
-        names = list(self.iter_species())
-        stores = [self.species.pop(n).wrap(pm.BoxSize) for n in names]
-        kpm = pm
-        transfer = None
-        if self.cosmology.ncdm_linearresponse:
-            if self.lra is None:
-                raise RuntimeError(
-                    "the cosmology sets ncdm_linearresponse: call "
-                    "Solver.setup_linear_response before the first force")
-
-            # the linear response between the softening and the potential
-            # kernel (gravity.c:431-455, 494-522)
-            def transfer(dk, a_f=trans.a_f):
-                logk, vals, key = self._lra_table(pm, dk, a_f)
-                return transfers.apply_fk_interp(pm, dk, logk, vals, key)
-        if self.sharded:
-            stores, delta_k, kpm = self._sharded_force(pm, painter, stores)
-        elif carry_eligible(painter, stores, cfg.compute_potential,
-                            cfg.compute_tidal):
-            stores, delta_k = self._carry_force(pm, painter, stores.pop(),
-                                                transfer)
-        else:
-            stores, delta_k = compute_force(pm, painter, stores,
-                                            cfg.kernel_type,
-                                            cfg.softening_type,
-                                            cfg.compute_potential,
-                                            cfg.compute_tidal, transfer)
-            self.force_paths["multi"] += 1
-        self.species.update(zip(names, stores))
-        if cfg.check_values:
-            # stays on the device until the next force or snapshot
-            ok = torch.isfinite(torch.view_as_real(delta_k)).all()
-            for p in stores:
-                ok = ok & torch.isfinite(p.acc).all()
-            self._cv_pending = (self.ring.psum((~ok).to(torch.int32)),
-                                trans.a_f)
-
-        # the PGD correction from the softened, pre-decic delta_k
-        # (solver.c:458-464), at the store's rows in their order after
-        # the force
-        if self.pgd is not None:
-            p = self.species[CDM]
-            self.species[CDM] = p.replace(pgdc=self.pgd.compute_with_alpha(
-                pm, p.x, delta_k, self.pgd.alpha(trans.a_f)))
+        delta_k, kpm = self.force(pm, trans.a_f)
 
         # compensate the CIC window so the event sees a de-aliased
         # spectrum (solver.c:466-471); skipped when nobody listens. On
@@ -384,16 +347,90 @@ class Solver:
             ev.EVENT_FORCE, ev.STAGE_AFTER, solver=self, pm=kpm,
             a_f=trans.a_f, a_n=a_n, N=N, delta_k=delta_k_decic)
 
+    def force(self, pm: PM, a_f: float):
+        """The force on every species at a_f on the force mesh pm, with
+        the neutrino linear response and PGD where they are on; the
+        stores are replaced. Returns (the softened, transferred delta_k,
+        its PM): over ranks the rank's k shard without the kz pad, and
+        its KShard."""
+        cfg = self.config
+        painter = Painter(pm, cfg.painter_type, cfg.painter_support)
+        # decompose analog: the periodic wrap (solver.c:571-592). The
+        # solver lets go of the old stores so the cell sort's permuted
+        # copy is the only one alive
+        names = list(self.iter_species())
+        stores = [self.species.pop(n).wrap(pm.BoxSize) for n in names]
+        lra = None
+        if self.cosmology.ncdm_linearresponse:
+            if self.lra is None:
+                raise RuntimeError(
+                    "the cosmology sets ncdm_linearresponse: call "
+                    "Solver.setup_linear_response before the first force")
+
+            # the linear response between the softening and the potential
+            # kernel (gravity.c:431-455, 494-522): P(k) measured on kpm
+            # (without the pencil's kz pad), the transfer applied on the
+            # k shard of kfull
+            def lra(kpm, kfull):
+                def transfer(dk):
+                    logk, vals, key = self._lra_table(
+                        kpm, dk[:, :, :kpm.kshape[2]], a_f)
+                    return transfers.apply_fk_interp(kfull, dk, logk, vals,
+                                                     key)
+                return transfer
+        read = None
+        if self.sharded:
+            stores, delta_k, eng, H = self._sharded_force(pm, painter,
+                                                          stores, lra)
+            kpm = eng.kpm_out
+            read = psolver.reader(eng, H, painter)
+        else:
+            kpm = pm
+            transfer = lra(pm, pm) if lra is not None else None
+            if carry_eligible(painter, stores, cfg.compute_potential,
+                              cfg.compute_tidal):
+                stores, delta_k = self._carry_force(pm, painter,
+                                                    stores.pop(), transfer)
+            else:
+                stores, delta_k = compute_force(pm, painter, stores,
+                                                cfg.kernel_type,
+                                                cfg.softening_type,
+                                                cfg.compute_potential,
+                                                cfg.compute_tidal, transfer)
+                self.force_paths["multi"] += 1
+        self.species.update(zip(names, stores))
+        if cfg.check_values:
+            # stays on the device until the next force or snapshot
+            ok = torch.isfinite(torch.view_as_real(delta_k)).all()
+            for p in stores:
+                ok = ok & torch.isfinite(p.acc).all()
+            self._cv_pending = (self.ring.psum((~ok).to(torch.int32)), a_f)
+
+        # the PGD correction from the softened, pre-decic delta_k
+        # (solver.c:458-464), at the store's rows in their order after
+        # the force; over ranks from the k shard with its pad, read out
+        # as the force reads
+        if self.pgd is not None:
+            p = self.species[CDM]
+            alpha = self.pgd.alpha(a_f)
+            if read is None:
+                pgdc = self.pgd.compute_with_alpha(pm, p.x, delta_k, alpha)
+            else:
+                pgdc = self.pgd.compute_local(eng, read, p.x, delta_k, alpha)
+                if p.alive is not None:
+                    # a dead row's position is stale
+                    pgdc = pgdc * p.alive[:, None]
+            self.species[CDM] = p.replace(pgdc=pgdc)
+        return delta_k[:, :, :kpm.kshape[2]], kpm
+
     # ---- the neutrino linear response (gravity.c:457-529) ----
 
     def setup_linear_response(self, transfer_redshift: float,
                               transfer_file=None) -> None:
         """Enable the grid-based neutrino linear response: its transfer
         inputs are given at z = transfer_redshift, the neutrino to CDM
-        transfer ratio read from transfer_file when one is given."""
-        if self.sharded:
-            raise NotImplementedError(
-                f"the neutrino linear response on several ranks {_LATER}")
+        transfer ratio read from transfer_file when one is given. Over
+        ranks every rank keeps the same history."""
         from .neutrinos_lra import DeltaTotTable
         from .powerspectrum import FuncK
         t_init = FuncK.from_file(transfer_file) if transfer_file else None
@@ -402,12 +439,15 @@ class Solver:
             time_transfer=1.0 / (1 + transfer_redshift), t_init=t_init)
 
     def _lra_table(self, pm: PM, delta_k, a_f: float):
-        """P_cdm of the softened delta_k (one small fetch of its bins),
-        the response history updated at a_f, and the step's transfer
-        table (logk, vals) as float32 tensors on the device, with the
-        host bytes of logk that name it (apply_fk_interp's key)."""
+        """P_cdm of the softened delta_k (one small fetch of its bins;
+        over ranks pm is the rank's k shard and the bins are summed over
+        the ranks), the response history updated at a_f, and the step's
+        transfer table (logk, vals) as float32 tensors on the device,
+        with the host bytes of logk that name it (apply_fk_interp's
+        key)."""
         from .powerspectrum import measure_power
-        ps = measure_power(pm, delta_k)
+        ps = measure_power(pm, delta_k,
+                           ring=self.ring if self.sharded else None)
         delta_cdm = np.sqrt(np.maximum(ps.p, 0.0))
         good = ps.Nmodes > 0
         k = ps.k[good]
@@ -455,31 +495,96 @@ class Solver:
                                         else SlabPM(pm, self.ring))
         return eng
 
+    def _halo_key(self, pm: PM, stores):
+        """The key of a force mesh's halo width: the rehomed layout's is
+        kept apart from the dense one's."""
+        return (("rehome", pm.Nmesh) if stores[0].alive is not None
+                else pm.Nmesh)
+
     def _pick_halo(self, pm: PM, painter: Painter, stores):
         """The homed force's halo for this force mesh (None: the v1
-        force; ("pencil", Hx, Hy): the pencil force; an int: the slab
-        force): measured once, with one plane of slack
-        (psolver.pick_halo), and kept until a force overflows it. The
-        homed paint is CIC only."""
-        if pm.Nmesh not in self._halo:
-            self._halo[pm.Nmesh] = (
-                psolver.pick_halo(pm, self.comm, [p.x for p in stores],
-                                  [p.home_blocks for p in stores])
-                if painter.type == "cic" and painter.diffdir < 0 else None)
-        return self._halo[pm.Nmesh]
+        force, or for a rehomed store the dense one; ("pencil", Hx, Hy):
+        the pencil force; an int: the slab force): measured once, with
+        one plane of slack (psolver.pick_halo, pick_halo_rehomed), and
+        kept until a force overflows it. The homed paint is CIC only."""
+        key = self._halo_key(pm, stores)
+        if key not in self._halo:
+            if stores[0].alive is not None:
+                H = psolver.pick_halo_rehomed(pm, self.ring, stores[0])
+            elif painter.type == "cic" and painter.diffdir < 0:
+                H = psolver.pick_halo(pm, self.comm, [p.x for p in stores],
+                                      [p.home_blocks for p in stores])
+            else:
+                H = None
+            self._halo[key] = H
+        return self._halo[key]
 
-    def _sharded_force(self, pm: PM, painter: Painter, stores):
+    def _rehome_ok(self, pm: PM, painter: Painter, stores, lra) -> bool:
+        """Whether the rehome body serves this force (solver.py:613-625):
+        rehome asked for, the slab carry's case (one scalar-mass species
+        with velocities on x-major rows, the CIC painter, neither the
+        potential nor the tidal tensor), no linear response (whose force
+        the JAX package never rehomes), and slabs of at least 4 planes."""
+        cfg = self.config
+        P = self.ring.nproc
+        n0, n1, _ = pm.Nmesh
+        return bool(cfg.rehome and lra is None and self.comm is self.ring
+                    and carry_eligible(painter, stores, cfg.compute_potential,
+                                       cfg.compute_tidal)
+                    and stores[0].v is not None
+                    and stores[0].home_blocks is None
+                    and n0 % P == 0 and n1 % P == 0 and n0 // P >= 4)
+
+    def _to_rehomed(self, p: Store, pm: PM) -> Store:
+        """The rehomed layout of a dense store (solver.py:335-379): each
+        rank keeps R = cap + 2B rows, first the particles whose position
+        lies in its x-slab (alive), then dead rows of zeros. The rows go
+        to their owners in one all_to_all (every column in its dtype);
+        cap and B follow the fullest rank's count n (B = max(2048, n /
+        32) and cap = 1.1 n + B, each rounded up to 256 rows), so that
+        every rank has the same R."""
+        ring = self.ring
+        n0 = pm.Nmesh[0]
+        nloc = n0 // ring.nproc
+        b = torch.remainder(torch.floor(
+            p.x[:, 0] * float(np.float32(pm.InvCellSize[0]))).to(
+                torch.int64), n0)
+        owner = b // nloc
+        counts = torch.bincount(owner, minlength=ring.nproc).tolist()
+        p = p.take(torch.sort(owner, stable=True).indices)
+        cols = {c: ring.exchange_rows(t, counts) for c, t in p.columns()}
+        n = cols["x"].shape[0]
+        per = int(ring.pmax(torch.tensor([n], device=p.x.device)))
+        B = int(np.ceil(max(2048, per / 32) / 256.0) * 256)
+        cap = int(np.ceil((per * 1.10 + B) / 256.0) * 256)
+        R = cap + 2 * B
+
+        def padded(t):
+            out = t.new_zeros((R,) + tuple(t.shape[1:]))
+            out[:n] = t
+            return out
+
+        alive = torch.zeros(R, dtype=torch.uint8, device=p.x.device)
+        alive[:n] = 1
+        return p.replace(alive=alive, rehome_bucket=B,
+                         **{c: padded(t) for c, t in cols.items()})
+
+    def _sharded_force(self, pm: PM, painter: Painter, stores, lra=None):
         """The force over the ranks; returns (stores with acc, and the
         potential and tidal tensor where asked, filled; this rank's
-        delta_k shard without the pencil's kz pad; that shard's KShard).
-        A homed force that finds a particle beyond its halo is
-        discarded: the halo is measured again from the same positions
-        and the force run again."""
+        delta_k shard, the pencil's kz pad kept; the engine; the halo
+        the force took). lra(kpm, kfull), when given, makes the linear
+        response's transfer hook for an engine's k shard. A homed force
+        that finds a particle beyond its halo is discarded: the halo is
+        measured again from the same positions and the force run again;
+        a rehomed store whose force overflowed is converted anew."""
         cfg = self.config
         pot, tid = cfg.compute_potential, cfg.compute_tidal
-        xs = [p.x for p in stores]
-        masses = [p.mass if p.mass is not None else float(np.float32(p.M0))
-                  for p in stores]
+        rehome = self._rehome_ok(pm, painter, stores, lra)
+        if rehome and stores[0].alive is None:
+            stores = [self._to_rehomed(stores[0], pm)]
+        elif not rehome and stores[0].alive is not None:
+            stores = [stores[0].compact()]
 
         def filled(outs):
             # a species without the column allocated keeps it None
@@ -489,15 +594,30 @@ class Solver:
 
         while True:
             H = self._pick_halo(pm, painter, stores)
+            rehomed = stores[0].alive is not None
+            if rehomed and H is None:
+                # no migration-legal halo: the dense store
+                stores = [stores[0].compact()]
+                continue
             pencil = isinstance(H, tuple)
+            xs = [p.x for p in stores]
+            masses = [p.mass if p.mass is not None
+                      else float(np.float32(p.M0)) for p in stores]
             if H is None:
                 eng = self._engine(pm, self.comm is not self.ring)
                 outs, delta_k = psolver._force_local_multi(
                     eng, painter, xs, masses, cfg.kernel_type,
-                    cfg.softening_type, pot, tid)
+                    cfg.softening_type, pot, tid,
+                    transfer=lra(eng.kpm_out, eng.kpm) if lra else None)
                 out, path, bad = filled(outs), "v1", 0
+            elif rehomed:
+                eng = self._engine(pm, False)
+                p, bad, delta_k = psolver._force_local_homed_rehome(
+                    eng, stores[0], cfg.kernel_type, H, cfg.softening_type)
+                out, path = [p], "homed-rehome"
             else:
                 eng = self._engine(pm, pencil)
+                transfer = lra(eng.kpm_out, eng.kpm) if lra else None
                 if pencil:
                     carry = psolver._force_local_homed_pencil_carry
                     multi = psolver._force_local_homed_pencil_multi
@@ -508,22 +628,27 @@ class Solver:
                     halo = (H,)
                 if carry_eligible(painter, stores, pot, tid):
                     p, bad, delta_k = carry(eng, stores[0], cfg.kernel_type,
-                                            *halo, cfg.softening_type)
+                                            *halo, cfg.softening_type,
+                                            transfer=transfer)
                     out, path = [p], "carry"
                 else:
                     outs, bad, delta_k = multi(
                         eng, xs, masses, cfg.kernel_type, *halo,
                         cfg.softening_type, compute_potential=pot,
-                        compute_tidal=tid)
-                    out, path = filled(outs), "multi"
+                        compute_tidal=tid, transfer=transfer)
+                    out, path = (filled(outs) if outs is not None
+                                 else None), "multi"
                 path = ("pencil-" if pencil else "homed-") + path
             if int(bad) == 0:
                 self.force_paths[path] += 1
-                kpm = eng.kpm_out
-                return out, delta_k[:, :, :kpm.kshape[2]], kpm
-            # the overflow contract (store.c:507-509): measure again
+                return out, delta_k, eng, H
+            # the overflow contract (store.c:507-509): measure again; a
+            # rehomed store may have overflowed its halo, a bucket or its
+            # capacity, and a conversion sizes all three anew
             self.force_paths["overflow"] += 1
-            del self._halo[pm.Nmesh]
+            del self._halo[self._halo_key(pm, stores)]
+            if rehomed:
+                stores = [self._to_rehomed(stores[0].compact(), pm)]
 
     def kick_one(self, p: Store, kick: KickFactor, af: float) -> Store:
         """Apply a kick to a store (fastpm_kick_store, factors.c:147-197):

@@ -9,7 +9,8 @@ Port of fastpm_tpu/store.py. Column semantics follow the reference:
 - dv1 (N,3) f32  LPT velocity from a growth-rate table (ncdm)
 - id  (N,) i64  raveled Lagrangian lattice index; q is recomputable
   from it via the q_* metadata (store.c:664-692)
-- alive (N,) u8  liveness of padded rows (None = every row is a particle)
+- alive (N,) u8  liveness of the rows of a rehomed store (None = every
+  row is a particle)
 - mass (N,) f32  per-particle mass (ncdm); None = every particle has M0
 - rand (N,) f32  per-particle uniform for subsampling (store.c:695-720)
 - aemit (N,) f32  emission scale factor (lightcone rows)
@@ -22,6 +23,12 @@ Row order carries no meaning: the force step returns the store in
 cell-sorted order, and writers sort by id. What the order of a fresh
 store means for its sharding is its home_blocks: None for the x-major
 lattice order, (px, py) for pencil-blocked rows (lattice_store).
+
+A rehomed store (SolverConfig.rehome; solver.py:335-380 of the JAX
+package) holds R = cap + 2B rows on each rank, the particles whose
+position lies in the rank's x-slab among them, marked by alive;
+rehome_bucket is B, the rows each end-of-step hop carries at most.
+compact() turns it back into a dense store.
 """
 
 from __future__ import annotations
@@ -74,10 +81,19 @@ class Store:
     # (lattice_store(blocks=...)), so a Grid's shard of them is the
     # rank's pencil; None: x-major
     home_blocks: Optional[tuple] = None
+    # B of a rehomed store (the module docstring); None for a dense one
+    rehome_bucket: Optional[int] = None
 
     @property
     def np_local(self) -> int:
         return self.x.shape[0]
+
+    def count(self):
+        """The particles of these rows: np_local, or for a rehomed store
+        its alive rows (an int64 tensor on its device, not fetched)."""
+        if self.alive is None:
+            return self.np_local
+        return self.alive.sum(dtype=torch.int64)
 
     def columns(self):
         """(name, tensor) of every allocated per-particle column."""
@@ -130,7 +146,7 @@ class Store:
         if self.alive is None:
             return self
         keep = torch.nonzero(self.alive > 0).reshape(-1)
-        return self.take(keep).replace(alive=None)
+        return self.take(keep).replace(alive=None, rehome_bucket=None)
 
     def summary(self, column: str, ring=None):
         """Per-component (min, std, mean, max) as float64 numpy arrays

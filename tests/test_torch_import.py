@@ -83,23 +83,19 @@ def test_unserved_parameter_stops_the_cli(tmp_path):
         conf.write_text(base + line + "\n")
         with pytest.raises(SystemExit, match=line.split()[0]):
             main([str(conf)], device="cpu")
-    # the lightcone, RFOF, PGD and the linear response are served on one
-    # rank and stop a run of several
+    # the lightcone, RFOF, PGD, the linear response, the potential, the
+    # tidal tensor and a RunPB initial condition are served, on ranks
+    # too (tests/test_torch_ranks_physics.py runs the first four on 2
+    # and 4 ranks): no parameter depends on the number of ranks
+    import fastpm_torch.cli as cli_module
+    assert not hasattr(cli_module, "_ONE_RANK_PARAMS")
     for line in ('lc_write_usmesh = "lc"', 'write_rfof = "rfof"',
-                 "pgdc = true", "ncdm_linearresponse = true"):
-        one = tmp_path / "one.lua"
-        one.write_text(base + line + "\n")
-        params = load_params(str(one))
-        check_served(params)
-        with pytest.raises(SystemExit, match=line.split()[0]):
-            check_served(params, ranks=2)
-    # the potential, the tidal tensor and a RunPB initial condition are
-    # served on several ranks too
-    for line in ("compute_potential = true", "compute_tidal = true",
+                 "pgdc = true", "ncdm_linearresponse = true",
+                 "compute_potential = true", "compute_tidal = true",
                  'read_runpbic = "ic"'):
         one = tmp_path / "one.lua"
         one.write_text(base + line + "\n")
-        check_served(load_params(str(one)), ranks=2)
+        check_served(load_params(str(one)))
     # restart is served on one rank; subsampled runs cannot restart
     sub = tmp_path / "sub.lua"
     sub.write_text(base + "particle_fraction = 0.5\n")

@@ -361,9 +361,8 @@ def test_cli_powerspectrum_rows_agree(cli_runs):
 
 def test_unserved_ncdm_options_refused(tmp_path):
     """Baryons stay refused, with the GRAFIC noise input and the RunPB IC
-    output, and the neutrino linear response on several ranks; m_ncdm,
-    read_linear_growth_rate and the linear response on one rank are
-    served."""
+    output; m_ncdm, read_linear_growth_rate and the linear response (on
+    ranks too: tests/test_torch_ranks_physics.py) are served."""
     from fastpm_torch import cli
     from fastpm_torch.config.params import load_params
     from fastpm_torch.solver import Solver, SolverConfig, BARYON
@@ -380,8 +379,6 @@ def test_unserved_ncdm_options_refused(tmp_path):
     conf.write_text(base + "ncdm_freestreaming = true\n"
                     "n_shell = 0\nncdm_linearresponse = true\n")
     cli.check_served(load_params(str(conf)))
-    with pytest.raises(SystemExit, match="ncdm_linearresponse"):
-        cli.check_served(load_params(str(conf)), ranks=2)
     # read_lineark_ncdm is served (tests/test_torch_cli_io.py); the
     # parameters the JAX package's CLI never reads stay refused
     for line in ('read_grafic = "noise"', 'write_runpbic = "ic"'):

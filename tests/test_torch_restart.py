@@ -6,8 +6,10 @@ equivalence at 16^3, and the refusals the JAX package keeps.
   straight run, by id (x atol 2e-3, v atol 2e-1: the km/s <-> internal
   velocity round trip in float32), does not rewrite the a = 0.6
   snapshot, and restores int64 ids; through cli.main with -r as well.
-- A restart with particle_fraction < 1, with the lightcone, or on
-  several ranks stops with SystemExit.
+- A restart with particle_fraction < 1 or with the lightcone stops
+  with SystemExit; on several ranks (tests/test_torch_ranks_physics.py
+  restarts on 2) a rank keeps the rows of its own lattice sites, and a
+  snapshot without every id once stops it.
 """
 
 import os
@@ -85,9 +87,28 @@ def test_restart_refusals(tmp_path):
         p = load_params_from_string(_text(str(tmp_path), "fastpm") + extra)
         with pytest.raises(SystemExit, match=match):
             run_fastpm(p, Log(echo=False), device="cpu", restart=snap)
-    # restart on several ranks stops before any rank reads the snapshot
+    # restart is served on ranks too (tests/test_torch_ranks_physics.py
+    # restarts on 2): only subsampling and the lightcone stop it
     from fastpm_torch import cli
-    with pytest.raises(SystemExit, match="restart"):
-        cli._check_restart(load_params_from_string(
-            _text(str(tmp_path), "fastpm")), ranks=2)
+    cli._check_restart(load_params_from_string(
+        _text(str(tmp_path), "fastpm")))
     check_served(load_params_from_string(_text(str(tmp_path), "cola")))
+
+
+def test_lattice_rows_need_every_id():
+    """The rows a rank keeps of a file are those at its lattice rows'
+    ids; a file missing an id (a subsampled snapshot) or holding one
+    twice stops the run, as read_runpbic on ranks does."""
+    import torch
+    from fastpm_torch import cli
+    from fastpm_torch.solver import Solver, SolverConfig
+    s = Solver(SolverConfig(nc=4, boxsize=16.0), device="cpu")
+    # this rank's lattice rows: every other site, in reverse
+    s.species["cdm"] = s.species["cdm"].replace(
+        id=torch.arange(62, -1, -2, dtype=torch.int64))
+    ids = np.random.RandomState(3).permutation(64)
+    keep = cli._lattice_rows(s, ids, "restart")
+    np.testing.assert_array_equal(ids[keep], np.arange(62, -1, -2))
+    for bad in (ids[1:], np.concatenate([ids[:-1], ids[:1]])):
+        with pytest.raises(SystemExit, match="restart on several ranks"):
+            cli._lattice_rows(s, bad, "restart")

@@ -68,9 +68,10 @@ def test_solver_matches_jax(mode, start):
 
 
 def test_unserved_modes_raise():
-    # rehome stays refused; every force mode and PGD are served
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SolverConfig(nc=8, boxsize=16.0, rehome=True)
+    # rehome is served (tests/test_torch_ranks_physics.py), with no
+    # environment default; every force mode and PGD are served
+    assert SolverConfig(nc=8, boxsize=16.0, rehome=True).rehome
+    assert not SolverConfig(nc=8, boxsize=16.0).rehome
     with pytest.raises(ValueError, match="force_mode"):
         SolverConfig(nc=8, boxsize=16.0, force_mode="tpm")
     for kw in (dict(force_mode="cola"), dict(force_mode="2lpt"),

@@ -1,5 +1,6 @@
 """Rank-side code of the port's multi-rank tests
-(tests/test_torch_parallel.py, tests/test_torch_pencil.py).
+(tests/test_torch_parallel.py, tests/test_torch_pencil.py,
+tests/test_torch_ranks_physics.py).
 
 `run` is started on each rank of a gloo process group with
 torch.multiprocessing (start method spawn). It imports torch and the
@@ -18,8 +19,8 @@ HOMED_KERNELS = ("from8", "from4")
 
 
 def run(rank, nproc, port, job, inp, out):
-    """One rank of `job` ("cases", "cola", "pencil", or "cli" followed by
-    the CLI's flags)."""
+    """One rank of `job` ("cases", "cola", "pencil", "physics", or "cli"
+    followed by the CLI's flags)."""
     import faulthandler
     # a rank killed by a signal prints where it was to the test's stderr
     faulthandler.enable()
@@ -28,27 +29,27 @@ def run(rank, nproc, port, job, inp, out):
     # which a host without name service may fail
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     if job.split()[0] == "cli":
-        # the CLI starts the process group itself, as under torchrun;
-        # each rank's standard output, and the message of a SystemExit,
-        # go to <out>/cli.rank<r>.txt
-        os.environ.update(WORLD_SIZE=str(nproc), RANK=str(rank),
-                          LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                          MASTER_PORT=str(port))
-        import contextlib
-        import io
-        from fastpm_torch import cli
-        text = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(text):
-                cli.main(job.split()[1:] + [inp], device="cpu")
-        except SystemExit as e:
-            text.write("SystemExit: %s\n" % e)
-        os.makedirs(out, exist_ok=True)
-        with open(os.path.join(out, "cli.rank%d.txt" % rank), "w") as f:
-            f.write(text.getvalue())
+        run_cli(rank, nproc, port, job.split()[1:] + [inp], out)
         return
     dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
                             rank=rank, world_size=nproc)
+    if job == "physics":
+        data = dict(np.load(inp))
+        try:
+            from fastpm_torch.parallel.comm import Grid
+            use_fd_tables(str(data["fd_tables"]))
+            grid = Grid(dist.group.WORLD, int(data["px"]), int(data["py"]))
+            np.savez(os.path.join(out, "rank%d.npz" % rank),
+                     **physics(grid, data))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        # then the CLI runs, each on a process group of its own
+        for i, argv in enumerate(str(data["cli"]).split(";")):
+            argv = argv.split()
+            run_cli(rank, nproc, int(data["cli_ports"][i]), argv[1:],
+                    argv[0])
+        return
     if job == "cola":
         # the cola Solver on the ranks: its LPT columns ride the slab
         # force's row permutations
@@ -90,6 +91,40 @@ def run(rank, nproc, port, job, inp, out):
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def run_cli(rank, nproc, port, argv, out):
+    """cli.main(argv) on this rank: the CLI starts the process group
+    itself, as under torchrun; each rank's standard output, and the
+    message of a SystemExit, go to <out>/cli.rank<r>.txt."""
+    os.environ.update(WORLD_SIZE=str(nproc), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import contextlib
+    import io
+    from fastpm_torch import cli
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            cli.main(argv, device="cpu")
+    except SystemExit as e:
+        text.write("SystemExit: %s\n" % e)
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "cli.rank%d.txt" % rank), "w") as f:
+        f.write(text.getvalue())
+
+
+def use_fd_tables(path):
+    """Take the Fermi-Dirac integral table (cosmology._fd_table, some 18
+    s of quadratures a process) from the pickle the parent wrote of its
+    own: the same code makes it, so it is the same table."""
+    import pickle
+    from fastpm_torch import cosmology, neutrinos_lra
+    with open(path, "rb") as f:
+        tabs = pickle.load(f)
+    for mod in (cosmology, neutrinos_lra):
+        if hasattr(mod, "_fd_table"):
+            mod._fd_table = lambda: tabs
 
 
 def ring_ops(ring):
@@ -177,21 +212,32 @@ def forces(ring, data):
     return res
 
 
+# the cosmology of the linear response runs (tests/test_torch_lra.py)
+LRA_COSMO = dict(h=0.6774, Omega_m=0.307494, T_cmb=2.725, N_eff=3.046,
+                 N_nu=3, m_ncdm=(0.3,), ncdm_matterlike=False,
+                 ncdm_freestreaming=True, ncdm_linearresponse=True,
+                 growth_mode="ode")
+
+
 def run_solver(nc, box, time_step, ps, seed, device="cpu", group=None,
-               force_mode="fastpm", grid=None, **config):
+               force_mode="fastpm", grid=None, lra_z=None, **config):
     """A Solver (pm_nc_factor 1) from the port's own linear field,
     evolved; the solver (shared with the parent's one-rank run). grid: a
-    process grid instead of the group's slab; config: more SolverConfig
-    fields."""
+    process grid instead of the group's slab; lra_z: the neutrino linear
+    response (LRA_COSMO) with its transfer at this redshift; config:
+    more SolverConfig fields."""
     from fastpm_torch.solver import Solver, SolverConfig
     from fastpm_torch.cosmology import Cosmology
     from fastpm_torch.powerspectrum import FuncK
     from fastpm_torch import ic
-    c = Cosmology(h=0.6774, Omega_m=0.307494, T_cmb=0.0, growth_mode="lcdm")
+    c = (Cosmology(**LRA_COSMO) if lra_z is not None else
+         Cosmology(h=0.6774, Omega_m=0.307494, T_cmb=0.0, growth_mode="lcdm"))
     s = Solver(SolverConfig(nc=nc, boxsize=box, time_step=list(time_step),
                             force_mode=force_mode, pm_nc_factor=1,
                             check_values=True, **config), c, device=device,
                group=group, grid=grid)
+    if lra_z is not None:
+        s.setup_linear_response(lra_z)
     dk, _ = ic.linear_field(s.lptpm, c, FuncK.from_file(ps), seed=seed,
                             aout=1.0)
     s.setup_lpt(dk, time_step[0])
@@ -219,7 +265,7 @@ def solver(ring, data):
               id=_rows(ring, np.arange(len(x))))
     s._halo[pm.Nmesh] = 2
     s.force_paths.clear()
-    (p,), _dk, _kpm = s._sharded_force(pm, Painter(pm, "cic"), [p])
+    (p,), _dk, _eng, _H = s._sharded_force(pm, Painter(pm, "cic"), [p])
     res.update(replay_acc=p.acc.numpy(), replay_id=p.id.numpy(),
                replay_H=np.int64(s._halo[pm.Nmesh]),
                replay_paths=np.array(sorted(s.force_paths.elements())))
@@ -338,3 +384,115 @@ def runpb_ic(path, nc, box, a0, grid=None):
                grid=grid)
     prepare_runpbic(s, path, a0, Log(echo=False))
     return s.species["cdm"]
+
+
+# ---- the options of the ranks (tests/test_torch_ranks_physics.py) -------
+
+
+def physics_solver(data, grid, a_f, **config):
+    """A Solver of data's mesh over the grid whose rows sit at the given
+    positions (data["x"], in id order), v 0; with lra=True the linear
+    response (LRA_COSMO, transfer at z = 4)."""
+    from fastpm_torch.solver import Solver, SolverConfig
+    from fastpm_torch.cosmology import Cosmology
+    lra = config.pop("lra", False)
+    c = Cosmology(**LRA_COSMO) if lra else None
+    s = Solver(SolverConfig(nc=int(data["nc"]), boxsize=float(data["box"]),
+                            time_step=[a_f, 1.0], pm_nc_factor=1, **config),
+               c, device="cpu", group=grid.group, grid=grid)
+    if lra:
+        s.setup_linear_response(4.0)
+    p = s.species["cdm"]
+    s.species["cdm"] = p.replace(x=torch.from_numpy(data["x"][p.id.numpy()]))
+    return s
+
+
+def physics(grid, data):
+    """On the grid's ranks: the linear response's forces (the third with
+    a cached halo too small, so that it is replayed) and a run; PGD's
+    column after one force; on a slab of 2, the rehome body on the
+    parent's layout (two steps) and the rehomed Solver against the dense
+    one, with a snapshot of the rehomed store."""
+    from fastpm_torch.store import Store
+    from fastpm_torch.parallel.pfft import SlabPM
+    from fastpm_torch.parallel import psolver
+    res = {}
+    a_fs = [float(a) for a in data["lra_a"]]
+    s = physics_solver(data, grid, a_fs[0], lra=True)
+    pm = s.find_pm(1.0)
+    calls, update = [], s.lra.update_from_power
+
+    def counted(k, delta, a):
+        calls.append(a)
+        return update(k, delta, a)
+
+    s.lra.update_from_power = counted
+    for i, a in enumerate(a_fs):
+        if i == 2:
+            # the halo cached too narrow for the positions
+            s._halo[pm.Nmesh] = ("pencil", 1, 1) if grid.py > 1 else 1
+        s.force(pm, a)
+        p = s.species["cdm"]
+        res.update({"lra_acc%d" % i: p.acc.numpy(),
+                    "lra_id%d" % i: p.id.numpy()})
+    res.update(lra_calls=np.array(calls),
+               lra_paths=np.array(sorted(s.force_paths.elements())),
+               lra_scalefact=np.asarray(s.lra.scalefact),
+               lra_delta_tot=np.asarray(s.lra.delta_tot))
+    s = run_solver(int(data["nc"]), float(data["box"]), data["run_steps"],
+                   str(data["ps"]), int(data["seed"]), group=grid.group,
+                   grid=grid, lra_z=4.0)
+    p = s.species["cdm"]
+    res.update(run_x=p.x.numpy(), run_v=p.v.numpy(), run_id=p.id.numpy(),
+               run_scalefact=np.asarray(s.lra.scalefact),
+               run_delta_tot=np.asarray(s.lra.delta_tot),
+               run_paths=np.array(sorted(s.force_paths.elements())))
+
+    s = physics_solver(data, grid, 0.5, pgdc=True)
+    s.force(s.find_pm(0.5), 0.5)
+    p = s.species["cdm"]
+    res.update(pgd_id=p.id.numpy(), pgdc=p.pgdc.numpy(),
+               pgd_paths=np.array(sorted(s.force_paths.elements())))
+
+    if "rehome_x" in data:
+        ring = grid.flat
+        R = len(data["rehome_x"]) // ring.nproc
+        rows = slice(ring.rank * R, (ring.rank + 1) * R)
+        spm = SlabPM(s.find_pm(1.0), ring)
+        p = Store(x=torch.from_numpy(data["rehome_x"][rows]),
+                  v=torch.from_numpy(data["rehome_v"][rows]),
+                  id=torch.from_numpy(data["rehome_id"][rows]),
+                  alive=torch.from_numpy(data["rehome_alive"][rows]),
+                  rehome_bucket=int(data["rehome_B"]))
+        for step in (1, 2):
+            if step == 2:
+                # every alive row moved, then wrapped
+                x = p.x + torch.from_numpy(data["rehome_shift"]) * (
+                    p.alive[:, None] > 0)
+                p = p.replace(x=x).wrap(float(data["box"]))
+            p, bad, _dk = psolver._force_local_homed_rehome(
+                spm, p, "1_4", int(data["rehome_H"]))
+            for c in ("x", "v", "id", "alive", "acc"):
+                res["rehome%d_%s" % (step, c)] = getattr(p, c).numpy()
+            res["rehome%d_bad" % step] = np.int64(bad)
+        for name, extra in (("dense", {}), ("rehomed", dict(rehome=True))):
+            s = run_solver(int(data["nc"]), float(data["box"]),
+                           data["run_steps"], str(data["ps"]),
+                           int(data["seed"]), group=grid.group, **extra)
+            p = s.species["cdm"]
+            res["solver_%s_paths" % name] = np.array(
+                sorted(s.force_paths.elements()))
+            if name == "rehomed":
+                res["solver_rehomed_rows"] = np.int64(p.np_local)
+                # a snapshot of the rehomed store and of its compacted
+                # rows, a = 1 -> 1.1
+                snaps = [s.set_snapshot(q, s._drift_factor(1.0, 1.0, 1.1),
+                                        s._kick_factor(1.0, 1.0, 1.1), 1.1)
+                         for q in (p, p.compact())]
+                for tag, q in zip(("snap", "snap_compact"), snaps):
+                    for c in ("x", "v", "id"):
+                        res["%s_%s" % (tag, c)] = getattr(q, c).numpy()
+                p = p.compact()
+            for c in ("x", "v", "id"):
+                res["solver_%s_%s" % (name, c)] = getattr(p, c).numpy()
+    return res
