@@ -190,6 +190,18 @@ M. the options the JAX package runs on a device mesh, at full width on a
    events), peak memory and launches are printed and checked; the LRA,
    cola + PGD and rehome force steps are timed, and the LRA step and the
    rehome body profiled (device idle share);
+N. (run right after phase E, on its state) the sharded FOF over ranks
+   (fastpm_torch.parallel.pfof) and the public sharded step, on the main
+   path's z = 0 state in id order (16.8 M rows, box 768, ll 0.6):
+   fof_labels_sharded_auto on a one-rank NCCL group (every row a ghost
+   of itself: a local pass over 3N rows) and on 4 gloo ranks on the one
+   card (spawned processes of tests/torch_rank_workers.py, each an
+   x-slab of 192, the ghosts through the host), the labels of both
+   bit-equal to phase E's; walls, outer rounds, ghost_cap, the local
+   pass's rows and fof_link's launches; fof_link against fof_link_plain,
+   bit for bit, at rank 0's local pass, timed; one make_sharded_step on
+   the group against sharded_force_fn and a kick, drift and wrap by
+   hand, with its launches of K3, cell_order and K4;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -2067,7 +2079,8 @@ def halos(dev, store, box, nc, ll_frac=0.2, nmin=20, reps=5):
     with a crowded linking cell, the latter's labels against the host
     union-find; find_halos on an open box (the slab moved outside the
     box) against the host; find_halos device against host. Returns the
-    kernel's row for the JSON line."""
+    kernel's row for the JSON line and the host labels of the state's
+    rows (phase N's reference)."""
     import numpy as np
     import torch
     from fastpm_torch import fof
@@ -2123,7 +2136,7 @@ def halos(dev, store, box, nc, ll_frac=0.2, nmin=20, reps=5):
                                           dev_ms, host_ms))
     if not ok or max(errs.values()) > 1e-4:
         raise SystemExit("halos: the device catalog differs from the host's")
-    del cat_d, ih_d, cat_h, ih_h, lab_h
+    del cat_d, ih_d, cat_h, ih_h
 
     # the labels' steps apart, on the full state
     ncol = fd._table_grid(ll, box, n)
@@ -2218,7 +2231,226 @@ def halos(dev, store, box, nc, ll_frac=0.2, nmin=20, reps=5):
         kernels_ms_full=link_kernels, sweeps_full=sweeps,
         labels_ms_full=labels_ms, labels_first_call_ms_full=labels_first_ms,
         labels_steps_ms_full=steps, find_halos_device_ms=dev_ms,
-        find_halos_host_ms=host_ms, library_ms=None)}
+        find_halos_host_ms=host_ms, library_ms=None)}, lab_h
+
+
+def pfof_path(dev, tmp, store, pm, lab_host, box=768.0, nc=256,
+              ll_frac=0.2, nproc=4, coeffs=(0.05, 0.02), reps=5):
+    """Phase N: the sharded FOF (fastpm_torch.parallel.pfof) and the
+    public sharded step at full width, on the main path's z = 0 state in
+    id (lattice) order (16.8 M rows, box 768, ll 0.6). lab_host: phase
+    E's host labels of the store's rows (bit-equal to the device's).
+    1. fof_labels_sharded_auto on a one-rank NCCL group (every row a
+       ghost of itself on both sides: the local pass over 3N rows): the
+       labels bit-equal to phase E's, wall, outer rounds, ghost_cap,
+       rows, launches and peak;
+    2. one make_sharded_step on the same group: acc within 4e-7 of max
+       |acc| of sharded_force_fn's, x and v equal to the kick, drift and
+       wrap by hand on that acc, its launches of K3, cell_order and K4;
+    3. fof_labels_sharded_auto on nproc gloo ranks on the one card
+       (spawned processes of tests/torch_rank_workers.py, each an x-slab
+       of the id-ordered rows, the ghosts through the host): the
+       gathered labels bit-equal to phase E's; each rank's walls,
+       rounds, ghost_cap and rows;
+    4. fof_link against fof_link_plain, bit for bit, at rank 0's local
+       pass of step 3 (its rows and the ghosts it received), timed.
+    Returns ({kernel: its phase N entries for the JSON line})."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from fastpm_torch.ops import fof_device as fd
+    from fastpm_torch.parallel import pfof, psolver
+    from fastpm_torch.parallel.comm import Ring
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    ll = ll_frac * box / nc
+    p = store.wrap(box)
+    by_id = torch.argsort(p.id)
+    x = p.x[by_id].contiguous()
+    n = x.shape[0]
+    # phase E's labels in id order: the least id-order row of each group
+    lab_e = torch.from_numpy(lab_host).to(dev)[by_id]
+    want = torch.full((n,), n, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, lab_e, torch.arange(n, device=dev), "amin")[lab_e]
+    del lab_e
+    out = {}
+
+    # ---- 1. one rank, NCCL ----
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                            % free_port(), rank=0, world_size=1)
+    try:
+        ring = Ring(dist.group.WORLD)
+        live = reset_peak()
+        reset_launches()
+        walls = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lab = pfof.fof_labels_sharded_auto(x, ll, box, ring)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                got = read_launches()
+        peak = torch.cuda.max_memory_allocated() - live
+        sh = pfof.fof_labels_sharded
+        same = torch.equal(lab, want)
+        print("phase N one rank (NCCL): fof_labels_sharded_auto on %d rows, "
+              "ll %.3f: walls %s ms (host clock after a synchronise; the "
+              "first call first), %d outer rounds, ghost_cap %d, local pass "
+              "%d rows, peak %.3f GB over %.3f GB live; labels bit-equal to "
+              "phase E's %s" % (n, ll, ["%.2f" % w for w in walls], sh.rounds,
+                                sh.ghost_cap, sh.rows, peak / 1e9,
+                                live / 1e9, same))
+        check_launches("phase N one rank", got, dict(
+            {k: 0 for k in KERNELS}, fof_link=sh.rounds))
+        if not same:
+            raise SystemExit("phase N: the one-rank sharded labels differ "
+                             "from phase E's")
+        out["fof_link"] = {"launches_phase_n": {"one_rank": got["fof_link"]},
+                           "phase_n_one_rank": dict(
+                               walls_ms=walls, rounds=sh.rounds,
+                               ghost_cap=sh.ghost_cap, rows=sh.rows,
+                               peak_gb=peak / 1e9)}
+        del lab
+
+        # ---- 2. make_sharded_step on the group ----
+        L = torch.tensor(pm.BoxSize, dtype=torch.float32, device=dev)
+        x0, v0 = p.x.contiguous(), p.v.contiguous()
+        force = psolver.sharded_force_fn(pm, ring)
+        step = psolver.make_sharded_step(pm, ring)
+        acc_f = force(x0)
+        xs, vs = x0.clone(), v0.clone()
+        torch.cuda.synchronize()
+        reset_launches()
+        xs, vs, acc = step(xs, vs, coeffs)
+        torch.cuda.synchronize()
+        got = read_launches()
+        scale = float(acc_f.abs().max())
+        err = float((acc - acc_f).abs().max()) / scale
+        vh = v0 + acc * float(np.float32(coeffs[0]))
+        xh = x0 + vh * float(np.float32(coeffs[1]))
+        xh = xh - torch.floor(xh / L) * L
+        exact = torch.equal(vs, vh) and torch.equal(xs, xh)
+        force_ms = time_ms(lambda: force(x0), reps)
+        step_ms = time_ms(lambda: step(x0.clone(), v0.clone(), coeffs), reps)
+        print("phase N make_sharded_step (one rank, %d^3 mesh): acc against "
+              "sharded_force_fn's max |dacc| %.3g of max |acc| %.4g (bound "
+              "4e-7); x and v equal to the kick, drift and wrap by hand %s; "
+              "sharded_force_fn %.2f ms, the step %.2f ms with two clones "
+              "(CUDA events)" % (pm.Nmesh[0], err, scale, exact, force_ms,
+                                 step_ms))
+        check_launches("phase N make_sharded_step", got, dict(
+            {k: 0 for k in KERNELS}, cic_paint_into=1, cell_order=1,
+            cic_readout3=1))
+        if not (err <= 4e-7 and exact):
+            raise SystemExit("phase N: make_sharded_step disagrees with "
+                             "sharded_force_fn and the kick and drift")
+        for name in ("cic_paint_into", "cell_order", "cic_readout3"):
+            out[name] = {"launches_phase_n": got[name]}
+        out["cic_paint_into"].update(phase_n_force_ms=force_ms,
+                                     phase_n_step_ms=step_ms)
+        del x0, v0, xs, vs, acc, acc_f, xh, vh, force, step
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 3. nproc gloo ranks on the one card ----
+    sys.path.append(os.path.join(ROOT, "tests"))
+    import torch_rank_workers as workers
+    rdir = os.path.join(tmp, "pfof_ranks")
+    os.makedirs(rdir)
+    inp = os.path.join(rdir, "inputs.npz")
+    np.savez(inp, cases="z0", z0_x=x.cpu().numpy(), z0_ll=ll, z0_box=box,
+             z0_kinds="auto", z0_reps=3, device="cuda:0", timeout=300.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(workers.run, args=(nproc, free_port(), "pfof",
+                                                inp, rdir),
+                             nprocs=nproc, join=False, start_method="spawn")
+    try:
+        # a failing rank raises here
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 600:
+                raise SystemExit("phase N: the gloo ranks timed out")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(5)
+    spawn_s = time.perf_counter() - t0
+    res = [dict(np.load(os.path.join(rdir, "rank%d.npz" % r)))
+           for r in range(nproc)]
+    lab = np.concatenate([r["z0_auto_labels"] for r in res])
+    same = np.array_equal(lab, want.cpu().numpy())
+    per = [dict(walls_ms=[round(float(w) * 1e3, 2)
+                          for w in r["z0_auto_wall"]],
+                rounds=int(r["z0_auto_rounds"]),
+                ghost_cap=int(r["z0_auto_ghost_cap"]),
+                rows=int(r["z0_auto_rows"]),
+                fof_link=int(r["z0_auto_launches"])) for r in res]
+    for r, d in enumerate(per):
+        print("phase N gloo rank %d of %d (cuda:0): walls %s ms (host clock "
+              "after a synchronise; the first call first), %d outer rounds, "
+              "ghost_cap %d, local pass %d rows, fof_link launches %d; "
+              "overflow 0 (fof_labels_sharded_auto raises otherwise)"
+              % (r, nproc, d["walls_ms"], d["rounds"], d["ghost_cap"],
+                 d["rows"], d["fof_link"]))
+    print("phase N %d gloo ranks: %.1f s from the spawn to the last exit; "
+          "labels bit-equal to phase E's %s" % (nproc, spawn_s, same))
+    if not same:
+        raise SystemExit("phase N: the gloo ranks' labels differ from "
+                         "phase E's")
+    if any(d["fof_link"] != d["rounds"] for d in per):
+        raise SystemExit("phase N: a gloo rank's local pass did not run "
+                         "fof_link once a round")
+    out["fof_link"]["launches_phase_n"]["gloo_ranks"] = [
+        d["fof_link"] for d in per]
+    out["fof_link"]["phase_n_gloo_ranks"] = per
+    del want
+
+    # ---- 4. fof_link against its plain version at rank 0's local pass ----
+    q = n // nproc
+    cap = per[0]["ghost_cap"]
+    parts = [x[:q]]
+    # from rank 1 (the right neighbour) and rank nproc - 1 (the left) their
+    # rows whose ball touches slab 0, in the order they arrive
+    for r in (1, nproc - 1):
+        xb = x[r * q:(r + 1) * q]
+        lo, k, _ = pfof._reach(xb[:, 0], nproc, box, ll)
+        idx, _over = pfof._pack(pfof._contains(0, lo, k, nproc), cap)
+        parts.append(xb[idx])
+    xl = torch.cat(parts)
+    m = xl.shape[0]
+    if m != per[0]["rows"]:
+        raise SystemExit("phase N: rank 0's local pass had %d rows, not %d"
+                         % (per[0]["rows"], m))
+    ncol = fd._table_grid(ll, box, m)
+    cid = fd._table_ids(xl, ncol, box)
+    od = fd._table_order(xl, cid)
+    xs_, cs_ = xl[od].contiguous(), cid[od]
+    eq = torch.equal(fd.fof_link(xs_, cs_, ncol, box, ll),
+                     fd.fof_link_plain(xs_, cs_, ncol, box, ll))
+    ms = time_ms(lambda: fd.fof_link(xs_, cs_, ncol, box, ll), 10)
+    plain_ms = time_ms(lambda: fd.fof_link_plain(xs_, cs_, ncol, box, ll), 1)
+    # bytes as phase E counts them: 20 B a row
+    bound = bound_ms(20 * m, 0)
+    print("phase N: fof_link at rank 0's local pass (%d rows, %d^2 columns) "
+          "against fof_link_plain: equal %s; kernel_ms %.4f plain_ms %.2f "
+          "bound_ms %.4f (%s)" % (m, ncol, eq, ms, plain_ms, bound[0],
+                                 bound[1]))
+    if not eq:
+        raise SystemExit("phase N: fof_link disagrees with its plain "
+                         "version at rank 0's local pass")
+    out["fof_link"]["phase_n_rank0_pass"] = dict(
+        rows=m, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+        bound_by=bound[1], library_ms=None)
+    return out
 
 
 LIGHTCONE_GOLDENS = {
@@ -3709,7 +3941,11 @@ def main():
         ncdm_agreement(dev, tmp)
         # each path's launches are read from its own run
         launches, solver, pm, more, main_out = main_path(dev, tmp)
-        rows.update(halos(dev, solver.species["cdm"], 768.0, 256))
+        halo_rows, lab_host = halos(dev, solver.species["cdm"], 768.0, 256)
+        rows.update(halo_rows)
+        # phase N: the sharded FOF and step on the same state
+        n_rows = pfof_path(dev, tmp, solver.species["cdm"], pm, lab_host)
+        del lab_host
         ncdm_launches, more_ncdm = ncdm_path(dev, tmp)
         lightcone_goldens(dev, tmp)
         lc_launches, lc_ref = lightcone_path(dev, tmp)
@@ -3762,6 +3998,9 @@ def main():
             part: n[name] for part, n in phase_k["launches"].items()}
     print("phase K: " + json.dumps({k: v for k, v in phase_k.items()
                                     if k != "launches"}))
+    # phase N: the sharded FOF's and the sharded step's entries
+    for name, entries in n_rows.items():
+        rows[name].update(entries)
 
     kernels = []
     for name, r in rows.items():

@@ -11,8 +11,10 @@ Port of fastpm_tpu/fof.py. find_halos takes one of two paths:
   (csrc/fof.c).
 Both run periodic (snapshots) or open (lightcone slices, embedded in a
 box wide enough that no wrap links). rfof_find_halos is the relaxed FOF
-of rfof.c over either path. What stays out of the port (the parallel
-pfof tool, multi-rank lightcone halos) is listed in ROADMAP.md.
+of rfof.c over either path. On ranks the CLI gathers the rows to rank 0
+and runs find_halos there (the lightcone's halos too); the sharded FOF
+over a ring of ranks, which nothing in the CLI calls (as in the JAX
+package), is parallel/pfof.py.
 
 Halo attributes mirror fof.c:820-975: CM position with periodic-safe
 averaging, mean velocity, r/v/rv dispersion tensors, length, minid, and

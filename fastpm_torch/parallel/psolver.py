@@ -71,12 +71,14 @@ import torch
 from ..kernels import kernel_orders, apply_kernel_transfer
 from ..ops import cic
 from ..ops.cic import Slab, Pencil
+from ..painter import Painter
 from ..store import Store
 from .comm import Ring, Grid
 from .pfft import SlabPM, PencilPM
 
 __all__ = ["required_halo_planes", "required_halo_planes_pencil",
-           "halo_ladder", "pick_halo", "pick_halo_rehomed", "reader"]
+           "halo_ladder", "pick_halo", "pick_halo_rehomed", "reader",
+           "sharded_force_fn", "make_sharded_step"]
 
 
 def _total_mass(x, mass):
@@ -155,6 +157,49 @@ def _force_local_multi(spm, painter, xs, masses, kernel_type: str,
     _read_extras(spm, delta_k, kernel_type, outs, xs, read,
                  compute_potential, compute_tidal)
     return outs, delta_k
+
+
+def sharded_force_fn(pm, ring: Ring, kernel_type: str = "1_4",
+                     painter_type: str = "cic", painter_support: int = 2):
+    """force(x) -> acc: the v1 force of the rank's positions (N, 3) over
+    the ring's SlabPM, one species of unit mass (the JAX package's
+    sharded_force_fn and _force_local, psolver.py:104-119, 1489-1502).
+    Every rank calls it with its own rows; acc (N, 3) is in their
+    order."""
+    spm = SlabPM(pm, ring)
+    painter = Painter(pm, painter_type, painter_support)
+
+    def force(x):
+        (out,), _dk = _force_local_multi(spm, painter, (x,), (1.0,),
+                                         kernel_type)
+        return out["acc"]
+
+    return force
+
+
+def make_sharded_step(pm, ring: Ring, kernel_type: str = "1_4",
+                      painter_type: str = "cic", painter_support: int = 2):
+    """step(x, v, coeffs) -> (x, v, acc): sharded_force_fn's force, then
+    the kick v += acc * coeffs[0], the drift x += v * coeffs[1] and the
+    periodic wrap x - floor(x / L) L (the JAX package's
+    make_sharded_step, psolver.py:1505-1528; coeffs the step's kick and
+    drift factors, computed on the host). The JAX package donates x and
+    v to the step; here they are updated in place and returned."""
+    force = sharded_force_fn(pm, ring, kernel_type, painter_type,
+                             painter_support)
+    box = torch.tensor(pm.BoxSize, dtype=torch.float32)
+
+    def step(x, v, coeffs):
+        dda, dyyy = (float(c) for c in torch.as_tensor(
+            coeffs, dtype=torch.float32).cpu())
+        L = box.to(x.device)
+        acc = force(x)
+        v += acc * dda
+        x += v * dyyy
+        x -= torch.floor(x / L) * L
+        return x, v, acc
+
+    return step
 
 
 # ---- homed forces: halo-exchange paint and readout --------------------

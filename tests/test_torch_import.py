@@ -37,10 +37,10 @@ def test_import_leaves_jax_out():
     assert len(names) >= 30
     for name in ("cli", "solver", "gravity", "ncdm", "ops.cic", "ops.sort",
                  "benchlib", "parallel.comm", "parallel.pfft",
-                 "parallel.psolver", "pgd", "neutrinos_lra", "png",
-                 "constrained", "lightcone", "io.snapshots", "io.fields",
-                 "io.legacy", "io.angular", "memory", "prof", "dump",
-                 "tools"):
+                 "parallel.psolver", "parallel.pfof", "pgd", "neutrinos_lra",
+                 "png", "constrained", "lightcone", "io.snapshots",
+                 "io.fields", "io.legacy", "io.angular", "memory", "prof",
+                 "dump", "tools"):
         assert "fastpm_torch." + name in names
 
 

@@ -10,7 +10,8 @@ concatenated in rank order are the JAX arrays. Covered, at P = 2 and 4:
 comm.Ring's collectives (and P = 1 without a group); SlabPM's FFTs and
 shard transfers; the homed force with both homed kernels (halo widths
 1-3, particles 2.5 cells across slabs, multi-hop halos, a mass column,
-the overflow count); the homed carry; the v1 force; the sharded Solver
+the overflow count); the homed carry; the v1 force and its public
+entry points (sharded_force_fn, make_sharded_step); the sharded Solver
 against the port's one-rank Solver with the overflow replay; the CLI on
 2 ranks against one. The homed kernels' plain versions are held against
 the Pallas factories in interpret mode in-process.
@@ -44,6 +45,8 @@ POWERSPEC = os.path.join(os.path.dirname(__file__), "fixtures",
                          "powerspec.txt")
 # the sharded Solver (test_sharded_solver.py:19-44)
 SOLVER = dict(nc=16, box=64.0, steps=(0.3, 0.6, 1.0), seed=7)
+# make_sharded_step's kick and drift factors (dda, dyyy)
+STEP_COEFFS = (0.05, 0.02)
 TIMEOUT = 240.0
 
 
@@ -105,7 +108,7 @@ def homed_cases(nproc):
     return cases
 
 
-def jax_oracles(nproc, cases, fft_field, carry, v1_x):
+def jax_oracles(nproc, cases, fft_field, carry, v1_x, v1_v):
     """The JAX package's results on nproc virtual devices."""
     mesh = Mesh(np.array(jax.devices()[:nproc]), ("x",))
     spec = PS("x")
@@ -153,6 +156,9 @@ def jax_oracles(nproc, cases, fft_field, carry, v1_x):
 
     out["v1_acc"] = np.asarray(jps.sharded_force_fn(fpm, mesh)(
         jnp.asarray(v1_x)))
+    # the step donates x and v: fresh arrays
+    out["step"] = [np.asarray(a) for a in jps.make_sharded_step(fpm, mesh)(
+        jnp.asarray(v1_x), jnp.asarray(v1_v), jnp.asarray(STEP_COEFFS))]
     return out
 
 
@@ -177,8 +183,10 @@ def runs(tmp_path_factory):
                      v=0.01 * jittered_lattice(NC, BOX, 1.0, 8),
                      id=np.arange(NC ** 3, dtype=np.int64), H=3)
         v1_x = (rng.uniform(size=(4096, 3)) * FFT_BOX).astype(np.float32)
+        v1_v = rng.normal(size=(4096, 3)).astype(np.float32)
         data = dict(fft_field=fft_field, fft_box=FFT_BOX, force_nc=NC,
                     force_box=BOX, cases=" ".join(cases), v1_x=v1_x,
+                    v1_v=v1_v, step_coeffs=np.float32(STEP_COEFFS),
                     v1_nc=FFT_NC, v1_box=FFT_BOX, carry_x=carry["x"],
                     carry_v=carry["v"], carry_id=carry["id"],
                     carry_H=carry["H"])
@@ -197,7 +205,7 @@ def runs(tmp_path_factory):
         spawn(nproc, "cases", inp, str(tmp))
         ranks = [dict(np.load(str(tmp / ("rank%d.npz" % r))))
                  for r in range(nproc)]
-        oracle = jax_oracles(nproc, cases, fft_field, carry, v1_x)
+        oracle = jax_oracles(nproc, cases, fft_field, carry, v1_x, v1_v)
         cache[nproc] = (oracle, data, ranks)
         return cache[nproc]
     return get
@@ -309,6 +317,31 @@ def test_v1_force_matches_jax(runs, nproc):
     oracle, _data, ranks = runs(nproc)
     np.testing.assert_allclose(_cat(ranks, "v1_acc"), oracle["v1_acc"],
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("nproc", [2, 4])
+def test_sharded_force_fn_matches_jax(runs, nproc):
+    """The public entry point over the v1 body, against the JAX
+    package's sharded_force_fn (the v1 bound)."""
+    oracle, _data, ranks = runs(nproc)
+    np.testing.assert_allclose(_cat(ranks, "sharded_acc"), oracle["v1_acc"],
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("nproc", [2, 4])
+def test_make_sharded_step_matches_jax(runs, nproc):
+    """One step (force, kick, drift, wrap) against the JAX package's
+    make_sharded_step: acc and v within the v1 bound; x as the distance
+    on the periodic box, which a row on a face may cross on one side."""
+    oracle, _data, ranks = runs(nproc)
+    jx, jv, jacc = oracle["step"]
+    np.testing.assert_allclose(_cat(ranks, "step_acc"), jacc, atol=2e-5)
+    np.testing.assert_allclose(_cat(ranks, "step_v"), jv, atol=2e-5)
+    x = _cat(ranks, "step_x")
+    assert x.min() >= 0 and x.max() < FFT_BOX
+    dx = x - jx
+    dx -= np.round(dx / FFT_BOX) * FFT_BOX
+    np.testing.assert_allclose(dx, 0, atol=2e-5)
 
 
 def _by_id(ids, *cols):

@@ -1,6 +1,7 @@
 """Rank-side code of the port's multi-rank tests
 (tests/test_torch_parallel.py, tests/test_torch_pencil.py,
-tests/test_torch_ranks_physics.py).
+tests/test_torch_ranks_physics.py, tests/test_torch_pfof.py) and of
+chip_smoke.py's sharded FOF on gloo ranks.
 
 `run` is started on each rank of a gloo process group with
 torch.multiprocessing (start method spawn). It imports torch and the
@@ -19,8 +20,8 @@ HOMED_KERNELS = ("from8", "from4")
 
 
 def run(rank, nproc, port, job, inp, out):
-    """One rank of `job` ("cases", "cola", "pencil", "physics", or "cli"
-    followed by the CLI's flags)."""
+    """One rank of `job` ("cases", "cola", "pencil", "physics", "pfof",
+    or "cli" followed by the CLI's flags)."""
     import faulthandler
     # a rank killed by a signal prints where it was to the test's stderr
     faulthandler.enable()
@@ -30,6 +31,9 @@ def run(rank, nproc, port, job, inp, out):
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     if job.split()[0] == "cli":
         run_cli(rank, nproc, port, job.split()[1:] + [inp], out)
+        return
+    if job == "pfof":
+        run_pfof(rank, nproc, port, inp, out)
         return
     dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
                             rank=rank, world_size=nproc)
@@ -114,6 +118,83 @@ def run_cli(rank, nproc, port, argv, out):
         f.write(text.getvalue())
 
 
+def run_pfof(rank, nproc, port, inp, out):
+    """The sharded FOF's cases (pfof) on a gloo group whose collectives
+    time out (the .npz's "timeout", 60 s by default), so that a rank left
+    waiting fails its caller instead of hanging it."""
+    import datetime
+    data = dict(np.load(inp))
+    timeout = datetime.timedelta(seconds=float(data.get("timeout", 60.0)))
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            rank=rank, world_size=nproc, timeout=timeout)
+    try:
+        from fastpm_torch.parallel.comm import Ring
+        np.savez(os.path.join(out, "rank%d.npz" % rank),
+                 **pfof(Ring(dist.group.WORLD), data))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def pfof(ring, data):
+    """Each case of data["cases"] on the rank's block of its rows
+    (<case>_x, on data["device"], the CPU by default), with <case>_ll and
+    <case>_box, once for each of its <case>_kinds: "sharded"
+    (fof_labels_sharded, rmax 32: labels, overflow), "auto"
+    (fof_labels_sharded_auto: labels), "capacity" (boundary_capacity
+    over the ring) or "unequal" (fof_labels_sharded with rank r's block
+    cut by r rows), <case>_reps times (1 by default). A RuntimeError or
+    ValueError is kept as <case>_<kind>_error; the wall seconds of each
+    call (host clock after a synchronise on the card) and the last call's
+    outer rounds, ghost capacity, rows of the local pass and fof_link
+    launches are kept too."""
+    import time
+    from fastpm_torch.ops import fof_device
+    from fastpm_torch.parallel import pfof as pf
+    dev = torch.device(str(data.get("device", "cpu")))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    res = {}
+    for name in str(data["cases"]).split():
+        x = _rows(ring, data[name + "_x"]).to(dev)
+        ll, box = float(data[name + "_ll"]), float(data[name + "_box"])
+        for kind in str(data[name + "_kinds"]).split():
+            key = "%s_%s_" % (name, kind)
+            if kind == "capacity":
+                res[key + "capacity"] = np.int64(
+                    pf.boundary_capacity(x, ring, box, ll))
+                continue
+            xk = x[:x.shape[0] - ring.rank] if kind == "unequal" else x
+            walls = []
+            try:
+                for _ in range(int(data.get(name + "_reps", 1))):
+                    launches = fof_device.fof_link.launches
+                    sync()
+                    t0 = time.perf_counter()
+                    if kind == "auto":
+                        lab = pf.fof_labels_sharded_auto(xk, ll, box, ring)
+                    else:
+                        lab, overflow = pf.fof_labels_sharded(
+                            xk, ll, box, ring, rmax=32)
+                        res[key + "overflow"] = np.int64(overflow)
+                    sync()
+                    walls.append(time.perf_counter() - t0)
+            except (RuntimeError, ValueError) as e:
+                res[key + "error"] = np.array(str(e))
+                continue
+            res[key + "wall"] = np.array(walls)
+            res[key + "labels"] = lab.cpu().numpy()
+            res[key + "launches"] = np.int64(
+                fof_device.fof_link.launches - launches)
+            for attr in ("rounds", "ghost_cap", "rows"):
+                res[key + attr] = np.int64(
+                    getattr(pf.fof_labels_sharded, attr))
+    return res
+
+
 def use_fd_tables(path):
     """Take the Fermi-Dirac integral table (cosmology._fd_table, some 18
     s of quadratures a process) from the pickle the parent wrote of its
@@ -176,7 +257,8 @@ def slab_fft(ring, data):
 
 def forces(ring, data):
     """The homed force of every case with both homed kernels, the homed
-    carry and the v1 force, on the rank's rows."""
+    carry, the v1 force and its public entry points (sharded_force_fn,
+    one make_sharded_step), on the rank's rows."""
     from fastpm_torch.mesh import PM
     from fastpm_torch.painter import Painter
     from fastpm_torch.store import Store
@@ -205,10 +287,15 @@ def forces(ring, data):
             res["carry_%s_%s" % (hk, c)] = getattr(p, c).numpy()
         res["carry_%s_bad" % hk] = np.int64(bad)
     pm1 = PM(int(data["v1_nc"]), float(data["v1_box"]))
+    x1 = _rows(ring, data["v1_x"])
     (out,), _dk = psolver._force_local_multi(
-        SlabPM(pm1, ring), Painter(pm1, "cic"), (_rows(ring, data["v1_x"]),),
-        (1.0,), "1_4")
+        SlabPM(pm1, ring), Painter(pm1, "cic"), (x1,), (1.0,), "1_4")
     res["v1_acc"] = out["acc"].numpy()
+    # the public entry points over the same body
+    res["sharded_acc"] = psolver.sharded_force_fn(pm1, ring)(x1).numpy()
+    x, v, acc = psolver.make_sharded_step(pm1, ring)(
+        x1.clone(), _rows(ring, data["v1_v"]).clone(), data["step_coeffs"])
+    res.update(step_x=x.numpy(), step_v=v.numpy(), step_acc=acc.numpy())
     return res
 
 
