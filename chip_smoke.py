@@ -202,6 +202,24 @@ N. (run right after phase E, on its state) the sharded FOF over ranks
    bit for bit, at rank 0's local pass, timed; one make_sharded_step on
    the group against sharded_force_fn and a kick, drift and wrap by
    hand, with its launches of K3, cell_order and K4;
+O. baryons and order-preserving stepping at full width: (O1) phase 7's
+   physics with SolverConfig(order_free=False) through Solver from
+   prepare_deltak: the rows in id order in place at the end, x and v by
+   id within 1e-3 of a cell of phase 7's order-free run, the cell order,
+   K3 and K4 once a force step and K1 never, the step beside the carry
+   step on phase 7's state; (O2) CDM 256^3, a baryon lattice 256^3
+   shifted half a cell with a mass column and ncdm.lua's ncdm (5.24 M),
+   gaussian softening, the potential and the tidal tensor, 512^3, 6
+   forces: launches per species a force, every column finite, the mass
+   sums, ids distinct, a CPU-against-card run at nc = 32 by id per
+   species (x, v, potential, tidal; phase 6's bounds), and at its z = 0
+   state cell_order, K3 (three species given their orders) and K4
+   against their plain versions; (O3) O1 and O2 on a one-rank NCCL
+   group, on its ring (homed-multi) and its 1 x 1 grid (O1 pencil-multi;
+   O2 v1, its ncdm rows not pencil-blocked), never the carry, against
+   O1 (in place too) and O2 by id within 1e-3 of a cell, O2's potential
+   and tidal tensor within 1e-2 of their rms. Each run's wall, force
+   actions, peak, paths and a force step are printed;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -3541,15 +3559,19 @@ def run_launches():
     return out
 
 
-def close_by_id(label, got, want, cell, tol=1e-3):
+def close_by_id(label, got, want, cell, box, tol=1e-3):
     """Two (id, x, v) triples in id order, each from a run on the card:
-    the ids equal, max |dx| in cells and max |dv| over the rms of v
-    within tol. Two card runs of one field already differ by 1.5-2.0e-4
-    of a cell at z = 0 (the deposit's float32 atomics in no fixed order;
-    phase K), so the bound is 5 times that, not phase 6's 1e-4 for a
-    CPU run against a card run. Returns the two errors."""
+    the ids equal, max |dx| in cells (the periodic distance in a box of
+    side box: a row at 0 and one at box are one position) and max |dv|
+    over the rms of v within tol. Two card runs of one field already
+    differ by 1.5-2.0e-4 of a cell at z = 0 (the deposit's float32
+    atomics in no fixed order; phase K), so the bound is 5 times that,
+    not phase 6's 1e-4 for a CPU run against a card run. Returns the two
+    errors."""
     import numpy as np
-    ex = float(np.abs(got[1] - want[1]).max()) / cell
+    dx = got[1] - want[1]
+    dx -= np.round(dx / box) * box
+    ex = float(np.abs(dx).max()) / cell
     ev = float(np.abs(got[2] - want[2]).max() / want[2].std())
     ok = np.array_equal(got[0], want[0]) and ex <= tol and ev <= tol
     print("%s: ids %s, max |dx| %.3g cell, max |dv| %.3g rms (bounds %g)"
@@ -3662,7 +3684,7 @@ def ranks_path(dev, tmp, main_out, main_store, lra_ref, pgd_ref, lc_ref,
             close_by_id("phase M %s LRA against phase I by id" % kind,
                         by_id(solver.species["cdm"]),
                         (lra_ref["id"], lra_ref["x"], lra_ref["v"]),
-                        lra_box / nc)
+                        lra_box / nc, lra_box)
             rel = float(np.abs(np.asarray(solver.lra.delta_tot)
                                / lra_ref["delta_tot"] - 1).max())
             print("phase M %s LRA: history %d entries, times equal %s, "
@@ -3876,7 +3898,7 @@ def ranks_path(dev, tmp, main_out, main_store, lra_ref, pgd_ref, lc_ref,
               % (moved, nc ** 3, states["rehome"].species["cdm"].np_local))
         close_by_id("phase M slab rehome against the dense slab carry",
                     by_id(states["rehome"].species["cdm"]),
-                    by_id(states["dense"].species["cdm"]), box / nc)
+                    by_id(states["dense"].species["cdm"]), box / nc, box)
         # one force step of each body from its own z = 0 state
         pm = states["dense"].find_pm(1.0)
         eng = states["dense"]._engine(pm, False)
@@ -3902,6 +3924,374 @@ def ranks_path(dev, tmp, main_out, main_store, lra_ref, pgd_ref, lc_ref,
         dist.destroy_process_group()
     return out_launches
 
+
+
+# ---- phase O: baryons and order-preserving stepping ----------------------
+
+# the kernels of phase O's paths, whose launches the JSON line carries
+O_KERNELS = ("cic_paint_into", "cell_order", "cic_readout3",
+             "cic_paint_homed", "cic_readout_homed")
+# the baryons' mass per particle, as a share of the CDM's (a test mass:
+# the cosmology has no Omega_b)
+BARYON_SHARE = 0.15
+
+
+def species_solver(params, cfg, where):
+    """Phase O2's three species through the entry points: a Solver of
+    cfg, prepare_deltak and setup_lpt (CDM), a baryon lattice of nc^3
+    shifted by half a cell with a mass column (BARYON_SHARE of the CDM's
+    M0) and the potential and tidal columns, set up by
+    setup_lpt(species=BARYON) from the same delta_k, and ncdm.lua's
+    split (cli.prepare_ncdm), evolved."""
+    import numpy as np
+    import torch
+    from fastpm_torch import cli
+    from fastpm_torch.diagnostics import Log
+    from fastpm_torch.solver import Solver, BARYON, CDM
+    from fastpm_torch.store import lattice_store
+    s = Solver(cfg, cli.build_cosmology(params), **where)
+    log = Log(echo=False)
+    a0 = float(params.time_step[0])
+    dk, _ = cli.prepare_deltak(s, params, log)
+    s.setup_lpt(dk, a0)
+    nc, box = cfg.nc, cfg.boxsize
+    b = lattice_store(s.basepm, Nc=nc, shift=0.5 * box / nc, name="baryon",
+                      columns=("v", "acc", "id", "potential", "tidal"))
+    M0 = BARYON_SHARE * s.species[CDM].M0
+    b = b.replace(M0=M0, mass=torch.full((b.np_local,), float(np.float32(M0)),
+                                         device=b.x.device), a_x=a0, a_v=a0)
+    s.add_species(BARYON, b)
+    del b
+    s.setup_lpt(dk, a0, species=BARYON)
+    del dk
+    cli.prepare_ncdm(s, params, a0, log)
+    s.evolve(cfg.time_step)
+    return s
+
+
+def species_config(params):
+    """Phase O2's SolverConfig: ncdm.lua's with gaussian softening, the
+    potential and the tidal tensor."""
+    import dataclasses
+    from fastpm_torch import cli
+    return dataclasses.replace(cli.build_config(params),
+                               softening_type="gaussian",
+                               compute_potential=True, compute_tidal=True)
+
+
+def species_cols(solver):
+    """{species: {column: host array in id order}} of a Solver."""
+    out = {}
+    for name in solver.iter_species():
+        p = solver.species[name].compact()
+        o = p.id.argsort()
+        out[name] = {c: t[o].cpu().numpy() for c, t in p.columns()}
+    return out
+
+
+def species_agreement(dev, tmp, nc=32, box=256.0):
+    """Phase O2's CPU-against-card run at nc = 32 (ncdm.lua at box 256):
+    each species by id, x within 1e-4 of a cell, v, the potential and
+    the tidal tensor within 1e-4 of their rms (phase 6's bounds)."""
+    import numpy as np
+    from fastpm_torch.config.params import load_params
+    conf, _ = ncdm_lua(tmp, "o2_agree", nc=nc, box=box)
+    params = load_params(conf)
+    cfg = species_config(params)
+    cols = {where: species_cols(species_solver(params, cfg,
+                                               dict(device=where)))
+            for where in ("cpu", dev)}
+    a, b = cols["cpu"], cols[dev]
+    ok = list(a) == list(b) == ["baryon", "cdm", "ncdm"]
+    for name in a:
+        ca, cb = a[name], b[name]
+        same = np.array_equal(ca["id"], cb["id"])
+        dx = cb["x"] - ca["x"]
+        dx -= np.round(dx / box) * box
+        errs = {"x": float(np.abs(dx).max()) / (box / nc)}
+        for c in ("v", "potential", "tidal"):
+            if c in ca:
+                errs[c] = float(np.abs(cb[c] - ca[c]).max() / ca[c].std())
+        print("phase O2 CPU against card %d^3, %s (%d rows): ids equal %s, "
+              "max |dx| %.3g cell, %s (of the rms; bounds 1e-4)"
+              % (nc, name, len(ca["id"]), same, errs["x"],
+                 ", ".join("max |d %s| %.3g" % (c, e) for c, e in errs.items()
+                           if c != "x")))
+        ok = ok and same and max(errs.values()) < 1e-4
+    if not ok:
+        raise SystemExit("phase O2: the CPU and the card disagree")
+
+
+def check_species_kernels(pm, stores, rows):
+    """At phase O2's z = 0 state (three species, two with mass columns):
+    cell_order of each species against its plain version bit for bit,
+    K3 painting the three species given their orders against its plain
+    version, and K4 given each order against its plain version."""
+    import numpy as np
+    import torch
+    from fastpm_torch.ops import cic
+    mesh, inv = tuple(pm.Nmesh), pm.InvCellSize
+    xs = [p.x for p in stores]
+    masses = [p.mass if p.mass is not None else float(np.float32(p.M0))
+              for p in stores]
+    orders = [cic.cell_order(x, mesh, inv) for x in xs]
+    check_order("at phase O2's z = 0 state", xs, orders, mesh, inv)
+    canvas = torch.zeros(mesh, device=xs[0].device)
+    want = torch.zeros_like(canvas)
+    for x, m, o in zip(xs, masses, orders):
+        cic.cic_paint_into(canvas, x, inv, m, o)
+        cic.cic_paint_into_plain(want, x, inv, m)
+    rows["cic_paint_into"]["err"] = max(rows["cic_paint_into"]["err"],
+                                        check_close(
+        "K3 cic_paint_into, phase O2's three species in store order, given "
+        "the cell orders", canvas, want))
+    del canvas, want
+    g = torch.Generator(device=xs[0].device).manual_seed(15)
+    fields = [torch.randn(mesh, device=xs[0].device, generator=g)
+              for _ in range(3)]
+    err = 0.0
+    for x, o in zip(xs, orders):
+        err = max(err, check_close(
+            "K4 cic_readout3, phase O2, %d rows given the cell order"
+            % x.shape[0], cic.cic_readout3(*fields, x, inv, o),
+            cic.cic_readout_plain(fields, x, inv)))
+    rows["cic_readout3"]["err"] = max(rows["cic_readout3"]["err"], err)
+
+
+def order_path(dev, tmp, main_store, rows, nc=256, nstep=5, box=768.0):
+    """Phase O: baryons and order-preserving stepping at full width. O1:
+    phase 7's physics with order_free=False through Solver from
+    prepare_deltak (rows in place, against phase 7 by id). O2: CDM, a
+    baryon lattice with a mass column and ncdm.lua's ncdm, gaussian
+    softening, the potential and the tidal tensor (the JAX wide-path
+    test's shape at the main path's width), with a CPU-against-card run
+    at nc = 32 and the kernels against their plain versions at its
+    state. O3: O1 and O2 on a one-rank NCCL group, on its ring (the slab
+    multi) and its 1 x 1 grid (the pencil multi for O1; v1 for O2,
+    whose ncdm rows are not pencil-blocked), against O1 and O2.
+    Each run's launches (the counters set to 0 just before it), wall,
+    force actions, peak and force paths are printed and checked, and a
+    force step of each is timed. Returns {run: launches}."""
+    import dataclasses
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from fastpm_torch import cli, gravity
+    from fastpm_torch.config.params import load_params, load_params_from_string
+    from fastpm_torch.diagnostics import Log
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.parallel.comm import Grid
+    from fastpm_torch.solver import Solver, BARYON, CDM, NCDM
+    from fastpm_torch.units import RHO_CRIT
+
+    out_launches = {}
+    t_phase = time.perf_counter()
+
+    def run(label, fn):
+        """fn() -> solver, with the launch counters, the peak and the
+        force actions' CUDA events around it."""
+        base = reset_peak()
+        reset_launches()
+        t0 = time.perf_counter()
+        with timed_forces() as pairs:
+            solver = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = run_launches()
+        out_launches[label] = got
+        peak = torch.cuda.max_memory_allocated() - base
+        print("phase %s: wall %.2f s, force actions %s ms (CUDA events), the "
+              "run's peak %.3f GB over %.3f GB live, force paths %s"
+              % (label, wall, ["%.2f" % a.elapsed_time(b) for a, b in pairs],
+                 peak / 1e9, base / 1e9, dict(solver.force_paths)))
+        return solver, got
+
+    def check_paths(label, solver, path):
+        """Every force through `path` (a replay after an overflow
+        allowed); returns the forces run, replays included."""
+        paths = dict(solver.force_paths)
+        if not (paths.get(path) and set(paths) <= {path, "overflow"}):
+            raise SystemExit("phase %s: force paths %s, not %s alone"
+                             % (label, paths, path))
+        return sum(paths.values())
+
+    def step_ms(label, solver):
+        """One force step of the solver's final state, CUDA events."""
+        pm = solver.find_pm(1.0)
+        ms = time_ms(lambda: solver.force(pm, 1.0), reps=5)
+        n = sum(solver.global_count(s) for s in solver.iter_species())
+        print("phase %s: force step %.2f ms = %.4g particle-steps/s (N = "
+              "%.1f M)" % (label, ms, n / ms * 1e3, n / 1e6))
+        return ms
+
+    def in_place(label, store):
+        same = torch.equal(store.id, torch.arange(store.np_local,
+                                                  device=store.id.device))
+        print("phase %s: rows in id order in place (id == arange(%d)) %s"
+              % (label, store.np_local, same))
+        if not same:
+            raise SystemExit("phase %s: the rows moved" % label)
+
+    # ---- O1: phase 7's physics, order_free=False, one card ----
+    text = main_text(nc, box, nstep, os.path.join(tmp, "order"))
+    text = "\n".join(l for l in text.splitlines()
+                     if not l.startswith(("write_", "aout")))
+    params1 = load_params_from_string(text)
+    cfg1 = dataclasses.replace(cli.build_config(params1), order_free=False)
+
+    def ordered(where):
+        def fn():
+            s_ = Solver(cfg1, cli.build_cosmology(params1), **where)
+            dk, _ = cli.prepare_deltak(s_, params1, Log(echo=False))
+            s_.setup_lpt(dk, params1.time_step[0])
+            del dk
+            s_.evolve(cfg1.time_step)
+            return s_
+        return fn
+
+    nforce = len(cfg1.time_step)
+    solver, got = run("O1 order-preserving", ordered(dict(device=dev)))
+    check_paths("O1", solver, "multi")
+    check_launches("phase O1", got, dict(
+        {k: 0 for k in KERNELS}, cic_readout=6, cic_paint_into=nforce,
+        cell_order=nforce, cic_readout3=nforce))
+    in_place("O1", solver.species[CDM])
+    o1 = by_id(solver.species[CDM])
+    close_by_id("phase O1 against phase 7's order-free run by id", o1,
+                by_id(main_store), box / nc, box)
+    o1_ms = step_ms("O1 order-preserving (cell order, K3, FFTs, K4)", solver)
+    pm = solver.find_pm(1.0)
+    carry = main_store.wrap(pm.BoxSize)
+    carry_ms = time_ms(lambda: gravity.compute_force_carry(
+        pm, Painter(pm, "cic"), carry), reps=5)
+    print("phase O1: the order-preserving step %.2f ms against the carry "
+          "step %.2f ms on phase 7's z = 0 state in the same call: %+.2f ms"
+          % (o1_ms, carry_ms, o1_ms - carry_ms))
+    in_place("O1 after the timed steps", solver.species[CDM])
+    profile_force(lambda: solver.force(pm, 1.0),
+                  label="phase O1 force profile")
+    del solver, carry
+
+    # ---- O2: three species, one card ----
+    species_agreement(dev, tmp)
+    conf, _ = ncdm_lua(tmp, "o2_full", nc=nc, box=box)
+    params2 = load_params(conf)
+    cfg2 = species_config(params2)
+    nforce2 = len(cfg2.time_step)
+    solver, got = run("O2 three species", lambda: species_solver(
+        params2, cfg2, dict(device=dev)))
+    check_paths("O2", solver, "multi")
+    names = list(solver.iter_species())
+    stores = [solver.species[n] for n in names]
+    npot = sum(p.potential is not None for p in stores)
+    ntid = sum(p.tidal is not None for p in stores)
+    counts = {n: solver.global_count(n) for n in names}
+    print("phase O2: species %s, potential at %d, tidal tensor at %d"
+          % (counts, npot, ntid))
+    # per force: a cell order and K3 a species; K4 for acc of each,
+    # the potential (one field) and the tidal tensor (two launches of
+    # three) of each species with the column; K2: 6 LPT readouts of
+    # CDM and of the baryons, 9 of ncdm (dv1)
+    check_launches("phase O2", got, dict(
+        {k: 0 for k in KERNELS}, cic_readout=6 + 6 + 9,
+        cic_paint_into=3 * nforce2, cell_order=3 * nforce2,
+        cic_readout3=nforce2 * (3 + npot + 2 * ntid)))
+    if names != [BARYON, CDM, NCDM] or counts[BARYON] != nc ** 3:
+        raise SystemExit("phase O2: bad species %s" % counts)
+    bad = [(n, c) for n, p in zip(names, stores) for c, t in p.columns()
+           if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+    ids_ok = all(torch.equal(torch.sort(p.id).values,
+                             torch.sort(p.id).values.unique())
+                 for p in stores)
+    mass = {n: (float(p.mass.double().sum()) if p.mass is not None
+                else p.M0 * p.np_local) for n, p in zip(names, stores)}
+    want = {CDM: solver.species[CDM].M0 * nc ** 3,
+            BARYON: float(np.float32(BARYON_SHARE
+                                     * solver.species[CDM].M0)) * nc ** 3,
+            NCDM: solver.cosmology.Omega_ncdm * RHO_CRIT * box ** 3}
+    rel = {n: abs(mass[n] / want[n] - 1) for n in names}
+    print("phase O2: every column finite %s, ids distinct %s; mass sums %s, "
+          "rel err %s (bound 1e-5)" % (not bad, ids_ok, mass, rel))
+    if bad or not ids_ok or max(rel.values()) > 1e-5:
+        raise SystemExit("phase O2: non-finite columns %s or bad ids or "
+                         "masses" % bad)
+    o2 = species_cols(solver)
+    o2_ms = step_ms("O2 three species (3 orders, 3 K3, FFTs, 9 K4)", solver)
+    pm = solver.find_pm(1.0)
+    profile_force(lambda: solver.force(pm, 1.0),
+                  label="phase O2 force profile")
+    check_species_kernels(pm, [p.wrap(pm.BoxSize) for p in
+                               (solver.species[n] for n in names)], rows)
+    del solver, stores
+
+    # ---- O3: O1 and O2 on a one-rank NCCL group ----
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d" % port,
+                            rank=0, world_size=1)
+    o3_ms = {}
+    try:
+        group = dist.group.WORLD
+        for kind, grid in (("slab", None), ("pencil", Grid(group, 1, 1))):
+            where = dict(device=dev, group=group, grid=grid)
+            multi = ("pencil-" if kind == "pencil" else "homed-") + "multi"
+            label = "O3 %s O1" % kind
+            solver, got = run(label, ordered(where))
+            n = check_paths(label, solver, multi)
+            check_launches("phase " + label, got, homed_want(
+                kind, n, n, cic_readout=6))
+            in_place(label, solver.species[CDM])
+            close_by_id("phase %s against O1 by id" % label,
+                        by_id(solver.species[CDM]), o1, box / nc, box)
+            o3_ms[label] = step_ms(label, solver)
+            del solver
+
+            label = "O3 %s O2" % kind
+            solver, got = run(label, lambda: species_solver(params2, cfg2,
+                                                            where))
+            lpt = dict(cic_readout=6 + 6 + 9)
+            if kind == "slab":
+                n = check_paths(label, solver, multi)
+                # homed K1 a species; homed K2 reads acc, the potential
+                # and two tidal groups at every species
+                want = homed_want(kind, 3 * n, 12 * n, **lpt)
+            else:
+                # the ncdm rows are not pencil-blocked, so the grid takes
+                # v1 (fastpm_tpu/solver.py:428-450), as a grid of more
+                # ranks does: K3 a species, K4 for acc, the potential and
+                # two tidal groups at every species on the gathered mesh
+                n = check_paths(label, solver, "v1")
+                want = dict({k: 0 for k in KERNELS}, cic_paint_into=3 * n,
+                            cell_order=3 * n, cic_readout3=12 * n, **lpt)
+            check_launches("phase " + label, got, want)
+            cols = species_cols(solver)
+            for name in names:
+                a, b = o2[name], cols[name]
+                close_by_id("phase %s %s against O2 by id" % (label, name),
+                            (b["id"], b["x"], b["v"]),
+                            (a["id"], a["x"], a["v"]), box / nc, box)
+                for c in ("potential", "tidal"):
+                    if c not in a:
+                        continue
+                    # two card runs read up to 3.1e-3 of the tidal
+                    # tensor's rms apart (PERF.md section 6)
+                    err = float(np.abs(b[c] - a[c]).max() / a[c].std())
+                    print("phase %s %s: max |d %s| %.3g of its rms against "
+                          "O2 (bound 1e-2)" % (label, name, c, err))
+                    if not err <= 1e-2:
+                        raise SystemExit("phase %s %s: the %s disagrees "
+                                         "with O2" % (label, name, c))
+            o3_ms[label] = step_ms(label, solver)
+            del solver, cols
+    finally:
+        dist.destroy_process_group()
+    print("phase O: force steps (ms) O1 %.2f (carry %.2f), O2 %.2f, %s; "
+          "phase O wall %.1f s" % (o1_ms, carry_ms, o2_ms, {
+              k: round(v, 2) for k, v in o3_ms.items()},
+              time.perf_counter() - t_phase))
+    return out_launches
 
 def main():
     import torch
@@ -3957,6 +4347,8 @@ def main():
         # phase M: the options of the ranks on a one-rank group
         m_launches = ranks_path(dev, tmp, main_out, solver.species["cdm"],
                                 lra_ref, pgd_ref, lc_ref)
+        # phase O: baryons and order-preserving stepping
+        o_launches = order_path(dev, tmp, solver.species["cdm"], rows)
     homed_launches = homed_force(dev, solver.species["cdm"], pm)
     # phase L: the pencil's kernels, then its force
     pencil_rows = check_kernels_pencil(dev)
@@ -3992,6 +4384,13 @@ def main():
         if name in HOMED:
             rows[name]["launches_open_y_phase_m"] = {
                 run: n[name + "_open_y"] for run, n in m_launches.items()}
+    # phase O: the launches of each run
+    for name in O_KERNELS:
+        rows[name]["launches_phase_o"] = {
+            run: n[name] for run, n in o_launches.items()}
+        if name in HOMED:
+            rows[name]["launches_open_y_phase_o"] = {
+                run: n[name + "_open_y"] for run, n in o_launches.items()}
     # phase K: the launches of write_nonlineark (run 1) and of each tool
     for name in K_KERNELS:
         rows[name]["launches_phase_k"] = {

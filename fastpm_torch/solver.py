@@ -1,34 +1,45 @@
 """The FastPM solver: species, time evolution, events
 (reference: libfastpm/solver.c, vpm.c).
 
-Port of fastpm_tpu/solver.py: the CDM and ncdm species, every force mode
-(fastpm, pm, cola, za, 2lpt; zola is fastpm), the PGD correction, the
-neutrino linear response, the variable-resolution force mesh (VPM)
-table, and the reference's event architecture (events fire between the
-kick / drift / force actions), on one device, or over the ranks of a
-torch.distributed process group in the slab decomposition or, on a 2D
-process grid (parallel.comm.Grid), the pencil decomposition.
+Port of fastpm_tpu/solver.py: the baryon, CDM and ncdm species, every
+force mode (fastpm, pm, cola, za, 2lpt; zola is fastpm), the PGD
+correction, the neutrino linear response, the variable-resolution force
+mesh (VPM) table, and the reference's event architecture (events fire
+between the kick / drift / force actions), on one device, or over the
+ranks of a torch.distributed process group in the slab decomposition or,
+on a 2D process grid (parallel.comm.Grid), the pencil decomposition.
+The species are walked in SPECIES_ORDER (baryon, CDM, ncdm) by every
+force, kick, drift and snapshot.
 
 Without a process group the force step is gravity.compute_force_carry
 for one scalar-mass species and gravity.compute_force (every species
 into one canvas) otherwise, or when the potential or the tidal tensor
-is asked for (SolverConfig.compute_potential / compute_tidal). With
-stale_every = N > 1, N - 1 of every N carry forces are stale
-(gravity.compute_force_stale: the carried order, no sort;
-solver.py:548-572). Over a group (of one rank too, so that one card
-drives the ranks' path; the JAX package runs a one-device mesh on its
-global path), each rank holds a contiguous block of every species' rows
-(Store.shard) and the force is a homed force of parallel/psolver.py
-(solver.py:589-876): on a grid of py > 1 (or the 1 x 1 grid of one
-rank) whose lattice is pencil-blocked, the pencil force, else the slab
-force over every rank; the order-free carry for one scalar-mass species
-with the CIC painter and neither the potential nor the tidal tensor, the
-multi-species body otherwise; and the v1 full-canvas force when no halo
-width fits. The halo width is measured, kept while it holds, and
-measured again when a force finds a particle beyond it; that force is
-then run again, so no result with a particle beyond the halo is ever
-used (solver.py:1332-1368). The pencil's k shard loses its kz pad
-before anything downstream but PGD sees delta_k (solver.py:872-875).
+is asked for (SolverConfig.compute_potential / compute_tidal), or when
+SolverConfig.order_free is off. With stale_every = N > 1, N - 1 of every
+N carry forces are stale (gravity.compute_force_stale: the carried
+order, no sort; solver.py:548-572). Over a group (of one rank too, so
+that one card drives the ranks' path; the JAX package runs a one-device
+mesh on its global path), each rank holds a contiguous block of every
+species' rows (Store.shard) and the force is a homed force of
+parallel/psolver.py (solver.py:589-876): on a grid of py > 1 (or the
+1 x 1 grid of one rank) whose species are all pencil-blocked, the
+pencil force; for species all in x-major order, the slab force over
+every rank; the order-free carry for one scalar-mass species with the
+CIC painter, neither the potential nor the tidal tensor and order_free
+on, the multi-species body otherwise; and the v1 full-canvas force when
+no halo width fits or the species' orders are mixed (ncdm rows beside a
+pencil-blocked lattice). The
+halo width is measured, kept while it holds, and measured again when a
+force finds a particle beyond it; that force is then run again, so no
+result with a particle beyond the halo is ever used (solver.py:
+1332-1368). The pencil's k shard loses its kz pad before anything
+downstream but PGD sees delta_k (solver.py:872-875).
+
+With order_free off (solver.py:80-91, 530-546) every force keeps the
+rows where they are: x (wrapped), acc and, where the columns are
+allocated, the potential and the tidal tensor come from the force, and
+every other column is the store's own. Stale stepping and rehoming,
+which permute the rows, are then not taken.
 
 With rehome (opt-in, slab carry only) the store takes the rehomed
 layout (store.py; solver.py:335-380) and each force migrates the rows
@@ -47,10 +58,8 @@ updates the same history), updates the response history
 before the potential kernel (the forces' transfer hook; over ranks the
 rank's k shard, after the overflow count: a replayed force updates the
 history once). PGD reads the force's softened (and transferred) delta_k
-and fills the pgdc column, which the next drift consumes; over ranks
-through the force's own readout (psolver.reader).
-
-Not in this slice (NotImplementedError; see ROADMAP.md): baryons.
+and fills the pgdc column of CDM, which the next drift consumes; over
+ranks through the force's own readout (psolver.reader).
 """
 
 from __future__ import annotations
@@ -88,8 +97,6 @@ CDM = "cdm"
 NCDM = "ncdm"
 SPECIES_ORDER = (BARYON, CDM, NCDM)
 
-_LATER = "is not in this slice of the port (see ROADMAP.md)"
-
 
 def _f32(a: float) -> float:
     """A coefficient rounded to float32, as the reference's float
@@ -100,16 +107,19 @@ def _f32(a: float) -> float:
 @dataclass
 class SolverConfig:
     """Mirror of FastPMConfig (api/fastpm/solver.h) with lua-schema
-    defaults (src/lua-runtime-fastpm.lua), restricted to what this
-    slice serves.
+    defaults (src/lua-runtime-fastpm.lua).
 
-    stale_every: with N > 1, on one device, N - 1 of every N carry forces
-    reuse the carried order of the one before (no environment default,
-    unlike the JAX package's FASTPM_TPU_STALE); the sharded and
-    multi-species forces ignore it. rehome: over a process group, the
-    slab carry with end-of-step migration (no environment default,
-    unlike the JAX package's FASTPM_TPU_REHOME); other forces ignore
-    it."""
+    order_free: let the carry force return the store in cell order
+    (the default); False keeps every row in place through every force
+    (no environment default, unlike the JAX package's
+    FASTPM_TPU_ORDER_FREE), and stale_every and rehome are then
+    ignored. stale_every: with N > 1, on one device, N - 1 of every N
+    carry forces reuse the carried order of the one before (no
+    environment default, unlike the JAX package's FASTPM_TPU_STALE); the
+    sharded and multi-species forces ignore it. rehome: over a process
+    group, the slab carry with end-of-step migration (no environment
+    default, unlike the JAX package's FASTPM_TPU_REHOME); other forces
+    ignore it."""
 
     nc: int
     boxsize: float
@@ -129,6 +139,7 @@ class SolverConfig:
     # finite-ness scan of delta_k and acc after every force step
     # (pm_check_values, gravity.c:350-383), fetched one force later
     check_values: bool = False
+    order_free: bool = True
     stale_every: int = 0
     # the potential and tidal tensor at the particles, scaled to the
     # reference's units in snapshots (solver.py:1582-1588); either one
@@ -249,10 +260,15 @@ class Solver:
         return self.ring.group is not None
 
     def add_species(self, name: str, store: Store) -> None:
-        """Add a species from every rank's full store; a rank keeps its
-        block of the rows."""
-        if name not in (CDM, NCDM):
-            raise NotImplementedError(f"species {name!r} {_LATER}")
+        """Add a species (one of SPECIES_ORDER) from every rank's full
+        store; a rank keeps its block of the rows. On a grid the pencil
+        force needs every species pencil-blocked for it (lattice_store's
+        blocks), else the force takes the v1 body. Unlike the JAX
+        package, which keeps a species of another name and leaves it out
+        of every force, such a name raises ValueError."""
+        if name not in SPECIES_ORDER:
+            raise ValueError(f"unknown species {name!r}: the species are "
+                             f"{', '.join(SPECIES_ORDER)}")
         self.species[name] = store.shard(self.ring)
         self._stale_since.clear()
 
@@ -387,8 +403,9 @@ class Solver:
         else:
             kpm = pm
             transfer = lra(pm, pm) if lra is not None else None
-            if carry_eligible(painter, stores, cfg.compute_potential,
-                              cfg.compute_tidal):
+            if cfg.order_free and carry_eligible(
+                    painter, stores, cfg.compute_potential,
+                    cfg.compute_tidal):
                 stores, delta_k = self._carry_force(pm, painter,
                                                     stores.pop(), transfer)
             else:
@@ -523,12 +540,14 @@ class Solver:
         """Whether the rehome body serves this force (solver.py:613-625):
         rehome asked for, the slab carry's case (one scalar-mass species
         with velocities on x-major rows, the CIC painter, neither the
-        potential nor the tidal tensor), no linear response (whose force
-        the JAX package never rehomes), and slabs of at least 4 planes."""
+        potential nor the tidal tensor), order_free on, no linear
+        response (whose force the JAX package never rehomes), and slabs
+        of at least 4 planes."""
         cfg = self.config
         P = self.ring.nproc
         n0, n1, _ = pm.Nmesh
-        return bool(cfg.rehome and lra is None and self.comm is self.ring
+        return bool(cfg.rehome and cfg.order_free and lra is None
+                    and self.comm is self.ring
                     and carry_eligible(painter, stores, cfg.compute_potential,
                                        cfg.compute_tidal)
                     and stores[0].v is not None
@@ -626,7 +645,8 @@ class Solver:
                     carry = psolver._force_local_homed_carry
                     multi = psolver._force_local_homed_multi
                     halo = (H,)
-                if carry_eligible(painter, stores, pot, tid):
+                if cfg.order_free and carry_eligible(painter, stores,
+                                                     pot, tid):
                     p, bad, delta_k = carry(eng, stores[0], cfg.kernel_type,
                                             *halo, cfg.softening_type,
                                             transfer=transfer)

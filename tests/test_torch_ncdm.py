@@ -360,9 +360,11 @@ def test_cli_powerspectrum_rows_agree(cli_runs):
 
 
 def test_unserved_ncdm_options_refused(tmp_path):
-    """Baryons stay refused, with the GRAFIC noise input and the RunPB IC
-    output; m_ncdm, read_linear_growth_rate and the linear response (on
-    ranks too: tests/test_torch_ranks_physics.py) are served."""
+    """The GRAFIC noise input and the RunPB IC output stay refused;
+    m_ncdm, read_linear_growth_rate and the linear response (on ranks
+    too: tests/test_torch_ranks_physics.py) are served, and so are
+    baryons (tests/test_torch_species.py), while a species of another
+    name raises ValueError."""
     from fastpm_torch import cli
     from fastpm_torch.config.params import load_params
     from fastpm_torch.solver import Solver, SolverConfig, BARYON
@@ -387,5 +389,7 @@ def test_unserved_ncdm_options_refused(tmp_path):
         with pytest.raises(SystemExit, match=line.split()[0]):
             cli.main([str(conf)], device="cpu")
     solver = Solver(SolverConfig(nc=8, boxsize=16.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.add_species(BARYON, solver.species["cdm"])
+    solver.add_species(BARYON, solver.species["cdm"].replace(name="baryon"))
+    assert list(solver.iter_species()) == [BARYON, "cdm"]
+    with pytest.raises(ValueError, match="baryon, cdm, ncdm"):
+        solver.add_species("gas", solver.species["cdm"])

@@ -29,6 +29,18 @@ Covered:
   float32); the rehomed Solver against the dense sharded Solver
   (tests/test_sharded_solver.py:95's bounds), and set_snapshot of the
   rehomed store equal to that of its compacted rows;
+- (f) the baryon species (tests/test_sharded_solver.py:47-91's case:
+  CDM plus a baryon lattice with a mass column, gaussian softening, the
+  potential and the tidal tensor) against the port's one-device run by
+  id per species (x atol 2e-3, v atol 2e-4; potential and tidal rtol
+  2e-3, atol 1e-5), every force through the homed or pencil multi; and
+  SolverConfig(order_free=False) (stale_every = 3 and rehome = True
+  ignored) with every rank's rows in place, held row by row against the
+  one-device run at the same x and v bounds, and no carry force; both
+  one-device runs against the JAX Solver on one device from the same
+  delta_k (the baryon case by id per species at the bounds above, v at
+  2e-4 of its rms; the ordered run row by row in place at 1e-4 of a
+  cell and of v's rms, test_torch_solver.py's bounds);
 - (c), (d) the CLI on 2 ranks and on a 2 x 2 grid against one rank: the
   reduced lightcone with RFOF and PGD (usmesh rows by id and aemit,
   HEALPix maps, the halo catalogs' lengths and masses, the z = 0
@@ -258,6 +270,46 @@ def jax_rehome(x, v, cap):
 # ---- the runs ----------------------------------------------------------
 
 
+def jax_species_runs():
+    """The JAX Solver on one device, from the port's own delta_k (the
+    one-device runs' field): the baryon case of species_run and the
+    order_free=False run of run_solver; each solver."""
+    from fastpm_torch import ic
+    from fastpm_torch.cosmology import Cosmology as TCosmology
+    from fastpm_torch.powerspectrum import FuncK as TFuncK
+    from fastpm_torch.solver import Solver as TSolver, SolverConfig as TConfig
+    from fastpm_tpu.solver import Solver, SolverConfig
+    from fastpm_tpu.cosmology import Cosmology
+    from fastpm_tpu.store import lattice_store
+    cosmo = dict(h=0.6774, Omega_m=0.307494, T_cmb=0.0, growth_mode="lcdm")
+    kw = dict(nc=NC, boxsize=BOX, time_step=list(RUN_STEPS), pm_nc_factor=1)
+    t = TSolver(TConfig(**kw), TCosmology(**cosmo), device="cpu")
+    dk, _ = ic.linear_field(t.lptpm, TCosmology(**cosmo),
+                            TFuncK.from_file(POWERSPEC), seed=SEED, aout=1.0)
+    dk = jnp.asarray(dk.numpy())
+    a0 = RUN_STEPS[0]
+    out = {}
+    s = Solver(SolverConfig(need_rand=False, softening_type="gaussian",
+                            compute_potential=True, compute_tidal=True, **kw),
+               Cosmology(**cosmo))
+    n = (NC // 2) ** 3
+    b = lattice_store(s.basepm, Nc=NC // 2, columns=("v", "acc", "id"),
+                      name="baryon")
+    s.add_species("baryon", b.replace(
+        M0=0.3, mass=jnp.full((n,), 0.3, jnp.float32),
+        potential=jnp.zeros((n,), jnp.float32),
+        tidal=jnp.zeros((n, 6), jnp.float32), a_x=a0, a_v=a0))
+    s.setup_lpt(dk, a0)
+    s.evolve()
+    out["species"] = s
+    s = Solver(SolverConfig(need_rand=False, order_free=False, **kw),
+               Cosmology(**cosmo))
+    s.setup_lpt(dk, a0)
+    s.evolve()
+    out["ordered"] = s
+    return out
+
+
 def _one_rank_cli(tmp, name):
     from fastpm_torch import cli
     conf, out = _write_lua(tmp, name, "one")
@@ -326,9 +378,13 @@ def runs(tmp_path_factory):
         jcosmology._fd_table, jlra._fd_table = saved
     oracle["pgdc"] = jax_pgdc(x, 0.5)
     oracle["rehome"] = jax_rehome(rx, rv, cap)
+    oracle.update(jax_species_runs())
     one["run"] = workers.run_solver(NC, BOX, RUN_STEPS, POWERSPEC, SEED,
                                     lra_z=4.0)
     one["dense"] = workers.run_solver(NC, BOX, RUN_STEPS, POWERSPEC, SEED)
+    one["species"] = workers.species_run(NC, BOX, RUN_STEPS, POWERSPEC, SEED)
+    one["ordered"] = workers.run_solver(NC, BOX, RUN_STEPS, POWERSPEC, SEED,
+                                        order_free=False)
 
     ranks = {}
     for g, (ctx, data) in ctxs.items():
@@ -487,6 +543,109 @@ def test_rehome_solver_matches_dense(runs):
         for c in ("x", "v", "id"):
             np.testing.assert_array_equal(r["snap_" + c],
                                           r["snap_compact_" + c])
+
+
+# ---- (f) baryons and order-preserving stepping ----------------------------
+
+
+def _multi(grid):
+    return "pencil-multi" if grid[1] > 1 else "homed-multi"
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_baryon_run_matches_one_device(runs, grid):
+    """CDM and baryons over the ranks against the one-device run, by id
+    per species; the forces through the multi body of the decomposition
+    (a replay after a halo overflow, and the v1 body where no halo width
+    fits at z = 0, allowed), never the carry."""
+    ranks, one = runs["ranks"][grid], runs["one"]["species"]
+    for name in ("baryon", "cdm"):
+        p = one.species[name]
+        ids0 = p.id.numpy()
+        want = _by_id(ids0, *(getattr(p, c).numpy() for c in
+                              ("x", "v", "potential", "tidal")))
+        key = "species_%s_" % name
+        ids = _cat(ranks, key + "id")
+        np.testing.assert_array_equal(np.sort(ids), np.sort(ids0))
+        got = _by_id(ids, *(_cat(ranks, key + c) for c in
+                            ("x", "v", "potential", "tidal")))
+        dx = got[0] - want[0]
+        dx -= np.round(dx / BOX) * BOX
+        assert np.abs(dx).max() < 2e-3, name
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=2e-4,
+                                   err_msg=name)
+        for g, w, c in zip(got[2:], want[2:], ("potential", "tidal")):
+            assert np.abs(w).max() > 0
+            np.testing.assert_allclose(g, w, rtol=2e-3, atol=1e-5,
+                                       err_msg=name + " " + c)
+    for r in ranks:
+        paths = list(r["species_paths"])
+        assert _multi(grid) in paths and set(paths) <= {
+            _multi(grid), "overflow", "v1"}, paths
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_order_preserving_run_matches_one_device(runs, grid):
+    """order_free=False over the ranks: each rank's rows are where a
+    fresh Solver put them (x-major on the slab, pencil-blocked on the
+    2 x 2 grid), x and v row by row against the one-device run, whose
+    rows are in id order; the forces as in the baryon run, never the
+    carry."""
+    from fastpm_torch.mesh import PM
+    from fastpm_torch.store import lattice_store
+    ranks, one = runs["ranks"][grid], runs["one"]["ordered"]
+    p = one.species["cdm"]
+    np.testing.assert_array_equal(p.id.numpy(), np.arange(NC ** 3))
+    assert dict(one.force_paths) == {"multi": len(RUN_STEPS)}
+    blocks = grid if grid[1] > 1 else None
+    rows = lattice_store(PM(NC, BOX, device="cpu"), Nc=NC,
+                         blocks=blocks).id.numpy()
+    ids = _cat(ranks, "ordered_id")
+    np.testing.assert_array_equal(ids, rows)
+    dx = _cat(ranks, "ordered_x") - p.x.numpy()[ids]
+    dx -= np.round(dx / BOX) * BOX
+    assert np.abs(dx).max() < 2e-3
+    np.testing.assert_allclose(_cat(ranks, "ordered_v"), p.v.numpy()[ids],
+                               rtol=0, atol=2e-4)
+    for r in ranks:
+        paths = list(r["ordered_paths"])
+        assert _multi(grid) in paths and set(paths) <= {
+            _multi(grid), "overflow", "v1"}, paths
+
+
+@pytest.mark.parametrize("case", ["species", "ordered"])
+def test_one_device_species_runs_match_jax(runs, case):
+    """The one-device runs that (f) holds the ranks against, against the
+    JAX Solver from the same delta_k: the baryon case by id per species,
+    the order-preserving run row by row with the rows in place in
+    both."""
+    s, js = runs["one"][case], runs["oracle"][case]
+    names = ("baryon", "cdm") if case == "species" else ("cdm",)
+    assert tuple(s.iter_species()) == names
+    for name in names:
+        p, jp = s.species[name], js.species[name]
+        cols = ("x", "v") + (("potential", "tidal") if case == "species"
+                             else ())
+        ids, jids = p.id.numpy(), np.asarray(jp.id)
+        if case == "ordered":
+            np.testing.assert_array_equal(ids, np.arange(NC ** 3))
+            np.testing.assert_array_equal(jids, ids)
+            got = [getattr(p, c).numpy() for c in cols]
+            want = [np.asarray(getattr(jp, c)) for c in cols]
+            xtol, vtol = 1e-4 * BOX / NC, 1e-4
+        else:
+            np.testing.assert_array_equal(np.sort(ids), np.sort(jids))
+            got = _by_id(ids, *(getattr(p, c).numpy() for c in cols))
+            want = _by_id(jids, *(np.asarray(getattr(jp, c)) for c in cols))
+            xtol, vtol = 2e-3, 2e-4
+        dx = got[0] - want[0]
+        dx -= np.round(dx / BOX) * BOX
+        assert np.abs(dx).max() < xtol, name
+        assert np.abs(got[1] - want[1]).max() < vtol * want[1].std(), name
+        for g, w, c in zip(got[2:], want[2:], cols[2:]):
+            assert np.abs(w).max() > 0
+            np.testing.assert_allclose(g, w, rtol=2e-3, atol=1e-5,
+                                       err_msg=name + " " + c)
 
 
 # ---- (c), (d) the CLI ----------------------------------------------------

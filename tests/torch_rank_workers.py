@@ -332,6 +332,61 @@ def run_solver(nc, box, time_step, ps, seed, device="cpu", group=None,
     return s
 
 
+def species_run(nc, box, time_step, ps, seed, group=None, grid=None):
+    """The JAX package's wide-path case (tests/test_sharded_solver.py:
+    47-91) in the port: CDM from the port's linear field and an (nc/2)^3
+    baryon lattice with a mass column, gaussian softening, the
+    potential and the tidal tensor, evolved over the group or grid (the
+    baryons pencil-blocked as the CDM where the grid blocks it), or on
+    one device; the solver."""
+    from fastpm_torch.solver import Solver, SolverConfig, BARYON, CDM
+    from fastpm_torch.cosmology import Cosmology
+    from fastpm_torch.powerspectrum import FuncK
+    from fastpm_torch.store import lattice_store
+    from fastpm_torch import ic
+    c = Cosmology(h=0.6774, Omega_m=0.307494, T_cmb=0.0, growth_mode="lcdm")
+    s = Solver(SolverConfig(nc=nc, boxsize=box, time_step=list(time_step),
+                            pm_nc_factor=1, softening_type="gaussian",
+                            compute_potential=True, compute_tidal=True,
+                            check_values=True), c, device="cpu",
+               group=group, grid=grid)
+    a0 = float(time_step[0])
+    b = lattice_store(s.basepm, Nc=nc // 2, name="baryon",
+                      columns=("v", "acc", "id", "potential", "tidal"),
+                      blocks=s.species[CDM].home_blocks)
+    b = b.replace(M0=0.3, mass=torch.full((b.np_local,), 0.3), a_x=a0,
+                  a_v=a0)
+    s.add_species(BARYON, b)
+    dk, _ = ic.linear_field(s.lptpm, c, FuncK.from_file(ps), seed=seed,
+                            aout=1.0)
+    s.setup_lpt(dk, a0)
+    s.evolve()
+    return s
+
+
+def species_ranks(grid, data):
+    """On the grid's ranks: the baryon run (species_run) and phase 7's
+    physics with order_free=False (run_solver), each species' columns
+    and the force paths."""
+    res = {}
+    s = species_run(int(data["nc"]), float(data["box"]), data["run_steps"],
+                    str(data["ps"]), int(data["seed"]), group=grid.group,
+                    grid=grid)
+    for name in ("baryon", "cdm"):
+        p = s.species[name]
+        for c in ("x", "v", "id", "potential", "tidal"):
+            res["species_%s_%s" % (name, c)] = getattr(p, c).numpy()
+    res["species_paths"] = np.array(sorted(s.force_paths.elements()))
+    s = run_solver(int(data["nc"]), float(data["box"]), data["run_steps"],
+                   str(data["ps"]), int(data["seed"]), group=grid.group,
+                   grid=grid, order_free=False, stale_every=3, rehome=True)
+    p = s.species["cdm"]
+    res.update(ordered_x=p.x.numpy(), ordered_v=p.v.numpy(),
+               ordered_id=p.id.numpy(),
+               ordered_paths=np.array(sorted(s.force_paths.elements())))
+    return res
+
+
 def solver(ring, data):
     """The sharded Solver's evolution, and one force whose cached halo
     width is too small for the positions it is given."""
@@ -496,7 +551,8 @@ def physics_solver(data, grid, a_f, **config):
 
 def physics(grid, data):
     """On the grid's ranks: the linear response's forces (the third with
-    a cached halo too small, so that it is replayed) and a run; PGD's
+    a cached halo too small, so that it is replayed) and a run; the
+    baryon run and the order-preserving run (species_ranks); PGD's
     column after one force; on a slab of 2, the rehome body on the
     parent's layout (two steps) and the rehomed Solver against the dense
     one, with a snapshot of the rehomed store."""
@@ -534,6 +590,8 @@ def physics(grid, data):
                run_scalefact=np.asarray(s.lra.scalefact),
                run_delta_tot=np.asarray(s.lra.delta_tot),
                run_paths=np.array(sorted(s.force_paths.elements())))
+
+    res.update(species_ranks(grid, data))
 
     s = physics_solver(data, grid, 0.5, pgdc=True)
     s.force(s.find_pm(0.5), 0.5)
