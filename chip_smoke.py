@@ -220,6 +220,26 @@ O. baryons and order-preserving stepping at full width: (O1) phase 7's
    O1 (in place too) and O2 by id within 1e-3 of a cell, O2's potential
    and tidal tensor within 1e-2 of their rms. Each run's wall, force
    actions, peak, paths and a force step are printed;
+P. (last, on a card that holds nothing else; the peak counts reset
+   before each rung) the JAX package's scale: torch.fft.irfftn's copy
+   of its input measured at 768^3; (P1) the 384^3 B2 rung the JAX
+   package ran on a 16 GB v5e: the benchlib step (make_step_fn(PM(768,
+   384.0)), carry, K1 and K2, x and v donated) on
+   example_particles(384, 384.0, seed=0), one warm step and 10 chained
+   ones as bench.py:run_one, ms, particle-steps/s, the peak (gate: 16
+   GiB) and the buffers live at the step's peak (the allocator's
+   history); (P2) 512^3 on a 1024^3 mesh through cli.run_fastpm on phase
+   7's Lua (box 768, seed 100; 5 steps, one snapshot at a = 1): launches
+   K1 5, K2 11, no other; the snapshot by id, then deleted; every P(k)
+   bin of k < 0.1 h/Mpc within 2 % of phase 7's at the first and the
+   last force (the white noise is nested across resolutions); the force
+   step; K1 and K2 against their plain versions at the z = 0 state (the
+   plain ones in row chunks); find_halos on the state (b = 0.2) and the
+   device labels of the x < 48 slab bit-equal to the host union-find's;
+   the run's peak and its buffers; (P3) fastpm_torch.measure_halo at
+   384^3 (B2, 10 steps) and its JSON line; (P4, recorded, no gate) the
+   P1 step at 640^3 on a 1280^3 mesh: whether it fits (an out-of-memory
+   error is caught and reported), its peak and ms;
 9. a JSON line of the kernels, the card line again, and the result line.
 """
 
@@ -4293,6 +4313,408 @@ def order_path(dev, tmp, main_store, rows, nc=256, nstep=5, box=768.0):
               time.perf_counter() - t_phase))
     return out_launches
 
+# ---- phase P: the JAX package's scale on one card ----
+
+# the kernels phase P launches, whose counts go to the JSON line
+P_KERNELS = ("cic_paint", "cic_readout", "fof_link")
+# P1's gate: the device memory of the v5e that held the 384^3 B2 rung
+# (BENCH_NOTES.md:487-503), 16 GiB
+P1_GATE_BYTES = 16 * 2 ** 30
+
+
+def live_at_peak(fn):
+    """Run fn with the allocator's history recorded and return (fn's
+    result, the peak of the bytes fn allocated, the allocations live at
+    that peak as (bytes, the innermost frame of fastpm_torch or of this
+    script that made them), largest first). The peak is counted above
+    what was allocated before fn; the live set is read from the trace of
+    allocations and frees (torch.cuda.memory._snapshot). Without the
+    recording API the live set is None."""
+    import torch
+    mem = torch.cuda.memory
+    if not (hasattr(mem, "_record_memory_history")
+            and hasattr(mem, "_snapshot")):
+        return fn(), None, None
+    mem._record_memory_history(enabled="all", context="all",
+                               stacks="python", max_entries=1 << 20)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        snap = mem._snapshot()
+    finally:
+        mem._record_memory_history(enabled=None)
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    live, cur, best, at = {}, 0, 0, {}
+    for e in trace:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+            cur += e["size"]
+            if cur > best:
+                best, at = cur, dict(live)
+        elif e["action"] in ("free_requested", "free") and e["addr"] in live:
+            cur -= live.pop(e["addr"])["size"]
+
+    def where(e):
+        for f in e.get("frames", []):
+            name = f.get("filename", "")
+            if "fastpm_torch" in name or name.endswith("chip_smoke.py"):
+                return "%s:%d %s" % (os.path.relpath(name, ROOT),
+                                     f.get("line", 0), f.get("name", ""))
+        return "torch internal"
+    return out, best, sorted(((e["size"], where(e)) for e in at.values()),
+                             reverse=True)
+
+
+def print_buffers(label, peak, bufs, top=10):
+    """The allocations live at a path's peak, as live_at_peak reads them."""
+    if bufs is None:
+        print("%s: buffers at the peak not measured (no memory history)"
+              % label)
+        return
+    print("%s: %.3f GB allocated by the path at its peak, %d buffers; the "
+          "largest:" % (label, peak / 1e9, len(bufs)))
+    for size, where in bufs[:top]:
+        print("  %.3f GB  %s" % (size / 1e9, where))
+
+
+def irfftn_copy(dev, n):
+    """The bytes torch.fft.irfftn allocates beyond its output on an n^3
+    mesh, in units of its complex input: cuFFT's c2r overwrites its
+    input, so PyTorch copies it."""
+    import torch
+    k = torch.zeros((n, n, n // 2 + 1), dtype=torch.complex64, device=dev)
+    base = reset_peak()
+    y = torch.fft.irfftn(k, s=(n,) * 3)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - y.numel() * 4
+    del k, y
+    return extra / (n * n * (n // 2 + 1) * 8)
+
+
+def ladder_step(dev, nc, label, nstep=10):
+    """The benchlib step of bench.py:run_one (make_step_fn(PM(2 nc, nc)),
+    carry, K1 and K2, x and v donated) on example_particles(nc, nc,
+    seed=0): one warm step, then nstep chained steps between
+    synchronises; one more step under the allocator's history. Returns
+    {"peak": the rung's peak bytes, "launches": its launches of
+    P_KERNELS before the recorded step}."""
+    import torch
+    from fastpm_torch import benchlib
+    from fastpm_torch.mesh import PM
+
+    torch.cuda.empty_cache()
+    base = reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    x, v = benchlib.example_particles(nc, float(nc), seed=0, device=dev)
+    setup_s = time.perf_counter() - t0
+    pm = PM(2 * nc, float(nc), device=dev)
+    step = benchlib.make_step_fn(pm, donate=True, device=dev)
+    coeffs = (0.05, 0.02)
+    t0 = time.perf_counter()
+    x, v, acc = step(x, v, coeffs)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del acc
+    t0 = time.perf_counter()
+    for _ in range(nstep):
+        x, v, acc = step(x, v, coeffs)
+        del acc
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / nstep
+    peak = torch.cuda.max_memory_allocated()
+    # the wrap x - floor(x / L) * L (the JAX step's) rounds a position a
+    # hair below 0 up to L itself, so the box is [0, L]
+    ok = bool(torch.isfinite(x).all() and torch.isfinite(v).all()
+              and (x >= 0).all() and (x <= nc).all())
+    launches = read_launches()
+    # the warm step and the chained ones, each one K1 and one K2
+    want = dict({k: 0 for k in KERNELS}, cic_paint=nstep + 1,
+                cic_readout=nstep + 1)
+    (x, v, acc), step_peak, bufs = live_at_peak(lambda: step(x, v, coeffs))
+    del x, v, acc
+    r = dict(peak=peak, launches={k: launches[k] for k in P_KERNELS})
+    print("phase %s: %d^3 particles on a %d^3 mesh (benchlib step, carry, "
+          "K1 and K2, x and v donated): %.2f ms a step (%d chained; the "
+          "warm step %.2f s, the particles %.1f s on the host) = %.4g "
+          "particle-steps/s; max_memory_allocated %.3f GB (%.3f GB "
+          "allocated before); launches %s; x, v finite and x in [0, L] %s"
+          % (label, nc, 2 * nc, ms, nstep, warm_s, setup_s,
+             nc ** 3 / ms * 1e3, peak / 1e9, base / 1e9, r["launches"], ok))
+    print_buffers("phase %s step" % label, step_peak, bufs)
+    if not ok:
+        raise SystemExit("phase %s: the step's x or v is bad" % label)
+    if launches != want:
+        raise SystemExit("phase %s did not run through K1 / K2 alone "
+                         "(want %d of each)" % (label, nstep + 1))
+    return r
+
+
+def read_pk(out):
+    """{a: (k, P) of the P(k) file} of the first and the last force of a
+    run's output directory."""
+    import numpy as np
+    files = sorted(f for f in os.listdir(out) if f.startswith("powerspec_"))
+    pk = {}
+    for f in (files[0], files[-1]):
+        a = float(f[len("powerspec_"):-len(".txt")])
+        pk[a] = np.loadtxt(os.path.join(out, f), comments="#")[:, :2]
+    return pk
+
+
+def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
+               chunk=1 << 25):
+    """P2: 512^3 on a 1024^3 mesh through cli.run_fastpm, phase 7's Lua
+    text (box 768, seed 100) with one snapshot at a = 1. Returns the
+    launches of the run and of its FOF."""
+    import numpy as np
+    import torch
+    from fastpm_torch import cli, fof, gravity
+    from fastpm_torch.config.params import load_params
+    from fastpm_torch.diagnostics import Log
+    from fastpm_torch.painter import Painter
+    from fastpm_torch.ops import cic, fof_device as fd
+
+    out = os.path.join(tmp, "ladder")
+    text = main_text(nc, box, nstep, out).replace("aout = {0.55, 1.0}",
+                                                  "aout = {1.0}")
+    conf = write_lua(os.path.join(tmp, "ladder.lua"), text)
+    torch.cuda.empty_cache()
+    base = reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    log = Log(echo=False)
+    solver, run_peak, bufs = live_at_peak(
+        lambda: cli.run_fastpm(load_params(conf), log=log, device=dev))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print("phase P2: %d^3 particles, %d^3 force mesh, %d force steps "
+          "through cli.run_fastpm (IC, 2LPT, steps, P(k), a snapshot at "
+          "a = 1): wall %.2f s (the allocator's history on); "
+          "max_memory_allocated %.3f GB (%.3f GB allocated before)"
+          % (nc, 2 * nc, nstep, wall, peak / 1e9, base / 1e9))
+    print_buffers("phase P2 run", run_peak, bufs)
+    print("phase P2: force paths %s; kicks and drifts in place %s"
+          % (dict(solver.force_paths), dict(solver.in_place)))
+    if not (solver.in_place["kick"] and solver.in_place["drift"]):
+        raise SystemExit("phase P2: no kick or no drift ran in place")
+    want = dict({k: 0 for k in KERNELS}, cic_paint=nstep,
+                cic_readout=nstep + 6)
+    print("phase P2: launches K1 %d (want %d), K2 %d (want %d), the rest %s"
+          % (launches["cic_paint"], nstep, launches["cic_readout"],
+             nstep + 6, {k: n for k, n in launches.items()
+                         if k not in ("cic_paint", "cic_readout")}))
+    if launches != want:
+        raise SystemExit("phase P2 did not run through K1 / K2 alone")
+
+    # the snapshot, by id, then deleted
+    t0 = time.perf_counter()
+    snap = os.path.join(out, "fastpm_1.0000")
+    ids, x, v = read_by_id(snap)
+    # the snapshot's wrap may round a position a hair below 0 up to box
+    ok = (np.array_equal(ids, np.arange(nc ** 3)) and np.isfinite(x).all()
+          and np.isfinite(v).all() and x.min() >= 0 and x.max() <= box)
+    del ids, x, v
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(snap) for f in fs)
+    subprocess.run(["rm", "-rf", snap], check=True)
+    print("phase P2: snapshot %.2f GB read back by id in %.1f s: ids "
+          "arange(%d^3), x and v finite, x in [0, %g]: %s; deleted"
+          % (size / 1e9, time.perf_counter() - t0, nc, box, ok))
+    if not ok:
+        raise SystemExit("phase P2: bad snapshot")
+
+    # P(k) at k < 0.1 against phase 7's: the same linear modes
+    pk = read_pk(out)
+    worst = 0.0
+    for a, want_pk in pk7.items():
+        got = pk[a]
+        # the bins in file order, the empty k = 0 bin left out
+        m = np.flatnonzero((want_pk[:, 0] > 0) & (want_pk[:, 0] < 0.1))
+        nb = len(m)
+        same_k = np.allclose(got[m, 0], want_pk[m, 0], rtol=1e-4)
+        rel = np.abs(got[m, 1] / want_pk[m, 1] - 1)
+        worst = max(worst, float(rel.max()))
+        print("phase P2: P(k) at a = %g, %d bins of k < 0.1 h/Mpc against "
+              "phase 7's (256^3 on 512^3): the same k %s, |P / P7 - 1| max "
+              "%.4f (bins: %s)" % (a, nb, same_k, rel.max(),
+                                   " ".join("%.4f" % r for r in rel)))
+        if not (same_k and rel.max() <= 0.02):
+            raise SystemExit("phase P2: P(k) at k < 0.1 departs from phase "
+                             "7's by more than 2 %")
+
+    # the force step alone on the z = 0 state, and K1 / K2 against plain
+    pm = solver.find_pm(1.0)
+    mesh, inv = tuple(pm.Nmesh), pm.InvCellSize
+    painter = Painter(pm, "cic")
+    store = solver.species["cdm"]
+    del solver
+    force_ms = time_ms(lambda: gravity.compute_force_carry(
+        pm, painter, store.wrap(pm.BoxSize)), reps=3)
+    print("phase P2: force step %.2f ms (sort + K1 + FFTs + K2, the store "
+          "not donated) = %.4g particle-steps/s"
+          % (force_ms, nc ** 3 / force_ms * 1e3))
+    # the Solver's force: its wrapped store given up
+    out, force_peak, bufs = live_at_peak(lambda: gravity.compute_force_carry(
+        pm, painter, store.wrap(pm.BoxSize), donate=True))
+    del out
+    print_buffers("phase P2 force step (donated, as the Solver's)",
+                  force_peak, bufs)
+    t0 = time.perf_counter()
+    store = store.wrap(pm.BoxSize)
+    x = store.x[cic.sort_by_cell(store.x, mesh, inv)].contiguous()
+    got = cic.cic_paint(x, mesh, inv)
+    want = torch.zeros_like(got)
+    for i in range(0, x.shape[0], chunk):
+        want += cic.cic_paint_plain(x[i:i + chunk], mesh, inv)
+    err1 = check_close("phase P2 K1 at the z = 0 state (%d rows, plain in "
+                       "chunks of %d)" % (x.shape[0], chunk), got, want)
+    del got, want
+    g = torch.Generator(device=dev).manual_seed(11)
+    fields = [torch.randn(mesh, generator=g, device=dev) for _ in range(3)]
+    err2 = 0.0
+    for i in range(0, x.shape[0], chunk):
+        xc = x[i:i + chunk]
+        err2 = max(err2, check_close(
+            "phase P2 K2 (3 fields) rows %d-%d" % (i, i + xc.shape[0]),
+            cic.cic_readout(fields, xc, inv),
+            cic.cic_readout_plain(fields, xc, inv)))
+    del fields, x
+    print("phase P2: K1 and K2 against their plain versions in %.1f s"
+          % (time.perf_counter() - t0))
+
+    # FOF on the z = 0 state (phase E's b = 0.2 of the mean separation);
+    # the labels of the x < box / 16 slab against the host union-find
+    ll = ll_frac * box / nc
+    reset_launches()
+    t0 = time.perf_counter()
+    cat, _ = fof.find_halos(store, ll, box, nmin=20, backend="device")
+    torch.cuda.synchronize()
+    fof_s = time.perf_counter() - t0
+    xs = store.x[store.x[:, 0] < box / 16].contiguous()
+    del store
+    t0 = time.perf_counter()
+    lab_d = fd.fof_labels_device(xs, ll, box).cpu().numpy()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab_h = fof.fof_labels(xs.cpu().numpy(), ll, box)
+    host_s = time.perf_counter() - t0
+    same = bool(np.array_equal(lab_d, lab_h))
+    fof_launches = read_launches()
+    print("phase P2: find_halos (device) on %d rows, ll %.3f Mpc/h (b = "
+          "%g): %d halos of 20 or more in %.2f s; the x < %g slab, %d rows: "
+          "device labels %.2f s, host union-find %.2f s, bit-equal %s; "
+          "fof_link launches %d"
+          % (nc ** 3, ll, ll_frac, cat.nhalo, fof_s, box / 16, xs.shape[0],
+             dev_s, host_s, same, fof_launches["fof_link"]))
+    if not same or not cat.nhalo:
+        raise SystemExit("phase P2: the device FOF labels of the slab "
+                         "differ from the host union-find's")
+    del xs, lab_d, lab_h, cat
+    counts = {k: launches[k] for k in P_KERNELS}
+    counts["fof_link"] = fof_launches["fof_link"]
+    return counts
+
+
+def ladder_tool(dev, nc=384):
+    """P3: fastpm_torch.measure_halo at 384^3 on the card, through the
+    production Solver; its JSON line."""
+    import torch
+    from fastpm_torch import measure_halo
+
+    torch.cuda.empty_cache()
+    base = reset_peak()
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, run_peak, bufs = live_at_peak(
+            lambda: measure_halo.main([str(nc)], device=dev))
+    wall = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    got = json.loads(line)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    print("phase P3: measure_halo %d^3 (B2, %d^3 mesh, 10 steps) in %.1f "
+          "s (the allocator's history on), max_memory_allocated %.3f GB "
+          "(%.3f before), launches %s"
+          % (nc, 2 * nc, wall, peak / 1e9, base / 1e9,
+             {k: launches[k] for k in P_KERNELS}))
+    print_buffers("phase P3 run", run_peak, bufs)
+    print("phase P3: " + line)
+    if rc != 0 or got["nc"] != nc or set(got["H_measured"]) != {
+            "P8", "P16", "P32"}:
+        raise SystemExit("phase P3: bad measure_halo output")
+    # a carry force a step, and K2 for the 2LPT's six readouts
+    want = dict({k: 0 for k in KERNELS}, cic_paint=got["steps"],
+                cic_readout=got["steps"] + 6)
+    if launches != want:
+        raise SystemExit("phase P3 did not run through K1 / K2 alone: "
+                         "want %s" % {k: want[k] for k in P_KERNELS})
+    return {k: launches[k] for k in P_KERNELS}
+
+
+def cuda_tensors_alive(top=6):
+    """The largest CUDA tensors still reachable from Python: (bytes,
+    shape, dtype) of each storage's largest tensor, largest first."""
+    import torch
+    gc.collect()
+    best = {}
+    for o in gc.get_objects():
+        if issubclass(type(o), torch.Tensor) and o.is_cuda:
+            key = o.untyped_storage().data_ptr()
+            n = o.untyped_storage().nbytes()
+            if n > best.get(key, (0,))[0]:
+                best[key] = (n, tuple(o.shape), str(o.dtype))
+    return sorted(best.values(), reverse=True)[:top]
+
+
+def scale_ladder(dev, pk7):
+    """Phase P: P1 the JAX package's executed 384^3 B2 rung (gate: peak
+    at most 16 GiB), P2 512^3 B2 through the production path, P3 the
+    halo tool at 384^3, P4 the 640^3 B2 step (recorded: whether it fits).
+    Returns {rung: its launches of P_KERNELS}."""
+    import torch
+    t_p = time.perf_counter()
+    print("phase P: %.3f GB allocated by earlier phases; the largest CUDA "
+          "tensors reachable: %s" % (reset_peak() / 1e9, [
+              "%.3f GB %s %s" % (n / 1e9, shape, dtype)
+              for n, shape, dtype in cuda_tensors_alive()]))
+    print("phase P: torch.fft.irfftn on a 768^3 mesh allocates %.3f of its "
+          "complex input beyond its output (cuFFT's c2r overwrites its "
+          "input)" % irfftn_copy(dev, 768))
+    launches = {}
+    r = ladder_step(dev, 384, "P1")
+    launches["P1"] = r["launches"]
+    print("phase P1: peak %.3f GB against the gate %.3f GB (16 GiB, the "
+          "v5e's HBM): %s" % (r["peak"] / 1e9, P1_GATE_BYTES / 1e9,
+                              "held" if r["peak"] <= P1_GATE_BYTES
+                              else "FAIL"))
+    if r["peak"] > P1_GATE_BYTES:
+        raise SystemExit("phase P1: the 384^3 B2 step's peak is above 16 GiB")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["P2"] = ladder_run(dev, tmp, pk7)
+    print("phase P2: %.1f s in all" % (time.perf_counter() - t0))
+    launches["P3"] = ladder_tool(dev)
+    try:
+        launches["P4"] = ladder_step(dev, 640, "P4", nstep=3)["launches"]
+        fits = True
+    except torch.cuda.OutOfMemoryError as e:
+        launches["P4"] = {k: 0 for k in P_KERNELS}
+        fits = False
+        print("phase P4: 640^3 on a 1280^3 mesh does not fit: %s; "
+              "max_memory_allocated %.3f GB" % (
+                  str(e).splitlines()[0],
+                  torch.cuda.max_memory_allocated() / 1e9))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase P4: 640^3 B2 fits on the card: %s" % fits)
+    print("phase P: %.1f s" % (time.perf_counter() - t_p))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4331,6 +4753,8 @@ def main():
         ncdm_agreement(dev, tmp)
         # each path's launches are read from its own run
         launches, solver, pm, more, main_out = main_path(dev, tmp)
+        # phase P holds its 512^3 run's P(k) against these
+        pk7 = read_pk(main_out)
         halo_rows, lab_host = halos(dev, solver.species["cdm"], 768.0, 256)
         rows.update(halo_rows)
         # phase N: the sharded FOF and step on the same state
@@ -4356,7 +4780,9 @@ def main():
     bench_launches = benchlib_path(dev, x0, v0, bpm)
     del x0, v0
     more_stale = stale_force(solver, pm)
-    del solver
+    del solver, pm, bpm
+    # phase P: the scale ladder, on a card that holds nothing else
+    p_launches = scale_ladder(dev, pk7)
     for extra in (more, more_ncdm, more_stale):
         for name, r in extra.items():
             err = max(rows[name]["err"], r.pop("err", 0.0))
@@ -4400,6 +4826,10 @@ def main():
     # phase N: the sharded FOF's and the sharded step's entries
     for name, entries in n_rows.items():
         rows[name].update(entries)
+    # phase P: the launches of each rung
+    for name in P_KERNELS:
+        rows[name]["launches_phase_p"] = {
+            rung: n[name] for rung, n in p_launches.items()}
 
     kernels = []
     for name, r in rows.items():

@@ -4,10 +4,20 @@
 Every function runs on the first CUDA device unless device is given
 ("cpu" for the plain versions of the kernels).
 
-Not ported: the TPU-only parameters of the JAX step (K, C, subr, donate,
+Not ported: the TPU-only parameters of the JAX step (K, C, subr,
 payload_gather). On the card a sort is always a key sort, a permutation
 and gathers of the rows (ops/sort.py), and PyTorch runs eagerly, so
-there is nothing to donate or jit.
+there is nothing to jit. The JAX step's donation of x and v
+(donate_argnums) is ported as its contract: the step writes its results
+into the caller's tensors (make_step_fn's donate).
+
+The step holds the two-canvas cost model of the reference
+(gravity.c:415, 468): the canvas and the transforms are scaled in
+place, the potential transfer is taken in place on delta_k, which the
+step does not keep, and the last gradient in the potential itself
+(mesh.c2r_grad3), so at most the two gradients already returned, the
+potential, cuFFT's copy of its c2r input and the gradient being made
+are alive at once.
 """
 
 from __future__ import annotations
@@ -32,26 +42,35 @@ def _on(pm: PM, device) -> PM:
 
 
 def _step(pm: PM, potorder: int, gradorder: int, paint, readout, x, v,
-          coeffs):
+          coeffs, own: bool = False):
     """One force, kick and drift (benchlib.py:81-100): the canvas of
     paint(x) as 1 + delta, r2c, the potential transfer, the three
     gradients, readout(fields, x) and the KDK update with the periodic
-    wrap. Returns (x, v, acc)."""
-    canvas = paint(x) / (x.shape[0] / pm.Norm)
-    pot_k = transfers.apply_pot(pm, pm.r2c(canvas), potorder)
+    wrap. own: x and v are the step's to overwrite (a donation, or the
+    sort's copies), and the kick and drift are taken in them; otherwise
+    in copies. Returns (x, v, acc), the same bits either way."""
+    canvas = paint(x)
+    pot_k = pm.r2c(canvas.div_(x.shape[0] / pm.Norm))
     del canvas
-    acc = readout(pm.c2r_grad3(pot_k, gradorder), x)
+    transfers.apply_pot(pm, pot_k, potorder, inplace=True)
+    fields = pm.c2r_grad3(pot_k, gradorder)
+    del pot_k
+    acc = readout(fields, x)
+    del fields
     coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=x.device)
     L = torch.tensor(pm.BoxSize, dtype=torch.float32, device=x.device)
-    v = v + acc * coeffs[0]
-    x = x + v * coeffs[1]
-    return x - torch.floor(x / L) * L, v, acc
+    if not own:
+        x, v = x.clone(), v.clone()
+    v.add_(acc * coeffs[0])
+    x.add_(v * coeffs[1])
+    x.sub_(torch.floor(x / L).mul_(L))
+    return x, v, acc
 
 
 def make_step_fn(pm: PM, kernel_type: str = "1_4",
                  painter_type: str = "cic", support: int = 2,
                  carry_sorted: bool = True, sort_block: int | None = None,
-                 paint8: bool = True, device=None):
+                 paint8: bool = True, donate: bool = False, device=None):
     """One PM force + kick + drift step (make_step_fn, benchlib.py:20-104):
     returns step(x, v, coeffs) -> (x, v, acc), coeffs = (kick, drift)
     factors.
@@ -62,7 +81,12 @@ def make_step_fn(pm: PM, kernel_type: str = "1_4",
     paints with K1, or with K5 when paint8 is False, and reads out with
     K2; its rows come out in cell order, a permutation of the
     order-preserving result. Otherwise the step keeps row order, as
-    gravity.compute_force does: the Painter (K3 and K4 for CIC)."""
+    gravity.compute_force does: the Painter (K3 and K4 for CIC).
+
+    donate: the caller gives x and v up (the JAX step's donate_argnums
+    (0, 1); bench.py's BENCH_DONATE): the step sorts, kicks and drifts
+    in them and returns them. The JAX default is True; here it is False,
+    since a Python caller keeps its references."""
     pm = _on(pm, device)
     potorder, gradorder, _d, _ = kernel_orders(kernel_type)
     painter = Painter(pm, painter_type, support)
@@ -71,7 +95,8 @@ def make_step_fn(pm: PM, kernel_type: str = "1_4",
         def step(x, v, coeffs):
             return _step(pm, potorder, gradorder,
                          lambda x: painter.paint(x, 1.0),
-                         lambda f, x: painter.readout3(*f, x), x, v, coeffs)
+                         lambda f, x: painter.readout3(*f, x), x, v, coeffs,
+                         own=donate)
         return step
 
     def paint(x):
@@ -82,9 +107,11 @@ def make_step_fn(pm: PM, kernel_type: str = "1_4",
         return canvas
 
     def step(x, v, coeffs):
-        x, v = sort.carry_sort(x, v, pm.Nmesh, inv, sort_block)
+        x, v = sort.carry_sort(x, v, pm.Nmesh, inv, sort_block, donate)
+        # donated, or the sort's copies: the step's own
         return _step(pm, potorder, gradorder, paint,
-                     lambda f, x: cic.cic_readout(f, x, inv), x, v, coeffs)
+                     lambda f, x: cic.cic_readout(f, x, inv), x, v, coeffs,
+                     own=True)
 
     return step
 
@@ -103,14 +130,18 @@ def make_stale_step_fns(pm: PM, kernel_type: str = "1_4", device=None):
     potorder, gradorder, _d, _ = kernel_orders(kernel_type)
     inv = pm.InvCellSize
 
-    def step_stale(x, v, coeffs):
+    def run(x, v, coeffs, own):
         return _step(pm, potorder, gradorder,
                      lambda x: cic.cic_paint(x, pm.Nmesh, inv),
-                     lambda f, x: cic.cic_readout(f, x, inv), x, v, coeffs)
+                     lambda f, x: cic.cic_readout(f, x, inv), x, v, coeffs,
+                     own)
+
+    def step_stale(x, v, coeffs):
+        return run(x, v, coeffs, False)
 
     def step_fresh(x, v, coeffs):
-        x, v = sort.carry_sort(x, v, pm.Nmesh, inv)
-        return step_stale(x, v, coeffs)
+        # the sort's copies are the step's own
+        return run(*sort.carry_sort(x, v, pm.Nmesh, inv), coeffs, True)
 
     return step_fresh, step_stale
 

@@ -81,7 +81,7 @@ def attach_standard_handlers(solver, log: Optional[Log] = None,
     def report_domain(event):
         s = event.solver
         for name in s.iter_species():
-            p = s.species[name]
+            p = s.peek(name)
             mn, _, _, mx = p.summary("x", s.ring)
             log.info("Position range (a = %06.4f): min = %g %g %g "
                      "max = %g %g %g", p.a_x, *mn, *mx)
@@ -93,7 +93,7 @@ def attach_standard_handlers(solver, log: Optional[Log] = None,
     def write_ps(event):
         s = event.solver
         pm = event.pm
-        p = s.species["cdm"]
+        p = s.peek("cdm")
         if p.acc is not None:
             _, fstd, _, _ = p.summary("acc", s.ring)
             log.info("Force dispersion: std = %g %g %g", *fstd)

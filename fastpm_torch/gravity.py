@@ -57,6 +57,8 @@ def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str,
     delta_k = kernels.apply_softening(pm, delta_k, softening_type)
     if delta_transfer is not None:
         delta_k = delta_transfer(delta_k)
+    # a new tensor beside delta_k, which the caller keeps: the last
+    # gradient is taken in it
     pot_k = kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
                                           "potential")
     return delta_k, pm.c2r_grad3(pot_k, kernels.kernel_orders(kernel_type)[1])
@@ -69,9 +71,9 @@ def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
     orders: one CellOrder (or None) per species, handed to the painter.
 
     The canvas entering r2c is 1 + delta: mass per cell over the mean
-    mass per cell. The total mass is M0 * N for a scalar-mass species
-    plus the sum of the mass column for a species that has one; the sum
-    stays on the device (float64)."""
+    mass per cell, scaled in place. The total mass is M0 * N for a
+    scalar-mass species plus the sum of the mass column for a species
+    that has one; the sum stays on the device (float64)."""
     canvas = None
     total_mass = 0.0
     for p, order in zip(stores, orders or [None] * len(stores)):
@@ -82,7 +84,7 @@ def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
             total_mass = total_mass + p.M0 * p.np_local
             canvas = painter.paint(p.x, float(np.float32(p.M0)), canvas,
                                    order)
-    return pm.r2c(canvas / (total_mass / pm.Norm))
+    return pm.r2c(canvas.div_(total_mass / pm.Norm))
 
 
 def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
@@ -108,7 +110,7 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
     del f0, f1, f2
     if compute_potential and any(p.potential is not None for p in out):
         pot = pm.c2r(kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
-                                                   "potential"))
+                                                   "potential"), donate=True)
         out = [p if p.potential is None else p.replace(
                    potential=painter.readout_fields([pot], p.x, o)[:, 0])
                for p, o in zip(out, orders)]
@@ -118,7 +120,7 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
         parts = [[] for _ in out]
         for m0 in (0, 3):
             tid = [pm.c2r(kernels.apply_kernel_transfer(
-                pm, delta_k, kernel_type, "tidal", m))
+                pm, delta_k, kernel_type, "tidal", m), donate=True)
                 for m in range(m0, m0 + 3)]
             for part, p, o in zip(parts, out, orders):
                 if p.tidal is not None:
@@ -142,17 +144,27 @@ def carry_eligible(painter: Painter, stores: Sequence[Store],
 
 def compute_force_carry(pm: PM, painter: Painter, store: Store,
                         kernel_type: str = "1_4",
-                        softening_type: str = "none", delta_transfer=None):
+                        softening_type: str = "none", delta_transfer=None,
+                        donate: bool = False):
     """The order-free force of one scalar-mass species
     (compute_force_carry, gravity.py:188-257); the caller checks
     carry_eligible first.
 
     Returns (store sorted by cell with acc filled, delta_k), with delta_k
     as compute_force returns it. K1 and K2 are called directly on the
-    cell-sorted store, as the JAX carry force calls the from8 kernels."""
+    cell-sorted store, as the JAX carry force calls the from8 kernels.
+    donate: the caller gives store up (the JAX step's donation of x and
+    v): its columns are sorted one at a time in the store itself, each
+    old column let go as its successor is made (Store.take), and the
+    store is returned."""
+    order = cic.sort_by_cell(store.x, pm.Nmesh, pm.InvCellSize)
     # every column but acc (overwritten below) rides the sort
-    store = store.replace(acc=None).take(
-        cic.sort_by_cell(store.x, pm.Nmesh, pm.InvCellSize))
+    if donate:
+        store.acc = None
+        store = store.take(order, donate=True)
+    else:
+        store = store.replace(acc=None).take(order)
+    del order
     return _force_in_order(pm, store, kernel_type, softening_type,
                            delta_transfer)
 
@@ -183,7 +195,7 @@ def _force_in_order(pm: PM, store: Store, kernel_type: str,
     canvas = cic.cic_paint(store.x, pm.Nmesh, pm.InvCellSize,
                            float(np.float32(store.M0)))
     mean_mass_per_cell = store.M0 * store.np_local / pm.Norm
-    delta_k = pm.r2c(canvas / mean_mass_per_cell)
+    delta_k = pm.r2c(canvas.div_(mean_mass_per_cell))
     del canvas
     delta_k, fields = _force_fields(pm, delta_k, kernel_type,
                                     softening_type, delta_transfer)

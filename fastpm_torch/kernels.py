@@ -57,15 +57,16 @@ def apply_kernel_transfer(pm: PM, delta_k, kernel_type: str, field: str,
         return out
     if field == "potential":
         return transfers.apply_pot(pm, out, potorder)
+    # the potential is a new tensor: the gradients are taken in it
     if field == "acc":
         out = transfers.apply_pot(pm, out, potorder)
-        return transfers.apply_grad(pm, out, memb, gradorder)
+        return transfers.apply_grad(pm, out, memb, gradorder, out=out)
     if field == "tidal":
         pairs = [(0, 0), (1, 1), (2, 2), (0, 1), (1, 2), (2, 0)]
         d1, d2 = pairs[memb]
         out = transfers.apply_pot(pm, out, potorder)
-        out = transfers.apply_grad(pm, out, d1, gradorder)
-        return transfers.apply_grad(pm, out, d2, gradorder)
+        out = transfers.apply_grad(pm, out, d1, gradorder, out=out)
+        return transfers.apply_grad(pm, out, d2, gradorder, out=out)
     raise ValueError(f"unknown gravity field {field!r}")
 
 

@@ -189,22 +189,37 @@ class PM:
     # ---- FFTs (pmpfft.c:370-399) ----
 
     def r2c(self, x: torch.Tensor) -> torch.Tensor:
-        """Real -> complex with 1/Norm so the round trip is unitary."""
-        return (torch.fft.rfftn(x) / self.Norm).to(self.cdtype)
+        """Real -> complex with 1/Norm so the round trip is unitary. The
+        1/Norm is applied to the transform in place: one complex field,
+        not two."""
+        k = torch.fft.rfftn(x)
+        return k.div_(self.Norm).to(self.cdtype)
 
-    def c2r(self, k: torch.Tensor) -> torch.Tensor:
-        """Complex -> real, inverse of r2c."""
-        return torch.fft.irfftn(k * self.Norm, s=self.Nmesh).to(self.dtype)
+    def c2r(self, k: torch.Tensor, donate: bool = False) -> torch.Tensor:
+        """Complex -> real, inverse of r2c. donate: the caller gives k up,
+        and the Norm is applied to it in place (no scaled copy; k's
+        values are lost)."""
+        k = k.mul_(self.Norm) if donate else k * self.Norm
+        return torch.fft.irfftn(k, s=self.Nmesh).to(self.dtype)
 
     def c2r_grad3(self, fk: torch.Tensor, gradorder: int):
         """The force step's three gradient returns:
         (c2r(i k_d * fk) for d in x, y, z), with the diff table order
         per kernel (0 = k, 1 = k_finite super-Lanczos) and apply_diff's
-        self-conjugate-mode zeroing (gravity.c:34-64). Three plain c2r
-        calls, one field at a time."""
+        self-conjugate-mode zeroing (gravity.c:34-64). Three c2r calls,
+        one field at a time, each gradient scaled in place in one
+        temporary. fk is consumed: the last gradient is taken in fk
+        itself, so fk is gone before the last c2r (the two-canvas cost
+        model of gravity.c:415, 468); a caller that keeps fk passes a
+        clone."""
         from . import transfers
-        return tuple(self.c2r(transfers.apply_grad(self, fk, d, gradorder))
-                     for d in range(3))
+        out = []
+        for d in range(3):
+            g = transfers.apply_grad(self, fk, d, gradorder,
+                                     out=fk if d == 2 else None)
+            out.append(self.c2r(g, donate=True))
+            del g
+        return tuple(out)
 
     # ---- diagnostics ----
 

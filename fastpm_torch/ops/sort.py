@@ -201,18 +201,25 @@ sort_maybe_ksorted.fallbacks = 0
 
 
 def carry_sort(x: torch.Tensor, v: torch.Tensor, nmesh, inv_cell,
-               sort_block: int | None = None):
+               sort_block: int | None = None, donate: bool = False):
     """The sort of the order-free step (make_prepare_carry_fn,
     paint_pallas.py:484-518): (x, v) sorted by the int32 cell key of x.
     With sort_block the k-sorted sort of (key, x0..2, v0..2) with runs of
     sort_block, padded to a multiple of 2 * sort_block with INT32_MAX keys
     (which sort last and are sliced off); else a full sort and two
     gathers. Rows of one cell come in an order the two do not share.
-    carry_sort.calls counts the calls."""
+    donate: the caller gives x and v up (the JAX step's donation): the
+    sorted rows are written into them, one column at a time, and they
+    are returned. carry_sort.calls counts the calls."""
     carry_sort.calls += 1
     if sort_block is None:
         order = cic.sort_by_cell(x, nmesh, inv_cell)
-        return x[order], v[order]
+        if not donate:
+            return x[order], v[order]
+        # one sorted column alive at a time
+        x.copy_(x[order])
+        v.copy_(v[order])
+        return x, v
     key = cic.cell_key(x, nmesh, inv_cell)
     n = x.shape[0]
     npad = -(-n // (2 * sort_block)) * (2 * sort_block)
@@ -222,6 +229,11 @@ def carry_sort(x: torch.Tensor, v: torch.Tensor, nmesh, inv_cell,
                                          else 0)])
                 for i, c in enumerate(cols)]
     out = sort_maybe_ksorted(cols, sort_block)
+    del cols
+    if donate:
+        x.copy_(torch.stack(out[1:4], 1)[:n])
+        v.copy_(torch.stack(out[4:7], 1)[:n])
+        return x, v
     return (torch.stack(out[1:4], 1)[:n].contiguous(),
             torch.stack(out[4:7], 1)[:n].contiguous())
 

@@ -68,6 +68,7 @@ from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
+import weakref
 
 import numpy as np
 import torch
@@ -227,7 +228,11 @@ class Solver:
         blocks = None
         if self.comm is grid and nc % grid.px == 0 and nc % grid.py == 0:
             blocks = (grid.px, grid.py)
-        self.species: Dict[str, Store] = {CDM: lattice_store(
+        # the columns the solver made and nobody outside has seen, by
+        # (species, column), as weak references: a kick or a drift writes
+        # such a column in place (see species)
+        self._fresh = {}
+        self._species: Dict[str, Store] = {CDM: lattice_store(
             self.basepm, Nc=nc, shift=shift, columns=columns, name="cdm",
             rand_ntask=config.rand_ntask, blocks=blocks).shard(self.ring)}
         # the neutrino linear-response state (setup_linear_response)
@@ -240,8 +245,8 @@ class Solver:
                 kl=config.pgdc_kl, ks=config.pgdc_ks,
                 painter_type=config.painter_type,
                 painter_support=config.painter_support)
-            p = self.species[CDM]
-            self.species[CDM] = p.replace(pgdc=torch.zeros_like(p.x))
+            p = self._species[CDM]
+            self._species[CDM] = p.replace(pgdc=torch.zeros_like(p.x))
         # deferred check_values flag of the last force (_settle_cv)
         self._cv_pending = None
         # the force engines (by mesh and decomposition) and measured halo
@@ -250,6 +255,8 @@ class Solver:
         self._halo = {}
         # force steps by the path they took
         self.force_paths = Counter()
+        # the kicks and drifts of a species written in place
+        self.in_place = Counter()
         # stale stepping: per force mesh, the stale forces since the last
         # carry force
         self._stale_since = {}
@@ -258,6 +265,27 @@ class Solver:
     def sharded(self) -> bool:
         """Whether the force runs over a process group (of one rank too)."""
         return self.ring.group is not None
+
+    @property
+    def species(self) -> Dict[str, Store]:
+        """The species' stores by name. Whoever reads the table may keep
+        a store, so reading it ends the solver's claim on every column:
+        the next kick and drift of each species write new columns."""
+        self._fresh.clear()
+        return self._species
+
+    def peek(self, name: str) -> Store:
+        """The store of a species, for a read that keeps no reference to
+        it or to its columns past the call (a summary); the solver goes
+        on writing the columns it made in place."""
+        return self._species[name]
+
+    def _owns(self, name: str, column: str) -> bool:
+        """Whether the solver made the current column of a species, and
+        nobody outside has seen it since."""
+        ref = self._fresh.get((name, column))
+        return ref is not None and ref() is getattr(self._species[name],
+                                                    column)
 
     def add_species(self, name: str, store: Store) -> None:
         """Add a species (one of SPECIES_ORDER) from every rank's full
@@ -269,16 +297,16 @@ class Solver:
         if name not in SPECIES_ORDER:
             raise ValueError(f"unknown species {name!r}: the species are "
                              f"{', '.join(SPECIES_ORDER)}")
-        self.species[name] = store.shard(self.ring)
+        self._species[name] = store.shard(self.ring)
         self._stale_since.clear()
 
     def global_count(self, name: str) -> int:
         """The number of particles of a species over every rank."""
-        return int(self.ring.psum(self.species[name].count()))
+        return int(self.ring.psum(self._species[name].count()))
 
     def iter_species(self):
         for name in SPECIES_ORDER:
-            if name in self.species:
+            if name in self._species:
                 yield name
 
     # ---- PM selection (vpm.c:9-20) ----
@@ -299,7 +327,7 @@ class Solver:
         M0 from Omega_cdm; with growth_rate_func_k (a FuncK of f(k)) the
         velocities come from the dv1 readouts (ncdm)."""
         cfg = self.config
-        p = self.species[species]
+        p = self._species[species]
         if species == CDM:
             p = p.replace(M0=self.cosmology.Omega_cdm * RHO_CRIT
                           * (cfg.boxsize / cfg.nc) ** 3)
@@ -320,13 +348,13 @@ class Solver:
         p = lpt_evolve(self.cosmology, a0, p, za_only=False)
         if not self._keep_lpt:
             p = p.replace(dx1=None, dx2=None, dv1=None)
-        self.species[species] = p
+        self._species[species] = p
         # new particles: no carried order to reuse (solver.py:299-302)
         self._stale_since.clear()
         self.event_handlers.emit(ev.EVENT_LPT, ev.STAGE_AFTER,
                                  solver=self, pm=self.lptpm,
                                  delta_k=delta_k_ic,
-                                 store=self.species[species])
+                                 store=self._species[species])
 
     # ---- factors (cached per step endpoints) ----
 
@@ -373,9 +401,11 @@ class Solver:
         painter = Painter(pm, cfg.painter_type, cfg.painter_support)
         # decompose analog: the periodic wrap (solver.c:571-592). The
         # solver lets go of the old stores so the cell sort's permuted
-        # copy is the only one alive
+        # copy is the only one alive. A force starts with no claim on a
+        # column: only the carry's sort makes them anew
+        self._fresh.clear()
         names = list(self.iter_species())
-        stores = [self.species.pop(n).wrap(pm.BoxSize) for n in names]
+        stores = [self._species.pop(n).wrap(pm.BoxSize) for n in names]
         lra = None
         if self.cosmology.ncdm_linearresponse:
             if self.lra is None:
@@ -406,7 +436,7 @@ class Solver:
             if cfg.order_free and carry_eligible(
                     painter, stores, cfg.compute_potential,
                     cfg.compute_tidal):
-                stores, delta_k = self._carry_force(pm, painter,
+                stores, delta_k = self._carry_force(pm, painter, names[0],
                                                     stores.pop(), transfer)
             else:
                 stores, delta_k = compute_force(pm, painter, stores,
@@ -415,7 +445,7 @@ class Solver:
                                                 cfg.compute_potential,
                                                 cfg.compute_tidal, transfer)
                 self.force_paths["multi"] += 1
-        self.species.update(zip(names, stores))
+        self._species.update(zip(names, stores))
         if cfg.check_values:
             # stays on the device until the next force or snapshot
             ok = torch.isfinite(torch.view_as_real(delta_k)).all()
@@ -428,7 +458,7 @@ class Solver:
         # the force; over ranks from the k shard with its pad, read out
         # as the force reads
         if self.pgd is not None:
-            p = self.species[CDM]
+            p = self._species[CDM]
             alpha = self.pgd.alpha(a_f)
             if read is None:
                 pgdc = self.pgd.compute_with_alpha(pm, p.x, delta_k, alpha)
@@ -437,7 +467,7 @@ class Solver:
                 if p.alive is not None:
                     # a dead row's position is stale
                     pgdc = pgdc * p.alive[:, None]
-            self.species[CDM] = p.replace(pgdc=pgdc)
+            self._species[CDM] = p.replace(pgdc=pgdc)
         return delta_k[:, :, :kpm.kshape[2]], kpm
 
     # ---- the neutrino linear response (gravity.c:457-529) ----
@@ -477,11 +507,13 @@ class Solver:
                 torch.from_numpy(vals.astype(np.float32)).to(dev),
                 logk.tobytes())
 
-    def _carry_force(self, pm: PM, painter: Painter, store: Store,
-                     transfer=None):
+    def _carry_force(self, pm: PM, painter: Painter, name: str,
+                     store: Store, transfer=None):
         """The order-free force of one species on one device: fresh (with
         the sort), or stale when stale_every allows it for this force
-        mesh. Returns ([store], delta_k)."""
+        mesh. The sort makes every column anew, so the solver claims x
+        and v for the kick and drift to write in place. Returns ([store],
+        delta_k)."""
         cfg = self.config
         since = self._stale_since.get(pm.Nmesh)
         if since is not None and since < cfg.stale_every - 1:
@@ -491,9 +523,13 @@ class Solver:
             self._stale_since[pm.Nmesh] = since + 1
             self.force_paths["stale"] += 1
         else:
+            # force() let go of the store: it is sorted in itself
             p, delta_k = compute_force_carry(pm, painter, store,
                                              cfg.kernel_type,
-                                             cfg.softening_type, transfer)
+                                             cfg.softening_type, transfer,
+                                             donate=True)
+            for c in ("x", "v"):
+                self._fresh[name, c] = weakref.ref(getattr(p, c))
             if cfg.stale_every > 1:
                 self._stale_since[pm.Nmesh] = 0
             self.force_paths["carry"] += 1
@@ -670,41 +706,59 @@ class Solver:
             if rehomed:
                 stores = [self._to_rehomed(stores[0].compact(), pm)]
 
-    def kick_one(self, p: Store, kick: KickFactor, af: float) -> Store:
+    def kick_one(self, p: Store, kick: KickFactor, af: float,
+                 donate: bool = False) -> Store:
         """Apply a kick to a store (fastpm_kick_store, factors.c:147-197):
         cola adds the LPT terms. Each product and sum rounds once, in the
-        JAX package's order, with float32 coefficients."""
+        JAX package's order, with float32 coefficients. donate: the
+        caller gives p's velocity up, and the new one is written into it;
+        otherwise into a copy. The same bits either way."""
         dda, Dv1, Dv2 = (_f32(c) for c in kick.coefficients(p.a_v, af))
+        v = p.v if donate else p.v.clone()
         if kick.force_mode == "cola":
-            v = (p.v + (p.acc + p.dx1 * _f32(kick.q1) + p.dx2 * _f32(kick.q2))
-                 * dda + p.dx1 * Dv1 + p.dx2 * Dv2)
+            # a sum's operands commute bit for bit, so t += acc is
+            # acc + t; one temporary column besides the products
+            t = p.dx1 * _f32(kick.q1)
+            t.add_(p.acc).add_(p.dx2 * _f32(kick.q2)).mul_(dda)
+            v.add_(t).add_(p.dx1 * Dv1).add_(p.dx2 * Dv2)
+            del t
         else:
-            v = p.v + p.acc * dda
+            v.add_(p.acc * dda)
+        if donate:
+            self.in_place["kick"] += 1
         return p.replace(v=v, a_v=float(af))
 
-    def drift_one(self, p: Store, drift: DriftFactor, af: float) -> Store:
+    def drift_one(self, p: Store, drift: DriftFactor, af: float,
+                  donate: bool = False) -> Store:
         """Apply a drift to a store (fastpm_drift_one, factors.c:72-115):
         za and 2lpt move by the LPT displacements, cola by both, and the
         PGD displacement rides the drift of fastpm, pm and cola over a
-        nonzero interval (factors.c:108-113)."""
+        nonzero interval (factors.c:108-113). donate: as kick_one's, for
+        the position."""
         dyyy, da1, da2 = drift.coefficients(p.a_x, af)
         mode = drift.force_mode
         pgd = p.pgdc is not None and drift.ai != drift.af
         fac = _f32(0.5 * dyyy / drift.dyyy[-1]) if pgd else 0.0
         dyyy, da1, da2 = _f32(dyyy), _f32(da1), _f32(da2)
-        if mode == "2lpt":
-            x = p.x + p.dx1 * da1 + p.dx2 * da2
-        elif mode == "za":
-            x = p.x + p.dx1 * da1
+        x = p.x if donate else p.x.clone()
+        if mode in ("2lpt", "za"):
+            x.add_(p.dx1 * da1)
+            if mode == "2lpt":
+                x.add_(p.dx2 * da2)
         else:
             if mode == "cola":
-                x = (p.x + (p.v - p.dx1 * _f32(drift.Dv1)
-                            - p.dx2 * _f32(drift.Dv2)) * dyyy
-                     + p.dx1 * da1 + p.dx2 * da2)
+                # x + (v - dx1 Dv1 - dx2 Dv2) dyyy + dx1 da1 + dx2 da2
+                w = p.dx1 * _f32(drift.Dv1)
+                torch.sub(p.v, w, out=w)
+                w.sub_(p.dx2 * _f32(drift.Dv2)).mul_(dyyy)
+                x.add_(w).add_(p.dx1 * da1).add_(p.dx2 * da2)
+                del w
             else:
-                x = p.x + p.v * dyyy
+                x.add_(p.v * dyyy)
             if pgd:
-                x = x + p.pgdc * fac
+                x.add_(p.pgdc * fac)
+        if donate:
+            self.in_place["drift"] += 1
         return p.replace(x=x, a_x=float(af))
 
     def do_kick(self, trans, states: StateTable, iend: int) -> None:
@@ -718,10 +772,11 @@ class Solver:
             self._do_interpolation(drift, kick, trans.a_i, trans.a_f,
                                    ev.TIMESTEP_CUR)
         for name in self.iter_species():
-            p = self.species[name]
+            p = self._species[name]
             if abs(kick.ai - p.a_v) > 1e-12 or abs(kick.ac - p.a_x) > 1e-12:
                 raise RuntimeError("kick is inconsistent with state")
-            self.species[name] = self.kick_one(p, kick, trans.a_f)
+            self._species[name] = self.kick_one(
+                p, kick, trans.a_f, donate=self._owns(name, "v"))
 
     def do_drift(self, trans, states: StateTable, iend: int) -> None:
         drift = self._drift_factor(trans.a_i, trans.a_r, trans.a_f)
@@ -734,10 +789,11 @@ class Solver:
             self._do_interpolation(drift, kick, trans.a_i, trans.a_f,
                                    ev.TIMESTEP_CUR)
         for name in self.iter_species():
-            p = self.species[name]
+            p = self._species[name]
             if abs(drift.ai - p.a_x) > 1e-12 or abs(drift.ac - p.a_v) > 1e-12:
                 raise RuntimeError("drift is inconsistent with state")
-            self.species[name] = self.drift_one(p, drift, trans.a_f)
+            self._species[name] = self.drift_one(
+                p, drift, trans.a_f, donate=self._owns(name, "x"))
 
     def _settle_cv(self) -> None:
         """Deferred check_values fetch; raises like fastpm_raise
@@ -767,9 +823,9 @@ class Solver:
 
         # warmup: zero acc (solver.c:380-394)
         for name in self.iter_species():
-            p = self.species[name]
+            p = self._species[name]
             if p.acc is not None:
-                self.species[name] = p.replace(acc=torch.zeros_like(p.acc))
+                self._species[name] = p.replace(acc=torch.zeros_like(p.acc))
 
         states = StateTable(ts)
         for i in range(1, len(states.table)):
@@ -827,3 +883,4 @@ def _cached_kick(c, mode, ai, ac, af, nLPT):
 @lru_cache(maxsize=4096)
 def _cached_drift(c, mode, ai, ac, af, nLPT):
     return DriftFactor(c, mode, ai, ac, af, nLPT)
+

@@ -136,9 +136,18 @@ class Store:
     def replace(self, **kwargs) -> "Store":
         return dataclasses.replace(self, **kwargs)
 
-    def take(self, index: torch.Tensor) -> "Store":
-        """Every per-particle column permuted (or selected) by index."""
-        return self.replace(**{c: t[index] for c, t in self.columns()})
+    def take(self, index: torch.Tensor, donate: bool = False) -> "Store":
+        """Every per-particle column permuted (or selected) by index.
+        donate: the caller gives this store up: its columns are replaced
+        in it one at a time, each old column let go as its successor is
+        made, so that where nothing else holds them the transient is one
+        column, not the whole store; the store itself is returned."""
+        if not donate:
+            return self.replace(**{c: t[index] for c, t in self.columns()})
+        for c in COLUMNS:
+            if getattr(self, c) is not None:
+                setattr(self, c, getattr(self, c)[index])
+        return self
 
     def compact(self) -> "Store":
         """Drop the dead rows (alive == 0). A store without an alive

@@ -51,36 +51,41 @@ def apply_decic(pm: PM, dk):
     return out
 
 
-def apply_diff(pm: PM, dk, dir: int, order: int, zero_nyquist: bool = True):
+def apply_diff(pm: PM, dk, dir: int, order: int, zero_nyquist: bool = True,
+               out=None):
     """i k[dir] (order 0) or i k_finite[dir] (order 1, the 4-point
     super-Lanczos kernel). Self-conjugate (Nyquist) modes are zeroed so the
-    result stays the transform of a real field (gravity.c:34-64)."""
+    result stays the transform of a real field (gravity.c:34-64). The
+    result is one new tensor, masked in place, or out (dk itself, for a
+    caller that gives dk up)."""
     kd = pm.broadcast_table(["k", "k_finite"][order], dir)
-    out = dk * torch.complex(torch.zeros_like(kd), kd)
+    out = torch.mul(dk, torch.complex(torch.zeros_like(kd), kd), out=out)
     if zero_nyquist:
-        out = out * pm.not_self_conjugate()
+        out.mul_(pm.not_self_conjugate())
     return out
 
 
-def apply_laplace(pm: PM, dk, order: int):
+def apply_laplace(pm: PM, dk, order: int, inplace: bool = False):
     """Inverse Laplacian 1/kk with finite-difference order 0/1/2
-    (transfer.c:153-186); the zero mode is zeroed."""
+    (transfer.c:153-186); the zero mode is zeroed. inplace: dk is
+    multiplied in place (a caller that gives dk up)."""
     kk = pm.kk(["kk", "kk_finite", "kk_finite2"][order])
     nz = kk != 0
     inv = torch.where(nz, 1.0 / torch.where(nz, kk, torch.ones_like(kk)),
                       torch.zeros_like(kk))
-    return dk * inv
+    return dk.mul_(inv) if inplace else dk * inv
 
 
-def apply_pot(pm: PM, dk, order: int):
-    """-1/kk: Poisson potential from overdensity (gravity.c:13-18)."""
-    return -apply_laplace(pm, dk, order)
+def apply_pot(pm: PM, dk, order: int, inplace: bool = False):
+    """-1/kk: Poisson potential from overdensity (gravity.c:13-18), the
+    sign taken in place on the product; inplace: on dk itself."""
+    return apply_laplace(pm, dk, order, inplace).neg_()
 
 
-def apply_grad(pm: PM, dk, dir: int, order: int):
+def apply_grad(pm: PM, dk, dir: int, order: int, out=None):
     """Gradient of a potential field: i k (order per kernel type)
-    (gravity.c:20-64)."""
-    return apply_diff(pm, dk, dir, order, zero_nyquist=True)
+    (gravity.c:20-64); out as apply_diff's."""
+    return apply_diff(pm, dk, dir, order, zero_nyquist=True, out=out)
 
 
 def apply_any(pm: PM, dk, fkfunc, host_tables: bool = False):

@@ -40,7 +40,7 @@ def test_import_leaves_jax_out():
                  "parallel.psolver", "parallel.pfof", "pgd", "neutrinos_lra",
                  "png", "constrained", "lightcone", "io.snapshots",
                  "io.fields", "io.legacy", "io.angular", "memory", "prof",
-                 "dump", "tools"):
+                 "dump", "tools", "measure_halo"):
         assert "fastpm_torch." + name in names
 
 
@@ -63,9 +63,11 @@ def test_entry_points_raise_without_cuda(tmp_path):
         main([str(conf)])
     from fastpm_torch import benchlib
     from fastpm_torch.mesh import PM
+    from fastpm_torch import measure_halo
     for entry in (lambda: benchlib.make_step_fn(PM(8, 16.0)),
                   lambda: benchlib.make_stale_step_fns(PM(8, 16.0)),
-                  lambda: benchlib.example_particles(4, 16.0)):
+                  lambda: benchlib.example_particles(4, 16.0),
+                  lambda: measure_halo.main(["8"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
 
