@@ -890,7 +890,8 @@ def _check_restart(p: Params) -> None:
 
 def run_fastpm(p: Params, log=None, n_writers: int = 0,
                device=None, group=None, restart: str = None,
-               memory_bound_mb: int = 0, grid=None) -> Solver:
+               memory_bound_mb: int = 0, grid=None,
+               profile: bool = False) -> Solver:
     """The full run (src/fastpm.c:run_fastpm) on `device` (default: the
     first CUDA device; raises when there is none), over the ranks of
     the process group `group` when one is given (in x-slabs), or of the
@@ -899,7 +900,10 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     logs its
     banner and the memory report, and MemoryBoundExceeded stops the run
     when memory_bound_mb is set and exceeded; the teardown logs the
-    memory report and the kick, drift and force clocks (prof)."""
+    memory report and the clocks' table (prof). On a CUDA device, and
+    under a profiler trace (profile), the clocks time the card and are
+    spans of the trace (prof.enable_sync) for the run, and are off
+    after it."""
     device = resolve_device(device)
     if grid is not None and group is None:
         group = grid.group
@@ -919,6 +923,8 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     if grid is not None and ranks > 1:
         log.info("Using a %s device mesh over %d devices", grid.shape,
                  ranks)
+    prof.reset()
+    prof.enable_sync(device.type == "cuda" or profile)
     solver = Solver(cfg, build_cosmology(p), device=device, group=group,
                     grid=grid)
     if p.ncdm_linearresponse:
@@ -936,7 +942,6 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
     # src/fastpm.c:1576-1601; report_memory:1604-1646)
     monitor = MemoryMonitor(bound_bytes=(int(memory_bound_mb) << 20)
                             if memory_bound_mb else None, device=device)
-    prof.reset()
 
     def print_transition(event):
         t = event.transition
@@ -981,6 +986,7 @@ def run_fastpm(p: Params, log=None, n_writers: int = 0,
             prepare_ncdm(solver, p, p.time_step[0], log)
         solver.evolve(solver.config.time_step)
     finally:
+        prof.enable_sync(False)
         # join in-flight background snapshot writes even when evolve
         # raises, so a failed write is reported, not lost
         checker.flush()
@@ -1054,8 +1060,8 @@ def main(argv=None, device=None):
                     help="restart from snapshot path")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace (Chrome JSON) of "
-                         "the run to DIR; the kick, drift and force "
-                         "clocks print regardless")
+                         "the run, with the program's spans, to DIR; the "
+                         "clocks' table prints regardless")
     ap.add_argument("params", help="Lua parameter file")
     ap.add_argument("args", nargs="*", help="extra arguments exposed as "
                     "`args` in the parameter file")
@@ -1065,7 +1071,7 @@ def main(argv=None, device=None):
     p = load_params(ns.params, ns.args)
     device, group, grid = start_ranks(device, 1 if ns.fftw else ns.nprocy)
     kw = dict(n_writers=ns.W, device=device, restart=ns.restart,
-              memory_bound_mb=ns.memory_bound_mb)
+              memory_bound_mb=ns.memory_bound_mb, profile=bool(ns.profile))
     try:
         with _profiled(ns.profile, device, group):
             if group is None:

@@ -30,6 +30,14 @@ transferred delta_k: the neutrino linear response (solver.py) goes in
 there. It is the JAX package's split of the force around the response's
 host round trip (jit_pre / jit_post, solver.py:912-955) as one eager
 call.
+
+Each phase of a force runs in a `prof` clock, a span of the profiler's
+trace while prof.enable_sync is on, named under the Solver's `force`:
+`force.order` (the cell sort and its gathers, or the cell orders),
+`force.paint` (K1 or K3 and the division by the mean mass),
+`force.r2c` and `force.c2r` (each FFT with its Norm), `force.kspace`
+(the softening, the transfer, the potential and tidal transfers and
+each gradient multiply) and `force.readout` (K2 or K4).
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from .mesh import PM
 from .painter import Painter
 from .store import Store
 from .ops import cic
-from . import kernels
+from . import kernels, prof
 
 __all__ = ["paint_delta_k", "compute_force", "carry_eligible",
            "compute_force_carry", "compute_force_stale"]
@@ -54,26 +62,41 @@ def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str,
     """(softened delta_k, the three acceleration fields) from the
     overdensity transform (gravity.c:457-529); delta_transfer, when
     given, maps the softened delta_k before the potential kernel."""
-    delta_k = kernels.apply_softening(pm, delta_k, softening_type)
-    if delta_transfer is not None:
-        delta_k = delta_transfer(delta_k)
-    # a new tensor beside delta_k, which the caller keeps: the last
-    # gradient is taken in it
-    pot_k = kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
-                                          "potential")
+    with prof.clock("force.kspace"):
+        delta_k = kernels.apply_softening(pm, delta_k, softening_type)
+        if delta_transfer is not None:
+            delta_k = delta_transfer(delta_k)
+        # a new tensor beside delta_k, which the caller keeps: the last
+        # gradient is taken in it
+        pot_k = kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
+                                              "potential")
     return delta_k, pm.c2r_grad3(pot_k, kernels.kernel_orders(kernel_type)[1])
+
+
+def _transfer_c2r(pm: PM, delta_k, kernel_type: str, field: str, *memb):
+    """The real field of a transfer of delta_k (the potential, or a tidal
+    component), its transform donated to c2r."""
+    with prof.clock("force.kspace"):
+        fk = kernels.apply_kernel_transfer(pm, delta_k, kernel_type, field,
+                                           *memb)
+    with prof.clock("force.c2r"):
+        return pm.c2r(fk, donate=True)
 
 
 def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
                   orders=None):
     """Paint all species into one canvas and return the overdensity
     transform delta_k (_fastpm_solver_compute_delta_k, gravity.c:304-356).
-    orders: one CellOrder (or None) per species, handed to the painter.
+    orders: one CellOrder (or None) per species, handed to the painter."""
+    return pm.r2c(_paint_canvas(pm, painter, stores, orders))
 
-    The canvas entering r2c is 1 + delta: mass per cell over the mean
-    mass per cell, scaled in place. The total mass is M0 * N for a
-    scalar-mass species plus the sum of the mass column for a species
-    that has one; the sum stays on the device (float64)."""
+
+def _paint_canvas(pm: PM, painter: Painter, stores: Sequence[Store],
+                  orders=None):
+    """The canvas paint_delta_k transforms: 1 + delta, mass per cell over
+    the mean mass per cell, scaled in place. The total mass is M0 * N
+    for a scalar-mass species plus the sum of the mass column for a
+    species that has one; the sum stays on the device (float64)."""
     canvas = None
     total_mass = 0.0
     for p, order in zip(stores, orders or [None] * len(stores)):
@@ -84,7 +107,7 @@ def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
             total_mass = total_mass + p.M0 * p.np_local
             canvas = painter.paint(p.x, float(np.float32(p.M0)), canvas,
                                    order)
-    return pm.r2c(canvas.div_(total_mass / pm.Norm))
+    return canvas.div_(total_mass / pm.Norm)
 
 
 def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
@@ -100,31 +123,37 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
     Returns (stores with acc filled, delta_k). delta_k has the softening
     applied but not the deCIC compensation (the caller applies that for
     the power spectrum event, solver.c:466-471)."""
-    orders = [cic.cell_order(p.x, pm.Nmesh, pm.InvCellSize)
-              if painter.is_cic else None for p in stores]
-    delta_k = paint_delta_k(pm, painter, stores, orders)
+    with prof.clock("force.order"):
+        orders = [cic.cell_order(p.x, pm.Nmesh, pm.InvCellSize)
+                  if painter.is_cic else None for p in stores]
+    with prof.clock("force.paint"):
+        canvas = _paint_canvas(pm, painter, stores, orders)
+    with prof.clock("force.r2c"):
+        delta_k = pm.r2c(canvas)
+    del canvas
     delta_k, (f0, f1, f2) = _force_fields(pm, delta_k, kernel_type,
                                           softening_type, delta_transfer)
-    out = [p.replace(acc=painter.readout3(f0, f1, f2, p.x, order))
-           for p, order in zip(stores, orders)]
+    with prof.clock("force.readout"):
+        out = [p.replace(acc=painter.readout3(f0, f1, f2, p.x, order))
+               for p, order in zip(stores, orders)]
     del f0, f1, f2
     if compute_potential and any(p.potential is not None for p in out):
-        pot = pm.c2r(kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
-                                                   "potential"), donate=True)
-        out = [p if p.potential is None else p.replace(
-                   potential=painter.readout_fields([pot], p.x, o)[:, 0])
-               for p, o in zip(out, orders)]
+        pot = _transfer_c2r(pm, delta_k, kernel_type, "potential")
+        with prof.clock("force.readout"):
+            out = [p if p.potential is None else p.replace(
+                       potential=painter.readout_fields([pot], p.x, o)[:, 0])
+                   for p, o in zip(out, orders)]
         del pot
     if compute_tidal and any(p.tidal is not None for p in out):
         # three fields at a time: the readout takes at most three
         parts = [[] for _ in out]
         for m0 in (0, 3):
-            tid = [pm.c2r(kernels.apply_kernel_transfer(
-                pm, delta_k, kernel_type, "tidal", m), donate=True)
-                for m in range(m0, m0 + 3)]
-            for part, p, o in zip(parts, out, orders):
-                if p.tidal is not None:
-                    part.append(painter.readout_fields(tid, p.x, o))
+            tid = [_transfer_c2r(pm, delta_k, kernel_type, "tidal", m)
+                   for m in range(m0, m0 + 3)]
+            with prof.clock("force.readout"):
+                for part, p, o in zip(parts, out, orders):
+                    if p.tidal is not None:
+                        part.append(painter.readout_fields(tid, p.x, o))
             del tid
         out = [p if p.tidal is None else p.replace(tidal=torch.cat(part, 1))
                for p, part in zip(out, parts)]
@@ -157,14 +186,15 @@ def compute_force_carry(pm: PM, painter: Painter, store: Store,
     v): its columns are sorted one at a time in the store itself, each
     old column let go as its successor is made (Store.take), and the
     store is returned."""
-    order = cic.sort_by_cell(store.x, pm.Nmesh, pm.InvCellSize)
-    # every column but acc (overwritten below) rides the sort
-    if donate:
-        store.acc = None
-        store = store.take(order, donate=True)
-    else:
-        store = store.replace(acc=None).take(order)
-    del order
+    with prof.clock("force.order"):
+        order = cic.sort_by_cell(store.x, pm.Nmesh, pm.InvCellSize)
+        # every column but acc (overwritten below) rides the sort
+        if donate:
+            store.acc = None
+            store = store.take(order, donate=True)
+        else:
+            store = store.replace(acc=None).take(order)
+        del order
     return _force_in_order(pm, store, kernel_type, softening_type,
                            delta_transfer)
 
@@ -192,12 +222,16 @@ def _force_in_order(pm: PM, store: Store, kernel_type: str,
                     softening_type: str, delta_transfer=None):
     """The body of the carry and stale forces: K1, the force fields and
     K2 on the store's rows in their order."""
-    canvas = cic.cic_paint(store.x, pm.Nmesh, pm.InvCellSize,
-                           float(np.float32(store.M0)))
-    mean_mass_per_cell = store.M0 * store.np_local / pm.Norm
-    delta_k = pm.r2c(canvas.div_(mean_mass_per_cell))
+    with prof.clock("force.paint"):
+        canvas = cic.cic_paint(store.x, pm.Nmesh, pm.InvCellSize,
+                               float(np.float32(store.M0)))
+        mean_mass_per_cell = store.M0 * store.np_local / pm.Norm
+        canvas.div_(mean_mass_per_cell)
+    with prof.clock("force.r2c"):
+        delta_k = pm.r2c(canvas)
     del canvas
     delta_k, fields = _force_fields(pm, delta_k, kernel_type,
                                     softening_type, delta_transfer)
-    acc = cic.cic_readout(fields, store.x, pm.InvCellSize)
+    with prof.clock("force.readout"):
+        acc = cic.cic_readout(fields, store.x, pm.InvCellSize)
     return store.replace(acc=acc), delta_k

@@ -23,6 +23,8 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from . import prof
+
 __all__ = ["PM"]
 
 
@@ -211,13 +213,16 @@ class PM:
         temporary. fk is consumed: the last gradient is taken in fk
         itself, so fk is gone before the last c2r (the two-canvas cost
         model of gravity.c:415, 468); a caller that keeps fk passes a
-        clone."""
+        clone. Each gradient multiply runs in the force's `force.kspace`
+        clock, each c2r in `force.c2r` (gravity.py)."""
         from . import transfers
         out = []
         for d in range(3):
-            g = transfers.apply_grad(self, fk, d, gradorder,
-                                     out=fk if d == 2 else None)
-            out.append(self.c2r(g, donate=True))
+            with prof.clock("force.kspace"):
+                g = transfers.apply_grad(self, fk, d, gradorder,
+                                         out=fk if d == 2 else None)
+            with prof.clock("force.c2r"):
+                out.append(self.c2r(g, donate=True))
             del g
         return tuple(out)
 

@@ -10,24 +10,37 @@ region's first queued work to its last, synchronising on the end event
 only when the clock is read: the queue never drains between regions, so
 the clocks cost the timed work nothing. Off by default, as in the JAX
 package.
+
+With `enable_sync()` each clock is also a span on the profiler's clock:
+a `torch.profiler.record_function` range named "fastpm." + the clock's
+name around its body, so that in a torch.profiler trace each kernel can
+be put down to the span that launched it and each idle gap to the span
+the host was in. A name's dotted prefix names its parent span:
+`force.kspace` lies inside `force`. Without it a clock opens no range
+and records no event: it costs a perf_counter pair.
 """
 
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
-__all__ = ["Clock", "clock", "report", "reset", "enable_sync"]
+__all__ = ["Clock", "clock", "report", "reset", "enable_sync", "SPAN"]
+
+# the prefix of a clock's range in a torch.profiler trace
+SPAN = "fastpm."
 
 _clocks: Dict[str, "Clock"] = {}
 _sync_cuda = False
 
 
 def enable_sync(on: bool = True):
-    """Time regions on the card (CUDA events) instead of the host."""
+    """Time regions on the card (CUDA events) instead of the host, and
+    open each clock's span in a torch.profiler trace."""
     global _sync_cuda
     _sync_cuda = on
 
@@ -79,25 +92,31 @@ class Clock:
 
 @contextmanager
 def clock(name: str):
-    """with prof.clock("force"): ... accumulates into the named clock."""
+    """with prof.clock("force"): ... accumulates into the named clock,
+    inside the span SPAN + name while enable_sync is on."""
     c = _clocks.setdefault(name, Clock(name))
-    c.enter()
-    try:
-        yield c
-    finally:
-        c.leave()
+    with record_function(SPAN + name) if _sync_cuda else nullcontext():
+        c.enter()
+        try:
+            yield c
+        finally:
+            c.leave()
 
 
 def report(printer=print):
-    """Print the accumulated clock table (fastpm_clock_stat)."""
+    """Print the accumulated clock table (fastpm_clock_stat): each clock
+    under its parent, indented by its depth, and the total of the
+    top-level clocks (a nested clock's time is inside its parent's)."""
     if not _clocks:
         return
     printer("%-28s %10s %8s" % ("Clock", "Seconds", "Count"))
     total = 0.0
-    for name in sorted(_clocks):
+    for name in sorted(_clocks, key=lambda n: n.split(".")):
         c = _clocks[name]
-        printer("%-28s %10.4f %8d" % (name, c.time, c.count))
-        total += c.time
+        depth = name.count(".")
+        printer("%-28s %10.4f %8d" % ("  " * depth + name, c.time, c.count))
+        if not depth:
+            total += c.time
     printer("%-28s %10.4f" % ("Total", total))
 
 

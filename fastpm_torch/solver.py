@@ -60,6 +60,13 @@ rank's k shard, after the overflow count: a replayed force updates the
 history once). PGD reads the force's softened (and transferred) delta_k
 and fills the pgdc column of CDM, which the next drift consumes; over
 ranks through the force's own readout (psolver.reader).
+
+The prof clocks, spans of a torch.profiler trace while prof.enable_sync
+is on: `init` (the constructor: meshes, lattice), `lpt` (setup_lpt),
+`kick`, `drift` and `force` (evolve's actions); inside `force`,
+`force.wait` (the host's fetch of the last force's finite-ness flag),
+`force.wrap` (the periodic wrap), `force.check` (the finite-ness scan)
+and the one-device force's phases (gravity.py).
 """
 
 from __future__ import annotations
@@ -191,6 +198,7 @@ class Solver:
     decomposition (solver.py:183-195). Every rank builds the same
     Solver."""
 
+    @prof.clock("init")
     def __init__(self, config: SolverConfig,
                  cosmology: Optional[Cosmology] = None, device=None,
                  group=None, grid=None):
@@ -320,6 +328,7 @@ class Solver:
 
     # ---- LPT setup (solver.c:154-233) ----
 
+    @prof.clock("lpt")
     def setup_lpt(self, delta_k_ic, a0: float, species: str = CDM,
                   growth_rate_func_k=None) -> None:
         """2LPT initialization of a species from the z=0-normalized
@@ -376,8 +385,10 @@ class Solver:
         self.event_handlers.emit(
             ev.EVENT_FORCE, ev.STAGE_BEFORE, solver=self, pm=pm,
             a_f=trans.a_f, a_n=a_n, N=N, delta_k=None)
-        # settle the PREVIOUS force's deferred finite-ness flag
-        self._settle_cv()
+        # settle the PREVIOUS force's deferred finite-ness flag: the
+        # host waits for the card there
+        with prof.clock("force.wait"):
+            self._settle_cv()
         delta_k, kpm = self.force(pm, trans.a_f)
 
         # compensate the CIC window so the event sees a de-aliased
@@ -405,7 +416,8 @@ class Solver:
         # column: only the carry's sort makes them anew
         self._fresh.clear()
         names = list(self.iter_species())
-        stores = [self._species.pop(n).wrap(pm.BoxSize) for n in names]
+        with prof.clock("force.wrap"):
+            stores = [self._species.pop(n).wrap(pm.BoxSize) for n in names]
         lra = None
         if self.cosmology.ncdm_linearresponse:
             if self.lra is None:
@@ -448,10 +460,12 @@ class Solver:
         self._species.update(zip(names, stores))
         if cfg.check_values:
             # stays on the device until the next force or snapshot
-            ok = torch.isfinite(torch.view_as_real(delta_k)).all()
-            for p in stores:
-                ok = ok & torch.isfinite(p.acc).all()
-            self._cv_pending = (self.ring.psum((~ok).to(torch.int32)), a_f)
+            with prof.clock("force.check"):
+                ok = torch.isfinite(torch.view_as_real(delta_k)).all()
+                for p in stores:
+                    ok = ok & torch.isfinite(p.acc).all()
+                self._cv_pending = (self.ring.psum((~ok).to(torch.int32)),
+                                    a_f)
 
         # the PGD correction from the softened, pre-decic delta_k
         # (solver.c:458-464), at the store's rows in their order after

@@ -161,19 +161,32 @@ def test_snapshots_and_catalogs_agree(runs, a):
 
 def test_flags_memory_lines_clocks_and_trace(runs):
     """-T, -f, -m and --profile are accepted; the memory line is logged
-    at the transitions and at the teardown with the clocks' table; the
-    trace is Chrome JSON of the run."""
+    at the transitions and at the teardown with the clocks' table, each
+    phase of the force indented under it (--profile turns the spans on);
+    the trace is Chrome JSON of the run and holds the program's spans."""
     lines = runs["text"].splitlines()
     mem = [l for l in lines if l.startswith("Peak memory usage: device ")]
     assert len(mem) >= 2 and all(" host rss " in l for l in mem)
     head = lines.index(next(l for l in lines if l.startswith("Clock ")))
-    names = [l.split()[0] for l in lines[head + 1:head + 5]]
-    assert names == ["drift", "force", "kick", "Total"]
-    counts = {l.split()[0]: int(l.split()[2]) for l in lines[head + 1:head + 4]}
-    assert counts == {"drift": 4, "force": 3, "kick": 4}
+    end = lines.index(next(l for l in lines[head:]
+                           if l.startswith("Total ")))
+    rows = lines[head + 1:end]
+    names = [l.split()[0] for l in rows]
+    assert [n for n in names if "." not in n] == [
+        "drift", "force", "init", "kick", "lpt"]
+    phases = names[names.index("force") + 1:names.index("init")]
+    assert "force.kspace" in phases and all(
+        n.startswith("force.") for n in phases)
+    assert all(l.startswith("  force.") for l in rows if "." in l.split()[0])
+    counts = {l.split()[0]: int(l.split()[2]) for l in rows}
+    assert {n: counts[n] for n in ("drift", "force", "kick")} == {
+        "drift": 4, "force": 3, "kick": 4}
     with open(os.path.join(runs["profile"], "trace.json")) as f:
         trace = json.load(f)
     assert len(trace["traceEvents"]) > 0
+    spans = {e.get("name") for e in trace["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"fastpm.force", "fastpm.force.kspace"} <= spans
 
 
 def test_read_lineark_equals_the_writing_run(runs):
