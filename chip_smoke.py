@@ -230,11 +230,15 @@ P. (last, on a card that holds nothing else; the peak counts reset
    GiB) and the buffers live at the step's peak (the allocator's
    history); (P2) 512^3 on a 1024^3 mesh through cli.run_fastpm on phase
    7's Lua (box 768, seed 100; 5 steps, one snapshot at a = 1): launches
-   K1 5, K2 11, no other; the snapshot by id, then deleted; every P(k)
+   K1 5, K2 11, no other, and the k-space kernel (ops/kspace.py) 15, 3 a
+   force; the snapshot by id, then deleted; every P(k)
    bin of k < 0.1 h/Mpc within 2 % of phase 7's at the first and the
    last force (the white noise is nested across resolutions); the force
    step; K1 and K2 against their plain versions at the z = 0 state (the
-   plain ones in row chunks); find_halos on the state (b = 0.2) and the
+   plain ones in row chunks); the k-space kernel bit-equal to its plain
+   version at the 1024^3 force mesh (kernels 1_4 and eastwood, each
+   axis; delta_k of the z = 0 state), timed beside its bound and the
+   unfused chain it replaced; find_halos on the state (b = 0.2) and the
    device labels of the x < 48 slab bit-equal to the host union-find's;
    the run's peak and its buffers; (P3) fastpm_torch.measure_halo at
    384^3 (B2, 10 steps) and its JSON line; (P4, recorded, no gate) the
@@ -374,8 +378,10 @@ def reset_peak():
 
 def reset_launches():
     """Set every kernel's launch count (the homed kernels' open-y count
-    too), and the carry sort's call and fallback counts, to 0."""
-    from fastpm_torch.ops import sort
+    too, and the k-space kernel's), and the carry sort's call and
+    fallback counts, to 0."""
+    from fastpm_torch.ops import kspace, sort
+    kspace.force_grad_k.launches = 0
     for name in KERNELS:
         wrapper(name).launches = 0
     for name in HOMED:
@@ -4473,7 +4479,7 @@ def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
     from fastpm_torch.config.params import load_params
     from fastpm_torch.diagnostics import Log
     from fastpm_torch.painter import Painter
-    from fastpm_torch.ops import cic, fof_device as fd
+    from fastpm_torch.ops import cic, kspace, fof_device as fd
 
     out = os.path.join(tmp, "ladder")
     text = main_text(nc, box, nstep, out).replace("aout = {0.55, 1.0}",
@@ -4507,6 +4513,10 @@ def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
                          if k not in ("cic_paint", "cic_readout")}))
     if launches != want:
         raise SystemExit("phase P2 did not run through K1 / K2 alone")
+    # one k-space kernel launch a gradient, three a force
+    check_launches("phase P2 k-space",
+                   {"force_grad_k": kspace.force_grad_k.launches},
+                   {"force_grad_k": 3 * nstep})
 
     # the snapshot, by id, then deleted
     t0 = time.perf_counter()
@@ -4580,9 +4590,11 @@ def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
             "phase P2 K2 (3 fields) rows %d-%d" % (i, i + xc.shape[0]),
             cic.cic_readout(fields, xc, inv),
             cic.cic_readout_plain(fields, xc, inv)))
-    del fields, x
+    del fields
     print("phase P2: K1 and K2 against their plain versions in %.1f s"
           % (time.perf_counter() - t0))
+    check_kspace(pm, pm.r2c(cic.cic_paint(x, mesh, inv)))
+    del x
 
     # FOF on the z = 0 state (phase E's b = 0.2 of the mean separation);
     # the labels of the x < box / 16 slab against the host union-find
@@ -4615,6 +4627,54 @@ def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
     counts = {k: launches[k] for k in P_KERNELS}
     counts["fof_link"] = fof_launches["fof_link"]
     return counts
+
+
+def check_kspace(pm, dk):
+    """The k-space kernel against its plain version at pm's mesh, bit
+    for bit, for kernel 1_4 (both cells' and the CLI's default) and
+    eastwood (deconvolveorder 2) along each axis; the kernel's ms beside
+    its bound (delta_k read and the gradient written once) and the
+    unfused chain's (the potential once, then each gradient and its
+    Norm, as the force ran before). Prints and returns the row."""
+    import torch
+    from fastpm_torch import kernels, transfers
+    from fastpm_torch.ops import kspace
+    for kernel_type in ("1_4", "eastwood"):
+        for d in range(3):
+            got = kspace.force_grad_k(pm, dk, d, kernel_type)
+            same = torch.equal(got, kspace.force_grad_k_plain(
+                pm, dk, d, kernel_type))
+            del got
+            if not same:
+                raise SystemExit("phase P2: the k-space kernel (%s, axis "
+                                 "%d) differs from its plain version"
+                                 % (kernel_type, d))
+
+    def chain():
+        pot = kernels.apply_kernel_transfer(pm, dk, "1_4", "potential")
+        for d in range(3):
+            g = transfers.apply_grad(pm, pot, d, 1,
+                                     out=pot if d == 2 else None)
+            g.mul_(pm.Norm)
+
+    bound = bound_ms(2 * dk.numel() * dk.element_size(), 0)
+    row = dict(shape=list(dk.shape), strides=list(dk.stride()),
+               equal=True, bound_ms=bound[0], bound_by=bound[1],
+               ms=[time_ms(lambda: kspace.force_grad_k(pm, dk, d, "1_4"))
+                   for d in range(3)],
+               ms_eastwood=time_ms(
+                   lambda: kspace.force_grad_k(pm, dk, 0, "eastwood")),
+               chain_ms_3=time_ms(chain, reps=3),
+               plain_ms=time_ms(lambda: kspace.force_grad_k_plain(
+                   pm, dk, 0, "1_4"), reps=3))
+    print("phase P2: the k-space kernel at %s: bit-equal to its plain "
+          "version (1_4, eastwood, every axis); %s ms a launch against a "
+          "bound of %.3f ms (%s); the unfused chain %.2f ms for three "
+          "gradients" % (tuple(dk.shape), " ".join("%.3f" % t
+                                                  for t in row["ms"]),
+                         bound[0], bound[1], row["chain_ms_3"]))
+    print("kspace_grad " + json.dumps(row))
+    return row
 
 
 def ladder_tool(dev, nc=384):

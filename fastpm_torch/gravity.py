@@ -37,7 +37,8 @@ trace while prof.enable_sync is on, named under the Solver's `force`:
 `force.paint` (K1 or K3 and the division by the mean mass),
 `force.r2c` and `force.c2r` (each FFT with its Norm), `force.kspace`
 (the softening, the transfer, the potential and tidal transfers and
-each gradient multiply) and `force.readout` (K2 or K4).
+each gradient: on the card one k-space kernel launch, ops/kspace.py)
+and `force.readout` (K2 or K4).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch
 from .mesh import PM
 from .painter import Painter
 from .store import Store
-from .ops import cic
+from .ops import cic, kspace
 from . import kernels, prof
 
 __all__ = ["paint_delta_k", "compute_force", "carry_eligible",
@@ -61,16 +62,31 @@ def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str,
                   delta_transfer=None):
     """(softened delta_k, the three acceleration fields) from the
     overdensity transform (gravity.c:457-529); delta_transfer, when
-    given, maps the softened delta_k before the potential kernel."""
+    given, maps the softened delta_k before the potential kernel. On
+    the card each gradient is one pass over delta_k (ops/kspace.py),
+    handed to c2r already scaled; on the CPU the potential is a tensor
+    of its own and PM.c2r_grad3 takes the gradients in it."""
+    on_cpu = delta_k.device.type == "cpu"
     with prof.clock("force.kspace"):
         delta_k = kernels.apply_softening(pm, delta_k, softening_type)
         if delta_transfer is not None:
             delta_k = delta_transfer(delta_k)
-        # a new tensor beside delta_k, which the caller keeps: the last
-        # gradient is taken in it
-        pot_k = kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
-                                              "potential")
-    return delta_k, pm.c2r_grad3(pot_k, kernels.kernel_orders(kernel_type)[1])
+        if on_cpu:
+            # a new tensor beside delta_k, which the caller keeps: the
+            # last gradient is taken in it
+            pot_k = kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
+                                                  "potential")
+    if on_cpu:
+        return delta_k, pm.c2r_grad3(pot_k,
+                                     kernels.kernel_orders(kernel_type)[1])
+    fields = []
+    for d in range(3):
+        with prof.clock("force.kspace"):
+            g = kspace.force_grad_k(pm, delta_k, d, kernel_type)
+        with prof.clock("force.c2r"):
+            fields.append(pm.c2r_scaled(g))
+        del g
+    return delta_k, tuple(fields)
 
 
 def _transfer_c2r(pm: PM, delta_k, kernel_type: str, field: str, *memb):

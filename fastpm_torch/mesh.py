@@ -202,6 +202,12 @@ class PM:
         and the Norm is applied to it in place (no scaled copy; k's
         values are lost)."""
         k = k.mul_(self.Norm) if donate else k * self.Norm
+        return self.c2r_scaled(k)
+
+    def c2r_scaled(self, k: torch.Tensor) -> torch.Tensor:
+        """c2r of a transform already multiplied by Norm (the force's
+        gradients, which ops/kspace.py scales in the same pass): the
+        inverse FFT alone. k is given up: cuFFT's c2r may overwrite it."""
         return torch.fft.irfftn(k, s=self.Nmesh).to(self.dtype)
 
     def c2r_grad3(self, fk: torch.Tensor, gradorder: int):

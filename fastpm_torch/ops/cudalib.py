@@ -114,6 +114,11 @@ def get_lib(verbose: bool = False) -> ctypes.CDLL:
     # (x, cid, n, ncol, inv, L, ll2, reach, outside, table, out, stream)
     lib.fastpm_fof_link.restype = I
     lib.fastpm_fof_link.argtypes = [P, P, L, I, F, D, D, D, P, P, P, P]
+    # (in, out, n0, n1, n2, pos0, pos1, pos2, kk0, kk1, kk2, grad, axis,
+    #  nyq0, nyq1, nyq2, deconv, dc0, dc1, dc2, norm, stream)
+    lib.fastpm_kspace_grad.restype = I
+    lib.fastpm_kspace_grad.argtypes = [P, P, I, I, I, I, I, I, P, P, P, P,
+                                       I, P, P, P, I, P, P, P, F, P]
     _lib = lib
     return lib
 

@@ -13,7 +13,8 @@ import torch
 from .mesh import PM
 
 __all__ = [
-    "apply_smoothing", "apply_lowpass", "apply_decic", "apply_diff",
+    "apply_smoothing", "apply_lowpass", "decic_table", "apply_decic",
+    "apply_diff",
     "apply_laplace", "apply_pot", "apply_grad", "apply_any",
     "apply_fk_interp",
     "apply_c2r_weight", "apply_normalize", "set_mode", "get_mode",
@@ -41,13 +42,21 @@ def apply_lowpass(pm: PM, dk, kth: float):
     return dk * (pm.kk() < kth * kth).to(pm.dtype)
 
 
+def decic_table(pm: PM, d: int) -> torch.Tensor:
+    """The float32 factor 1/sinc^2(w/2) along axis d, shaped for
+    broadcasting over k-space and kept on the PM."""
+    def make():
+        w = pm.table("k", d) * pm.BoxSize[d] / pm.Nmesh[d]
+        return pm.broadcast(1.0 / _sinc_np(0.5 * w) ** 2, d)
+    return pm._const(("decic", d), make)
+
+
 def apply_decic(pm: PM, dk):
     """Divide by the CIC window squared: per-axis 1/sinc^2(w/2)
     (transfer.c:77-113)."""
     out = dk
     for d in range(3):
-        w = pm.table("k", d) * pm.BoxSize[d] / pm.Nmesh[d]
-        out = out * pm.broadcast(1.0 / _sinc_np(0.5 * w) ** 2, d)
+        out = out * decic_table(pm, d)
     return out
 
 

@@ -1,0 +1,210 @@
+"""The force's k-space kernel (ops/kspace.py, csrc/kspace_grad.cu).
+
+On the CPU, force_grad_k takes its plain version, which is held here bit
+for bit against the chain it replaces on the card: the acceleration
+transfer of kernels.apply_kernel_transfer (deconvolution, potential,
+gradient, Nyquist mask) followed by PM.c2r's Norm, for every kernel type
+and axis, on cubic and non-cubic meshes and on a k shard's sliced tables
+(parallel.pfft.KShard). The force's own CPU path is the chain itself.
+
+The CUDA cases hold the kernel bit-equal to the plain version on the
+card for every kernel type and axis: on 64^3, on (32, 48, 64), whose
+rows of Nz/2 + 1 = 33 modes put the kernel's two-mode accesses across
+row ends, in r2c's layout and in another memory order of the axes, on
+a shard and on a delta_k that is not 16-byte aligned (the kernel's
+one-mode loop). They hold gravity._force_fields on the card
+equal to the chain, and count the kernel's launches (3 a force). They
+skip without a card and need no JAX: on a GPU machine without it the
+file runs as `python -m pytest --noconftest tests/test_torch_kspace.py
+-m cuda`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fastpm_torch import gravity, kernels
+from fastpm_torch.mesh import PM
+from fastpm_torch.ops import kspace
+from fastpm_torch.painter import Painter
+from fastpm_torch.parallel.pfft import KShard
+from fastpm_torch.store import Store
+
+KERNEL_TYPES = sorted(kernels.KERNELS)
+CPU_MESHES = [((16, 16, 16), 32.0), ((16, 24, 32), (40.0, 60.0, 80.0))]
+CUDA_MESHES = [((64, 64, 64), 128.0), ((32, 48, 64), (64.0, 96.0, 128.0))]
+
+
+def _delta_k(pm, seed=0):
+    """The transform of a real field: a hermitian-consistent delta_k."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(pm.Nmesh).astype(np.float32))
+    return pm.r2c(x.to(pm.device))
+
+
+def _chain(pm, dk, d, kernel_type):
+    """The unfused chain: the acceleration transfer, then c2r's Norm."""
+    return kernels.apply_kernel_transfer(pm, dk, kernel_type, "acc",
+                                         d) * pm.Norm
+
+
+@pytest.mark.parametrize("d", [0, 1, 2])
+@pytest.mark.parametrize("mesh", CPU_MESHES, ids=["cube", "box"])
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+def test_plain_matches_chain(kernel_type, mesh, d):
+    pm = PM(*mesh)
+    dk = _delta_k(pm)
+    kept = dk.clone()
+    got = kspace.force_grad_k_plain(pm, dk, d, kernel_type)
+    assert torch.equal(dk, kept)
+    assert torch.equal(got, _chain(pm, dk, d, kernel_type))
+    # the real field: the scaled gradient through c2r_scaled against the
+    # transfer through c2r
+    want = pm.c2r(kernels.apply_kernel_transfer(pm, dk, kernel_type, "acc",
+                                                d))
+    assert torch.equal(pm.c2r_scaled(got), want)
+
+
+@pytest.mark.parametrize("kernel_type", ["1_4", "eastwood", "5_4"])
+def test_plain_on_a_shard(kernel_type):
+    """A KShard's sliced tables (y rows 5-11, z columns from 3 with the
+    pencil's pad past Nz/2 + 1) give the chain's modes on the shard."""
+    pm = PM(16, 32.0)
+    shard = KShard(pm, 5, 7, 3, 8)
+    dk = _delta_k(pm)[:, 5:12, 3:]
+    dk = torch.cat([dk, torch.zeros(16, 7, 2, dtype=dk.dtype)], 2)
+    assert tuple(dk.shape) == shard.kshape
+    for d in range(3):
+        got = kspace.force_grad_k_plain(shard, dk, d, kernel_type)
+        assert torch.equal(got, _chain(shard, dk, d, kernel_type))
+        assert not got[:, :, -2:].any()
+
+
+def test_wrapper_on_cpu_takes_plain():
+    pm = PM(16, 32.0)
+    dk = _delta_k(pm)
+    before = kspace.force_grad_k.launches
+    for d in range(3):
+        assert torch.equal(kspace.force_grad_k(pm, dk, d, "1_4"),
+                           kspace.force_grad_k_plain(pm, dk, d, "1_4"))
+    assert kspace.force_grad_k.launches == before
+    with pytest.raises(ValueError):
+        kspace.force_grad_k(pm, dk, 3, "1_4")
+    with pytest.raises(ValueError):
+        kspace.force_grad_k(pm, dk, 0, "2_4")
+
+
+def test_memory_positions():
+    """Each axis's place in memory, for the layouts cuFFT may return; a
+    tensor with gaps raises."""
+    t = torch.empty(4, 6, 5, dtype=torch.complex64)
+    assert kspace._memory_positions(t) == [0, 1, 2]
+    # memory order (z, x, y): y innermost
+    t = torch.empty(5, 4, 6, dtype=torch.complex64).permute(1, 2, 0)
+    assert kspace._memory_positions(t) == [1, 2, 0]
+    t = torch.empty(4, 6, 8, dtype=torch.complex64)[:, :, :5]
+    with pytest.raises(ValueError):
+        kspace._memory_positions(t)
+
+
+def test_force_fields_on_cpu_is_the_chain():
+    """The CPU force keeps the potential tensor and PM.c2r_grad3."""
+    pm = PM(16, 32.0)
+    dk = _delta_k(pm)
+    got_dk, fields = gravity._force_fields(pm, dk, "1_4", "gaussian")
+    soft = kernels.apply_softening(pm, dk, "gaussian")
+    want = pm.c2r_grad3(kernels.apply_kernel_transfer(pm, soft, "1_4",
+                                                      "potential"), 1)
+    assert torch.equal(got_dk, soft)
+    for g, w in zip(fields, want):
+        assert torch.equal(g, w)
+
+
+# ---- on the card ----
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", CUDA_MESHES, ids=["cube", "box"])
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+def test_kernel_bit_equal_on_cuda(kernel_type, mesh):
+    dev = _cuda()
+    pm = PM(*mesh, device=dev)
+    dk = _delta_k(pm)
+    kept = dk.clone()
+    # the same modes laid out in (y, z, x) memory order
+    other = dk.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    before = kspace.force_grad_k.launches
+    for d in range(3):
+        want = kspace.force_grad_k_plain(pm, dk, d, kernel_type)
+        assert torch.equal(kspace.force_grad_k(pm, dk, d, kernel_type), want)
+        assert torch.equal(kspace.force_grad_k(pm, other, d, kernel_type),
+                           want)
+    torch.cuda.synchronize()
+    assert kspace.force_grad_k.launches == before + 6
+    assert torch.equal(dk, kept)
+
+
+@pytest.mark.cuda
+def test_kernel_on_shard_and_unaligned_on_cuda():
+    dev = _cuda()
+    pm = PM((32, 48, 64), (64.0, 96.0, 128.0), device=dev)
+    shard = KShard(pm, 5, 7, 3)
+    full = _delta_k(pm)
+    dk = full[:, 5:12, 3:].contiguous()
+    # one complex64 (8 bytes) into a buffer: not 16-byte aligned
+    buf = torch.empty(full.numel() + 1, dtype=full.dtype, device=dev)
+    odd = buf[1:].view(full.shape)
+    odd.copy_(full)
+    assert odd.data_ptr() % 16 == 8
+    for kernel_type in ("1_4", "eastwood", "3_4"):
+        for d in range(3):
+            assert torch.equal(
+                kspace.force_grad_k(shard, dk, d, kernel_type),
+                kspace.force_grad_k_plain(shard, dk, d, kernel_type))
+            assert torch.equal(
+                kspace.force_grad_k(pm, odd, d, kernel_type),
+                kspace.force_grad_k_plain(pm, full, d, kernel_type))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softening", ["none", "gaussian"])
+@pytest.mark.parametrize("kernel_type", ["1_4", "eastwood"])
+def test_force_fields_on_cuda(kernel_type, softening):
+    """_force_fields on the card against the chain on the card: delta_k
+    and the three fields equal, three launches a force."""
+    dev = _cuda()
+    pm = PM(64, 128.0, device=dev)
+    dk = _delta_k(pm)
+    before = kspace.force_grad_k.launches
+    got_dk, fields = gravity._force_fields(pm, dk, kernel_type, softening)
+    assert kspace.force_grad_k.launches == before + 3
+    soft = kernels.apply_softening(pm, dk, softening)
+    want = pm.c2r_grad3(kernels.apply_kernel_transfer(
+        pm, soft, kernel_type, "potential"),
+        kernels.kernel_orders(kernel_type)[1])
+    assert torch.equal(got_dk, soft)
+    for g, w in zip(fields, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_force_launches_on_cuda():
+    """The carry and the multi-species force: one launch per axis."""
+    dev = _cuda()
+    pm = PM(64, 64.0, device=dev)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(0, 64.0, (20000, 3)).astype(
+        np.float32)).to(dev)
+    store = Store(x=x, v=torch.zeros_like(x))
+    painter = Painter(pm, "cic")
+    before = kspace.force_grad_k.launches
+    gravity.compute_force_carry(pm, painter, store)
+    assert kspace.force_grad_k.launches == before + 3
+    gravity.compute_force(pm, painter, [store])
+    assert kspace.force_grad_k.launches == before + 6
