@@ -221,8 +221,9 @@ O. baryons and order-preserving stepping at full width: (O1) phase 7's
    and tidal tensor within 1e-2 of their rms. Each run's wall, force
    actions, peak, paths and a force step are printed;
 P. (last, on a card that holds nothing else; the peak counts reset
-   before each rung) the JAX package's scale: torch.fft.irfftn's copy
-   of its input measured at 768^3; (P1) the 384^3 B2 rung the JAX
+   before each rung) the JAX package's scale: the bytes torch.fft.irfftn
+   and the port's c2r (ops/fft.py) allocate beyond their output at
+   768^3 (irfftn copies its input; the port's plan takes it); (P1) the 384^3 B2 rung the JAX
    package ran on a 16 GB v5e: the benchlib step (make_step_fn(PM(768,
    384.0)), carry, K1 and K2, x and v donated) on
    example_particles(384, 384.0, seed=0), one warm step and 10 chained
@@ -238,7 +239,11 @@ P. (last, on a card that holds nothing else; the peak counts reset
    plain ones in row chunks); the k-space kernel bit-equal to its plain
    version at the 1024^3 force mesh (kernels 1_4 and eastwood, each
    axis; delta_k of the z = 0 state), timed beside its bound and the
-   unfused chain it replaced; find_halos on the state (b = 0.2) and the
+   unfused chain it replaced; the run's transforms all through the
+   port's cuFFT plans with no copy of an input (ops/fft.py: fft.stats) and the
+   force's four 1024^3 transforms timed each alone; K2 timed on fields
+   from the C2R plan and from irfftn, alone and right after the
+   transforms (recorded, no gate); find_halos on the state (b = 0.2) and the
    device labels of the x < 48 slab bit-equal to the host union-find's;
    the run's peak and its buffers; (P3) fastpm_torch.measure_halo at
    384^3 (B2, 10 steps) and its JSON line; (P4, recorded, no gate) the
@@ -4383,18 +4388,26 @@ def print_buffers(label, peak, bufs, top=10):
         print("  %.3f GB  %s" % (size / 1e9, where))
 
 
-def irfftn_copy(dev, n):
-    """The bytes torch.fft.irfftn allocates beyond its output on an n^3
-    mesh, in units of its complex input: cuFFT's c2r overwrites its
-    input, so PyTorch copies it."""
+def c2r_extra(dev, n):
+    """The bytes torch.fft.irfftn and the port's c2r (ops/fft.py)
+    allocate beyond their output on an n^3 mesh, in units of their
+    complex input: cuFFT's c2r overwrites its input, so PyTorch copies
+    it (and takes a work area); the port's plan is given its input and
+    takes its work area alone."""
     import torch
-    k = torch.zeros((n, n, n // 2 + 1), dtype=torch.complex64, device=dev)
-    base = reset_peak()
-    y = torch.fft.irfftn(k, s=(n,) * 3)
-    torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - base - y.numel() * 4
-    del k, y
-    return extra / (n * n * (n // 2 + 1) * 8)
+    from fastpm_torch.ops import fft
+    out = []
+    for c2r in (lambda k: torch.fft.irfftn(k, s=(n,) * 3),
+                lambda k: fft.c2r(k, (n,) * 3)):
+        k = torch.zeros((n, n, n // 2 + 1), dtype=torch.complex64,
+                        device=dev)
+        base = reset_peak()
+        y = c2r(k)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - y.numel() * 4
+        del k, y
+        out.append(extra / (n * n * (n // 2 + 1) * 8))
+    return out
 
 
 def ladder_step(dev, nc, label, nstep=10):
@@ -4479,7 +4492,7 @@ def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
     from fastpm_torch.config.params import load_params
     from fastpm_torch.diagnostics import Log
     from fastpm_torch.painter import Painter
-    from fastpm_torch.ops import cic, kspace, fof_device as fd
+    from fastpm_torch.ops import cic, fft, kspace, fof_device as fd
 
     out = os.path.join(tmp, "ladder")
     text = main_text(nc, box, nstep, out).replace("aout = {0.55, 1.0}",
@@ -4490,10 +4503,12 @@ def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
     reset_launches()
     t0 = time.perf_counter()
     log = Log(echo=False)
+    ffts = dict(fft.stats)
     solver, run_peak, bufs = live_at_peak(
         lambda: cli.run_fastpm(load_params(conf), log=log, device=dev))
     wall = time.perf_counter() - t0
     launches = read_launches()
+    ffts = {k: fft.stats[k] - n for k, n in ffts.items()}
     peak = torch.cuda.max_memory_allocated()
     print("phase P2: %d^3 particles, %d^3 force mesh, %d force steps "
           "through cli.run_fastpm (IC, 2LPT, steps, P(k), a snapshot at "
@@ -4517,6 +4532,13 @@ def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
     check_launches("phase P2 k-space",
                    {"force_grad_k": kspace.force_grad_k.launches},
                    {"force_grad_k": 3 * nstep})
+    # every transform of the run through a plan (the force's 1024^3
+    # plans made here, one a direction; the 2LPT's 512^3 by phase 7)
+    print("phase P2: the FFTs of the run: %s (fft.stats over the run)"
+          % ffts)
+    if ffts["copies"]:
+        raise SystemExit("phase P2: a transform's input was copied into "
+                         "(x, y, z) order")
 
     # the snapshot, by id, then deleted
     t0 = time.perf_counter()
@@ -4593,8 +4615,13 @@ def ladder_run(dev, tmp, pk7, nc=512, box=768.0, nstep=5, ll_frac=0.2,
     del fields
     print("phase P2: K1 and K2 against their plain versions in %.1f s"
           % (time.perf_counter() - t0))
-    check_kspace(pm, pm.r2c(cic.cic_paint(x, mesh, inv)))
-    del x
+    canvas = cic.cic_paint(x, mesh, inv, 1.0 / x.shape[0])
+    dk = fft.r2c(canvas)
+    check_kspace(pm, dk)
+    check_fft(pm, canvas, dk)
+    del canvas
+    check_k2_fields(pm, dk, x)
+    del x, dk
 
     # FOF on the z = 0 state (phase E's b = 0.2 of the mean separation);
     # the labels of the x < box / 16 slab against the host union-find
@@ -4634,8 +4661,8 @@ def check_kspace(pm, dk):
     for bit, for kernel 1_4 (both cells' and the CLI's default) and
     eastwood (deconvolveorder 2) along each axis; the kernel's ms beside
     its bound (delta_k read and the gradient written once) and the
-    unfused chain's (the potential once, then each gradient and its
-    Norm, as the force ran before). Prints and returns the row."""
+    unfused chain's (the potential once, then each gradient, as the
+    force ran before). Prints and returns the row."""
     import torch
     from fastpm_torch import kernels, transfers
     from fastpm_torch.ops import kspace
@@ -4653,9 +4680,8 @@ def check_kspace(pm, dk):
     def chain():
         pot = kernels.apply_kernel_transfer(pm, dk, "1_4", "potential")
         for d in range(3):
-            g = transfers.apply_grad(pm, pot, d, 1,
-                                     out=pot if d == 2 else None)
-            g.mul_(pm.Norm)
+            transfers.apply_grad(pm, pot, d, 1,
+                                 out=pot if d == 2 else None)
 
     bound = bound_ms(2 * dk.numel() * dk.element_size(), 0)
     row = dict(shape=list(dk.shape), strides=list(dk.stride()),
@@ -4674,6 +4700,91 @@ def check_kspace(pm, dk):
                                                   for t in row["ms"]),
                          bound[0], bound[1], row["chain_ms_3"]))
     print("kspace_grad " + json.dumps(row))
+    return row
+
+
+def check_fft(pm, canvas, dk):
+    """The force's four transforms at pm's mesh, each alone: the r2c of
+    the canvas and the c2r of each gradient of dk (its input refilled
+    before each run, the refill's time taken off), against the bound of
+    one read and one write and the three-pass ideal; the plans' work
+    areas and fft.stats. Prints and returns the row."""
+    import torch
+    from fastpm_torch.ops import fft, kspace
+    shape = tuple(pm.Nmesh)
+    buf = torch.empty_like(dk)
+
+    def c2r_ms(g):
+        fill = (lambda: buf.copy_(g))
+        return (time_ms(lambda: (fill(), fft.c2r(buf, shape)))
+                - time_ms(fill))
+
+    c2r = []
+    for d in range(3):
+        g = kspace.force_grad_k(pm, dk, d, "1_4")
+        c2r.append(c2r_ms(g))
+        del g
+    nbytes = canvas.numel() * 4 + dk.numel() * 8
+    bound = bound_ms(nbytes, 0)
+    row = dict(shape=list(shape), r2c_ms=time_ms(lambda: fft.r2c(canvas)),
+               c2r_ms=c2r, bound_ms=bound[0], ideal_3pass_ms=3 * bound[0],
+               work_gb=[fft.work_bytes(shape, s, pm.device) / 1e9
+                        for s in ("r2c", "c2r")], stats=dict(fft.stats))
+    print("phase P2: the force's transforms at %s, each alone: r2c %.3f "
+          "ms, c2r %s ms, against %.3f ms (one read and one write) and "
+          "%.3f ms (three passes); work areas %s GB; %s"
+          % (shape, row["r2c_ms"], " ".join("%.3f" % t for t in c2r),
+             bound[0], 3 * bound[0], row["work_gb"], row["stats"]))
+    print("fft_plans " + json.dumps(row))
+    return row
+
+
+def check_k2_fields(pm, dk, x, reps=4):
+    """K2 on the z = 0 state's rows in cell order, reading the force's
+    three fields as the port's C2R plan makes them and as torch.fft's
+    irfftn made them before (its copy and 1/N pass included): each set
+    read alone, repeated, and each read right after the three
+    transforms that make it, as in the force, its own launch timed by
+    events around it. Prints and returns the row (ms a launch)."""
+    import torch
+    from fastpm_torch.ops import cic, fft, kspace
+    shape, inv = tuple(pm.Nmesh), pm.InvCellSize
+    make = {"plan": lambda g: fft.c2r(g, shape),
+            "irfftn": lambda g: torch.fft.irfftn(g, s=shape)}
+
+    def fields(side):
+        return [make[side](kspace.force_grad_k(pm, dk, d, "1_4"))
+                for d in range(3)]
+
+    def after(side):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        total = 0.0
+        for _ in range(reps):
+            f = fields(side)
+            start.record()
+            cic.cic_readout(f, x, inv)
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+            del f
+        return total / reps
+
+    row = {"alone": {}, "after": {}}
+    for side in ("plan", "irfftn", "irfftn", "plan"):
+        f = fields(side)
+        row["alone"].setdefault(side, []).append(
+            time_ms(lambda: cic.cic_readout(f, x, inv), reps=reps))
+        del f
+        row["after"].setdefault(side, []).append(after(side))
+    print("phase P2: K2 on %d rows at %s, fields from the C2R plan / "
+          "irfftn: alone %s / %s ms, right after their transforms %s / %s "
+          "ms" % (x.shape[0], shape,
+                  " ".join("%.3f" % t for t in row["alone"]["plan"]),
+                  " ".join("%.3f" % t for t in row["alone"]["irfftn"]),
+                  " ".join("%.3f" % t for t in row["after"]["plan"]),
+                  " ".join("%.3f" % t for t in row["after"]["irfftn"])))
+    print("k2_fields " + json.dumps(row))
     return row
 
 
@@ -4741,9 +4852,10 @@ def scale_ladder(dev, pk7):
           "tensors reachable: %s" % (reset_peak() / 1e9, [
               "%.3f GB %s %s" % (n / 1e9, shape, dtype)
               for n, shape, dtype in cuda_tensors_alive()]))
-    print("phase P: torch.fft.irfftn on a 768^3 mesh allocates %.3f of its "
-          "complex input beyond its output (cuFFT's c2r overwrites its "
-          "input)" % irfftn_copy(dev, 768))
+    print("phase P: on a 768^3 mesh torch.fft.irfftn allocates %.3f of its "
+          "complex input beyond its output (a copy of its input, which "
+          "cuFFT's c2r overwrites, and a work area), the port's c2r %.3f "
+          "(its work area)" % tuple(c2r_extra(dev, 768)))
     launches = {}
     r = ladder_step(dev, 384, "P1")
     launches["P1"] = r["launches"]

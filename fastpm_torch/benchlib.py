@@ -16,8 +16,8 @@ The step holds the two-canvas cost model of the reference
 place, the potential transfer is taken in place on delta_k, which the
 step does not keep, and the last gradient in the potential itself
 (mesh.c2r_grad3), so at most the two gradients already returned, the
-potential, cuFFT's copy of its c2r input and the gradient being made
-are alive at once.
+potential, the gradient being transformed (which the c2r takes) and the
+plan's work area are alive at once.
 """
 
 from __future__ import annotations

@@ -166,6 +166,9 @@ def prepare_deltak(solver: Solver, p: Params, log: Log):
         dk = read_field(p.read_whitenoisek, "WhiteNoiseK")
     else:
         dk = ic.gaussian_white_noise(pm, p.random_seed)
+    # (x, y, z) order whatever the noise's source: every field made from
+    # dk keeps its layout, and the FFT plans take that one (ops/fft.py)
+    dk = dk.contiguous()
     if p.remove_cosmic_variance:
         log.info("Remove Cosmic variance from initial condition.")
         dk = ic.remove_variance(dk)

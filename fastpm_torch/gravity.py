@@ -24,6 +24,12 @@ JAX names:
 
 carry_eligible picks between them, as the JAX solver does.
 
+The force's transforms are unnormalised (ops/fft.py) and its scales
+ride passes it makes anyway: the canvas is painted as (1 + delta) / Norm
+(K1 deposits 1 / N a particle; the multi-species canvas is divided by
+the total mass), so its transform is the unitary delta_k that PM.r2c
+would give, and each gradient goes to c2r unscaled.
+
 Each takes an optional delta_transfer(delta_k) -> delta_k, applied to
 the softened delta_k before the potential kernel, and returns the
 transferred delta_k: the neutrino linear response (solver.py) goes in
@@ -34,8 +40,8 @@ call.
 Each phase of a force runs in a `prof` clock, a span of the profiler's
 trace while prof.enable_sync is on, named under the Solver's `force`:
 `force.order` (the cell sort and its gathers, or the cell orders),
-`force.paint` (K1 or K3 and the division by the mean mass),
-`force.r2c` and `force.c2r` (each FFT with its Norm), `force.kspace`
+`force.paint` (K1, or K3 and the division by the total mass),
+`force.r2c` and `force.c2r` (each FFT, ops/fft.py), `force.kspace`
 (the softening, the transfer, the potential and tidal transfers and
 each gradient: on the card one k-space kernel launch, ops/kspace.py)
 and `force.readout` (K2 or K4).
@@ -51,7 +57,7 @@ import torch
 from .mesh import PM
 from .painter import Painter
 from .store import Store
-from .ops import cic, kspace
+from .ops import cic, fft, kspace
 from . import kernels, prof
 
 __all__ = ["paint_delta_k", "compute_force", "carry_eligible",
@@ -62,29 +68,20 @@ def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str,
                   delta_transfer=None):
     """(softened delta_k, the three acceleration fields) from the
     overdensity transform (gravity.c:457-529); delta_transfer, when
-    given, maps the softened delta_k before the potential kernel. On
-    the card each gradient is one pass over delta_k (ops/kspace.py),
-    handed to c2r already scaled; on the CPU the potential is a tensor
-    of its own and PM.c2r_grad3 takes the gradients in it."""
-    on_cpu = delta_k.device.type == "cpu"
+    given, maps the softened delta_k before the potential kernel. Each
+    gradient is one pass over delta_k (ops/kspace.py: a kernel launch on
+    the card, its plain version on the CPU), handed to the unnormalised
+    c2r."""
     with prof.clock("force.kspace"):
         delta_k = kernels.apply_softening(pm, delta_k, softening_type)
         if delta_transfer is not None:
             delta_k = delta_transfer(delta_k)
-        if on_cpu:
-            # a new tensor beside delta_k, which the caller keeps: the
-            # last gradient is taken in it
-            pot_k = kernels.apply_kernel_transfer(pm, delta_k, kernel_type,
-                                                  "potential")
-    if on_cpu:
-        return delta_k, pm.c2r_grad3(pot_k,
-                                     kernels.kernel_orders(kernel_type)[1])
     fields = []
     for d in range(3):
         with prof.clock("force.kspace"):
             g = kspace.force_grad_k(pm, delta_k, d, kernel_type)
         with prof.clock("force.c2r"):
-            fields.append(pm.c2r_scaled(g))
+            fields.append(fft.c2r(g, pm.Nmesh))
         del g
     return delta_k, tuple(fields)
 
@@ -104,15 +101,16 @@ def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
     """Paint all species into one canvas and return the overdensity
     transform delta_k (_fastpm_solver_compute_delta_k, gravity.c:304-356).
     orders: one CellOrder (or None) per species, handed to the painter."""
-    return pm.r2c(_paint_canvas(pm, painter, stores, orders))
+    return fft.r2c(_paint_canvas(pm, painter, stores, orders))
 
 
 def _paint_canvas(pm: PM, painter: Painter, stores: Sequence[Store],
                   orders=None):
-    """The canvas paint_delta_k transforms: 1 + delta, mass per cell over
-    the mean mass per cell, scaled in place. The total mass is M0 * N
-    for a scalar-mass species plus the sum of the mass column for a
-    species that has one; the sum stays on the device (float64)."""
+    """The canvas paint_delta_k transforms: (1 + delta) / Norm, mass per
+    cell over the total mass, scaled in place, whose unnormalised
+    transform is the unitary delta_k. The total mass is M0 * N for a
+    scalar-mass species plus the sum of the mass column for a species
+    that has one; the sum stays on the device (float64)."""
     canvas = None
     total_mass = 0.0
     for p, order in zip(stores, orders or [None] * len(stores)):
@@ -123,7 +121,7 @@ def _paint_canvas(pm: PM, painter: Painter, stores: Sequence[Store],
             total_mass = total_mass + p.M0 * p.np_local
             canvas = painter.paint(p.x, float(np.float32(p.M0)), canvas,
                                    order)
-    return canvas.div_(total_mass / pm.Norm)
+    return canvas.div_(total_mass)
 
 
 def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
@@ -145,7 +143,7 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
     with prof.clock("force.paint"):
         canvas = _paint_canvas(pm, painter, stores, orders)
     with prof.clock("force.r2c"):
-        delta_k = pm.r2c(canvas)
+        delta_k = fft.r2c(canvas)
     del canvas
     delta_k, (f0, f1, f2) = _force_fields(pm, delta_k, kernel_type,
                                           softening_type, delta_transfer)
@@ -237,14 +235,13 @@ def compute_force_stale(pm: PM, painter: Painter, store: Store,
 def _force_in_order(pm: PM, store: Store, kernel_type: str,
                     softening_type: str, delta_transfer=None):
     """The body of the carry and stale forces: K1, the force fields and
-    K2 on the store's rows in their order."""
+    K2 on the store's rows in their order. K1 deposits 1 / N a particle,
+    so the canvas is (1 + delta) / Norm with no pass of its own."""
     with prof.clock("force.paint"):
         canvas = cic.cic_paint(store.x, pm.Nmesh, pm.InvCellSize,
-                               float(np.float32(store.M0)))
-        mean_mass_per_cell = store.M0 * store.np_local / pm.Norm
-        canvas.div_(mean_mass_per_cell)
+                               float(np.float32(1.0 / store.np_local)))
     with prof.clock("force.r2c"):
-        delta_k = pm.r2c(canvas)
+        delta_k = fft.r2c(canvas)
     del canvas
     delta_k, fields = _force_fields(pm, delta_k, kernel_type,
                                     softening_type, delta_transfer)

@@ -9,8 +9,9 @@ are plain torch tensors:
   axis is the halved hermitian axis, pmpfft.c:198-202)
 
 FFT normalization mirrors pm_r2c (pmpfft.c:370-399): r2c multiplies by
-1/Norm so the r2c . c2r round trip is unitary. The FFT is torch.fft
-(cuFFT on the card, pocketfft on the CPU).
+1/Norm so the r2c . c2r round trip is unitary, and c2r is the
+unnormalised inverse. The transforms are ops/fft.py's: one cuFFT plan
+per direction on the card, pocketfft on the CPU.
 
 All Fourier-space kernels are products/sums of per-dimension 1D tables
 (pm_create_k_factors, pmapi.c:224-275), which broadcast naturally.
@@ -23,7 +24,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from . import prof
+from .ops import fft
 
 __all__ = ["PM"]
 
@@ -191,44 +192,34 @@ class PM:
     # ---- FFTs (pmpfft.c:370-399) ----
 
     def r2c(self, x: torch.Tensor) -> torch.Tensor:
-        """Real -> complex with 1/Norm so the round trip is unitary. The
-        1/Norm is applied to the transform in place: one complex field,
-        not two."""
-        k = torch.fft.rfftn(x)
-        return k.div_(self.Norm).to(self.cdtype)
+        """Real -> complex with 1/Norm so the round trip is unitary: the
+        unnormalised transform, divided by Norm in place (one complex
+        field, not two). x is kept."""
+        return fft.r2c(x).div_(self.Norm).to(self.cdtype)
 
     def c2r(self, k: torch.Tensor, donate: bool = False) -> torch.Tensor:
-        """Complex -> real, inverse of r2c. donate: the caller gives k up,
-        and the Norm is applied to it in place (no scaled copy; k's
-        values are lost)."""
-        k = k.mul_(self.Norm) if donate else k * self.Norm
-        return self.c2r_scaled(k)
-
-    def c2r_scaled(self, k: torch.Tensor) -> torch.Tensor:
-        """c2r of a transform already multiplied by Norm (the force's
-        gradients, which ops/kspace.py scales in the same pass): the
-        inverse FFT alone. k is given up: cuFFT's c2r may overwrite it."""
-        return torch.fft.irfftn(k, s=self.Nmesh).to(self.dtype)
+        """Complex -> real, inverse of r2c: the unnormalised transform,
+        with no scale. donate: the caller gives k up and the transform
+        may overwrite it; otherwise it transforms a copy, laid out in
+        (x, y, z) order as the plans take it."""
+        return fft.c2r(k if donate else k.clone(
+            memory_format=torch.contiguous_format), self.Nmesh)
 
     def c2r_grad3(self, fk: torch.Tensor, gradorder: int):
-        """The force step's three gradient returns:
-        (c2r(i k_d * fk) for d in x, y, z), with the diff table order
-        per kernel (0 = k, 1 = k_finite super-Lanczos) and apply_diff's
+        """Three gradient returns (c2r(i k_d * fk) for d in x, y, z), as
+        the benchlib step takes them, with the diff table order per
+        kernel (0 = k, 1 = k_finite super-Lanczos) and apply_diff's
         self-conjugate-mode zeroing (gravity.c:34-64). Three c2r calls,
-        one field at a time, each gradient scaled in place in one
-        temporary. fk is consumed: the last gradient is taken in fk
-        itself, so fk is gone before the last c2r (the two-canvas cost
-        model of gravity.c:415, 468); a caller that keeps fk passes a
-        clone. Each gradient multiply runs in the force's `force.kspace`
-        clock, each c2r in `force.c2r` (gravity.py)."""
+        one field at a time, each gradient made in one temporary. fk is
+        consumed: the last gradient is taken in fk itself, so fk is gone
+        before the last c2r (the two-canvas cost model of gravity.c:415,
+        468); a caller that keeps fk passes a clone."""
         from . import transfers
         out = []
         for d in range(3):
-            with prof.clock("force.kspace"):
-                g = transfers.apply_grad(self, fk, d, gradorder,
-                                         out=fk if d == 2 else None)
-            with prof.clock("force.c2r"):
-                out.append(self.c2r(g, donate=True))
+            g = transfers.apply_grad(self, fk, d, gradorder,
+                                     out=fk if d == 2 else None)
+            out.append(self.c2r(g, donate=True))
             del g
         return tuple(out)
 

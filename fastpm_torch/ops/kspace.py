@@ -2,13 +2,14 @@
 (csrc/kspace_grad.cu), and its plain PyTorch version.
 
 force_grad_k(pm, delta_k, d, kernel_type) is what the force hands to
-c2r for axis d: the potential's gradient of the softened delta_k,
+the unnormalised c2r (ops/fft.py) for axis d: the potential's gradient
+of the softened delta_k,
 
-    Norm * (i g_d) * mask * (-1 / kk) * deconv * delta_k,
+    (i g_d) * mask * (-1 / kk) * deconv * delta_k,
 
-the chain kernels.apply_kernel_transfer(..., "acc", d) followed by
-PM.c2r's Norm, in one pass that reads delta_k once and writes the
-gradient once (PM.c2r_scaled then transforms it). The kernel type
+the chain kernels.apply_kernel_transfer(..., "acc", d), in one pass that
+reads delta_k once and writes the gradient once. The kernel's norm
+parameter is launched as 1.0, which is exact. The kernel type
 selects the tables (kernels.KERNELS): the potential order's |k|^2
 tables, the gradient order's k or k_finite table, and the CIC
 deconvolution tables applied deconvolveorder times; mask zeroes the
@@ -95,15 +96,15 @@ def force_grad_k_plain(pm: PM, delta_k: torch.Tensor, d: int,
     inv = torch.where(nz, 1.0 / torch.where(nz, k2, 1.0), 0.0)
     out = (out * inv).neg_()
     out.mul_(torch.complex(torch.zeros_like(grad), grad))
-    out.mul_((~(nyq[0] & nyq[1] & nyq[2])).to(pm.dtype))
-    return out.mul_(pm.Norm)
+    return out.mul_((~(nyq[0] & nyq[1] & nyq[2])).to(pm.dtype))
 
 
 def force_grad_k(pm: PM, delta_k: torch.Tensor, d: int,
                  kernel_type: str) -> torch.Tensor:
-    """The Norm-scaled gradient along d of the potential of delta_k (a
-    (pm.kshape) complex64 tensor, kept), for PM.c2r_scaled: one kernel
-    launch on CUDA, the plain version on the CPU."""
+    """The gradient along d of the potential of delta_k (a (pm.kshape)
+    complex64 tensor in any dense memory order, kept), for the
+    unnormalised c2r: one kernel launch on CUDA, the plain version on
+    the CPU."""
     if delta_k.device.type == "cpu":
         return force_grad_k_plain(pm, delta_k, d, kernel_type)
     if (delta_k.dtype != torch.complex64
@@ -113,12 +114,12 @@ def force_grad_k(pm: PM, delta_k: torch.Tensor, d: int,
                          f"{delta_k.dtype}")
     pos = _memory_positions(delta_k)
     kk, grad, nyq, deconv, dc = _tables(pm, d, kernel_type)
-    # delta_k's strides (cuFFT's r2c need not return (x, y, z) order)
+    # delta_k's strides (the kernel walks any dense memory order)
     out = torch.empty_like(delta_k)
     _launch("fastpm_kspace_grad", delta_k.data_ptr(), out.data_ptr(),
             *pm.kshape, *pos, *(t.data_ptr() for t in kk), grad.data_ptr(),
             d, *(t.data_ptr() for t in nyq), deconv,
-            *((t.data_ptr() for t in dc) if dc else (None,) * 3), pm.Norm,
+            *((t.data_ptr() for t in dc) if dc else (None,) * 3), 1.0,
             device=delta_k.device)
     force_grad_k.launches += 1
     return out

@@ -3,14 +3,17 @@
 On the CPU, force_grad_k takes its plain version, which is held here bit
 for bit against the chain it replaces on the card: the acceleration
 transfer of kernels.apply_kernel_transfer (deconvolution, potential,
-gradient, Nyquist mask) followed by PM.c2r's Norm, for every kernel type
-and axis, on cubic and non-cubic meshes and on a k shard's sliced tables
-(parallel.pfft.KShard). The force's own CPU path is the chain itself.
+gradient, Nyquist mask), with no Norm (the force's c2r is
+unnormalised, ops/fft.py; the kernel is launched with norm 1.0), for
+every kernel type and axis, on cubic and non-cubic meshes and on a k
+shard's sliced tables (parallel.pfft.KShard). The force's CPU path takes
+the plain version, and equals the chain through PM.c2r_grad3.
 
 The CUDA cases hold the kernel bit-equal to the plain version on the
-card for every kernel type and axis: on 64^3, on (32, 48, 64), whose
-rows of Nz/2 + 1 = 33 modes put the kernel's two-mode accesses across
-row ends, in r2c's layout and in another memory order of the axes, on
+card for every kernel type and axis, launched with norm 1.0: on 64^3,
+on (32, 48, 64), whose rows of Nz/2 + 1 = 33 modes put the kernel's
+two-mode accesses across row ends, in r2c's layout (contiguous in
+(x, y, z) order) and in another memory order of the axes, on
 a shard and on a delta_k that is not 16-byte aligned (the kernel's
 one-mode loop). They hold gravity._force_fields on the card
 equal to the chain, and count the kernel's launches (3 a force). They
@@ -25,7 +28,7 @@ import torch
 
 from fastpm_torch import gravity, kernels
 from fastpm_torch.mesh import PM
-from fastpm_torch.ops import kspace
+from fastpm_torch.ops import fft, kspace
 from fastpm_torch.painter import Painter
 from fastpm_torch.parallel.pfft import KShard
 from fastpm_torch.store import Store
@@ -43,9 +46,8 @@ def _delta_k(pm, seed=0):
 
 
 def _chain(pm, dk, d, kernel_type):
-    """The unfused chain: the acceleration transfer, then c2r's Norm."""
-    return kernels.apply_kernel_transfer(pm, dk, kernel_type, "acc",
-                                         d) * pm.Norm
+    """The unfused chain: the acceleration transfer."""
+    return kernels.apply_kernel_transfer(pm, dk, kernel_type, "acc", d)
 
 
 @pytest.mark.parametrize("d", [0, 1, 2])
@@ -58,11 +60,11 @@ def test_plain_matches_chain(kernel_type, mesh, d):
     got = kspace.force_grad_k_plain(pm, dk, d, kernel_type)
     assert torch.equal(dk, kept)
     assert torch.equal(got, _chain(pm, dk, d, kernel_type))
-    # the real field: the scaled gradient through c2r_scaled against the
-    # transfer through c2r
+    # the real field: the gradient through the unnormalised c2r against
+    # the transfer through PM.c2r
     want = pm.c2r(kernels.apply_kernel_transfer(pm, dk, kernel_type, "acc",
                                                 d))
-    assert torch.equal(pm.c2r_scaled(got), want)
+    assert torch.equal(fft.c2r(got, pm.Nmesh), want)
 
 
 @pytest.mark.parametrize("kernel_type", ["1_4", "eastwood", "5_4"])
@@ -108,7 +110,8 @@ def test_memory_positions():
 
 
 def test_force_fields_on_cpu_is_the_chain():
-    """The CPU force keeps the potential tensor and PM.c2r_grad3."""
+    """The CPU force (the plain version a gradient) equals the chain:
+    the potential tensor and PM.c2r_grad3."""
     pm = PM(16, 32.0)
     dk = _delta_k(pm)
     got_dk, fields = gravity._force_fields(pm, dk, "1_4", "gaussian")
@@ -135,6 +138,8 @@ def test_kernel_bit_equal_on_cuda(kernel_type, mesh):
     dev = _cuda()
     pm = PM(*mesh, device=dev)
     dk = _delta_k(pm)
+    # r2c's layout: contiguous in (x, y, z) order (ops/fft.py)
+    assert dk.is_contiguous()
     kept = dk.clone()
     # the same modes laid out in (y, z, x) memory order
     other = dk.permute(1, 2, 0).contiguous().permute(2, 0, 1)
