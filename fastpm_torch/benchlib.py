@@ -11,13 +11,11 @@ there is nothing to jit. The JAX step's donation of x and v
 (donate_argnums) is ported as its contract: the step writes its results
 into the caller's tensors (make_step_fn's donate).
 
-The step holds the two-canvas cost model of the reference
-(gravity.c:415, 468): the canvas and the transforms are scaled in
-place, the potential transfer is taken in place on delta_k, which the
-step does not keep, and the last gradient in the potential itself
-(mesh.c2r_grad3), so at most the two gradients already returned, the
-potential, the gradient being transformed (which the c2r takes) and the
-plan's work area are alive at once.
+The force is the Solver's (gravity.py): the order-free steps run the
+body of the carry and stale forces on x in its order (K1, or K5, the
+unnormalised r2c, the k-space stage, K2), the order-preserving step
+runs compute_force. Only the sort, the KDK update and its donation are
+the step's own.
 """
 
 from __future__ import annotations
@@ -26,11 +24,11 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .kernels import kernel_orders
 from .mesh import PM
 from .painter import Painter
+from .store import Store
 from .ops import cic, sort
-from . import transfers
+from . import gravity
 
 __all__ = ["make_step_fn", "make_stale_step_fns", "example_particles"]
 
@@ -41,22 +39,18 @@ def _on(pm: PM, device) -> PM:
     return pm if pm.device == dev else PM(pm.Nmesh, pm.BoxSize, device=dev)
 
 
-def _step(pm: PM, potorder: int, gradorder: int, paint, readout, x, v,
-          coeffs, own: bool = False):
-    """One force, kick and drift (benchlib.py:81-100): the canvas of
-    paint(x) as 1 + delta, r2c, the potential transfer, the three
-    gradients, readout(fields, x) and the KDK update with the periodic
-    wrap. own: x and v are the step's to overwrite (a donation, or the
-    sort's copies), and the kick and drift are taken in them; otherwise
-    in copies. Returns (x, v, acc), the same bits either way."""
-    canvas = paint(x)
-    pot_k = pm.r2c(canvas.div_(x.shape[0] / pm.Norm))
-    del canvas
-    transfers.apply_pot(pm, pot_k, potorder, inplace=True)
-    fields = pm.c2r_grad3(pot_k, gradorder)
-    del pot_k
-    acc = readout(fields, x)
-    del fields
+def _k5(pm: PM, x, weight: float):
+    """K5: the canvas of the rows x, weight a particle."""
+    canvas = torch.zeros(pm.rshape, dtype=torch.float32, device=x.device)
+    cic.cic_paint4(canvas, x, pm.InvCellSize, weight)
+    return canvas
+
+
+def _kdk(pm: PM, x, v, acc, coeffs, own: bool):
+    """The kick and drift with the periodic wrap (benchlib.py:94-100).
+    own: x and v are the step's to overwrite (a donation, or the sort's
+    copies), and the update is taken in them; otherwise in copies.
+    Returns (x, v, acc), the same bits either way."""
     coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=x.device)
     L = torch.tensor(pm.BoxSize, dtype=torch.float32, device=x.device)
     if not own:
@@ -78,40 +72,35 @@ def make_step_fn(pm: PM, kernel_type: str = "1_4",
     carry_sorted (CIC only): order-free stepping. The step sorts (x, v)
     by cell (ops/sort.carry_sort; with sort_block the k-sorted sort with
     K7, which wins when the rows come in the order of the step before),
-    paints with K1, or with K5 when paint8 is False, and reads out with
-    K2; its rows come out in cell order, a permutation of the
-    order-preserving result. Otherwise the step keeps row order, as
-    gravity.compute_force does: the Painter (K3 and K4 for CIC).
+    and runs the carry force's body on them (gravity._force_in_order),
+    which paints with K1, or with K5 when paint8 is False, and reads out
+    with K2; its rows come out in cell order, a permutation of the
+    order-preserving result. Otherwise the step keeps row order: it runs
+    gravity.compute_force with the Painter (K3 and K4 for CIC).
 
     donate: the caller gives x and v up (the JAX step's donate_argnums
     (0, 1); bench.py's BENCH_DONATE): the step sorts, kicks and drifts
     in them and returns them. The JAX default is True; here it is False,
     since a Python caller keeps its references."""
     pm = _on(pm, device)
-    potorder, gradorder, _d, _ = kernel_orders(kernel_type)
-    painter = Painter(pm, painter_type, support)
-    inv = pm.InvCellSize
     if not (carry_sorted and painter_type == "cic"):
+        painter = Painter(pm, painter_type, support)
+
         def step(x, v, coeffs):
-            return _step(pm, potorder, gradorder,
-                         lambda x: painter.paint(x, 1.0),
-                         lambda f, x: painter.readout3(*f, x), x, v, coeffs,
-                         own=donate)
+            (p,), _dk = gravity.compute_force(pm, painter, [Store(x=x)],
+                                              kernel_type)
+            return _kdk(pm, x, v, p.acc, coeffs, donate)
         return step
 
-    def paint(x):
-        if paint8:
-            return cic.cic_paint(x, pm.Nmesh, inv)
-        canvas = torch.zeros(pm.rshape, dtype=torch.float32, device=x.device)
-        cic.cic_paint4(canvas, x, inv)
-        return canvas
+    paint = gravity._k1 if paint8 else _k5
 
     def step(x, v, coeffs):
-        x, v = sort.carry_sort(x, v, pm.Nmesh, inv, sort_block, donate)
+        x, v = sort.carry_sort(x, v, pm.Nmesh, pm.InvCellSize, sort_block,
+                               donate)
+        acc, _dk = gravity._force_in_order(pm, paint, x, kernel_type,
+                                           "none")
         # donated, or the sort's copies: the step's own
-        return _step(pm, potorder, gradorder, paint,
-                     lambda f, x: cic.cic_readout(f, x, inv), x, v, coeffs,
-                     own=True)
+        return _kdk(pm, x, v, acc, coeffs, True)
 
     return step
 
@@ -127,21 +116,19 @@ def make_stale_step_fns(pm: PM, kernel_type: str = "1_4", device=None):
     (nbad); K1 and K2 take particles in any order, so here neither exists
     and a stale step is exact (gravity.compute_force_stale)."""
     pm = _on(pm, device)
-    potorder, gradorder, _d, _ = kernel_orders(kernel_type)
-    inv = pm.InvCellSize
 
     def run(x, v, coeffs, own):
-        return _step(pm, potorder, gradorder,
-                     lambda x: cic.cic_paint(x, pm.Nmesh, inv),
-                     lambda f, x: cic.cic_readout(f, x, inv), x, v, coeffs,
-                     own)
+        acc, _dk = gravity._force_in_order(pm, gravity._k1, x, kernel_type,
+                                           "none")
+        return _kdk(pm, x, v, acc, coeffs, own)
 
     def step_stale(x, v, coeffs):
         return run(x, v, coeffs, False)
 
     def step_fresh(x, v, coeffs):
         # the sort's copies are the step's own
-        return run(*sort.carry_sort(x, v, pm.Nmesh, inv), coeffs, True)
+        return run(*sort.carry_sort(x, v, pm.Nmesh, pm.InvCellSize), coeffs,
+                   True)
 
     return step_fresh, step_stale
 

@@ -24,6 +24,14 @@ JAX names:
 
 carry_eligible picks between them, as the JAX solver does.
 
+Every force, on one card and over ranks (parallel/psolver.py), shares
+one k-space stage, acc_fields: the three acceleration fields of a
+softened delta_k on a k-space geometry (a PM, or a rank's KShard), each
+gradient one pass of ops/kspace.py handed to the caller's inverse.
+potential_tidal makes and reads the potential and tidal fields through
+the same inverse. The carry and stale forces share one body,
+_force_in_order, which benchlib's order-free steps run too.
+
 The force's transforms are unnormalised (ops/fft.py) and its scales
 ride passes it makes anyway: the canvas is painted as (1 + delta) / Norm
 (K1 deposits 1 / N a particle; the multi-species canvas is divided by
@@ -44,7 +52,8 @@ trace while prof.enable_sync is on, named under the Solver's `force`:
 `force.r2c` and `force.c2r` (each FFT, ops/fft.py), `force.kspace`
 (the softening, the transfer, the potential and tidal transfers and
 each gradient: on the card one k-space kernel launch, ops/kspace.py)
-and `force.readout` (K2 or K4).
+and `force.readout` (K2 or K4). The bodies over ranks have the stage's
+spans: `force.kspace`, and `force.c2r` with each inverse's gather.
 """
 
 from __future__ import annotations
@@ -61,39 +70,73 @@ from .ops import cic, fft, kspace
 from . import kernels, prof
 
 __all__ = ["paint_delta_k", "compute_force", "carry_eligible",
-           "compute_force_carry", "compute_force_stale"]
+           "compute_force_carry", "compute_force_stale", "acc_fields",
+           "potential_tidal"]
+
+
+def acc_fields(kpm: PM, delta_k, kernel_type: str, c2r):
+    """The force's k-space stage: the three acceleration fields of a
+    softened, transferred delta_k on the k-space geometry kpm (a PM, or
+    a rank's parallel.pfft.KShard), delta_k kept. Each gradient is one
+    pass over delta_k (ops/kspace.py: a kernel launch on the card, its
+    plain version on the CPU), handed to c2r(g) -> field, the caller's
+    inverse (fft.c2r on one card; over ranks the shard's inverse and the
+    gather its readout needs), and let go as its field is made."""
+    fields = []
+    for d in range(3):
+        with prof.clock("force.kspace"):
+            g = kspace.force_grad_k(kpm, delta_k, d, kernel_type)
+        with prof.clock("force.c2r"):
+            fields.append(c2r(g))
+        del g
+    return fields
+
+
+def potential_tidal(kpm: PM, delta_k, kernel_type: str, c2r, read,
+                    compute_potential: bool, compute_tidal: bool):
+    """The potential and the six tidal components (xx yy zz xy yz zx) of
+    delta_k at every species' rows (gravity.py:127-156): the potential's
+    field, then the tidal fields three at a time (the readout takes at
+    most three), each the transfer of delta_k through c2r as acc_fields
+    takes it, each group read by read(fields, name) -> [(N, k) or None
+    per species] and let go. Returns a dict per species of what it read:
+    potential (N,), tidal (N, 6)."""
+    groups = ([("potential", (0,))] if compute_potential else []) + (
+        [("tidal", (0, 1, 2)), ("tidal", (3, 4, 5))] if compute_tidal
+        else [])
+    parts = []
+    for name, membs in groups:
+        fields = []
+        for m in membs:
+            with prof.clock("force.kspace"):
+                fk = kernels.apply_kernel_transfer(kpm, delta_k,
+                                                   kernel_type, name, m)
+            with prof.clock("force.c2r"):
+                fields.append(c2r(fk))
+            del fk
+        with prof.clock("force.readout"):
+            vals = read(fields, name)
+        del fields
+        parts = parts or [dict() for _ in vals]
+        for part, v in zip(parts, vals):
+            if v is not None:
+                part.setdefault(name, []).append(v)
+    return [{name: vs[0][:, 0] if name == "potential" else torch.cat(vs, 1)
+             for name, vs in part.items()} for part in parts]
 
 
 def _force_fields(pm: PM, delta_k, kernel_type: str, softening_type: str,
                   delta_transfer=None):
     """(softened delta_k, the three acceleration fields) from the
     overdensity transform (gravity.c:457-529); delta_transfer, when
-    given, maps the softened delta_k before the potential kernel. Each
-    gradient is one pass over delta_k (ops/kspace.py: a kernel launch on
-    the card, its plain version on the CPU), handed to the unnormalised
-    c2r."""
+    given, maps the softened delta_k before the potential kernel. The
+    fields are acc_fields' through the unnormalised c2r."""
     with prof.clock("force.kspace"):
         delta_k = kernels.apply_softening(pm, delta_k, softening_type)
         if delta_transfer is not None:
             delta_k = delta_transfer(delta_k)
-    fields = []
-    for d in range(3):
-        with prof.clock("force.kspace"):
-            g = kspace.force_grad_k(pm, delta_k, d, kernel_type)
-        with prof.clock("force.c2r"):
-            fields.append(fft.c2r(g, pm.Nmesh))
-        del g
-    return delta_k, tuple(fields)
-
-
-def _transfer_c2r(pm: PM, delta_k, kernel_type: str, field: str, *memb):
-    """The real field of a transfer of delta_k (the potential, or a tidal
-    component), its transform donated to c2r."""
-    with prof.clock("force.kspace"):
-        fk = kernels.apply_kernel_transfer(pm, delta_k, kernel_type, field,
-                                           *memb)
-    with prof.clock("force.c2r"):
-        return pm.c2r(fk, donate=True)
+    return delta_k, acc_fields(pm, delta_k, kernel_type,
+                               lambda g: fft.c2r(g, pm.Nmesh))
 
 
 def paint_delta_k(pm: PM, painter: Painter, stores: Sequence[Store],
@@ -151,26 +194,16 @@ def compute_force(pm: PM, painter: Painter, stores: Sequence[Store],
         out = [p.replace(acc=painter.readout3(f0, f1, f2, p.x, order))
                for p, order in zip(stores, orders)]
     del f0, f1, f2
-    if compute_potential and any(p.potential is not None for p in out):
-        pot = _transfer_c2r(pm, delta_k, kernel_type, "potential")
-        with prof.clock("force.readout"):
-            out = [p if p.potential is None else p.replace(
-                       potential=painter.readout_fields([pot], p.x, o)[:, 0])
-                   for p, o in zip(out, orders)]
-        del pot
-    if compute_tidal and any(p.tidal is not None for p in out):
-        # three fields at a time: the readout takes at most three
-        parts = [[] for _ in out]
-        for m0 in (0, 3):
-            tid = [_transfer_c2r(pm, delta_k, kernel_type, "tidal", m)
-                   for m in range(m0, m0 + 3)]
-            with prof.clock("force.readout"):
-                for part, p, o in zip(parts, out, orders):
-                    if p.tidal is not None:
-                        part.append(painter.readout_fields(tid, p.x, o))
-            del tid
-        out = [p if p.tidal is None else p.replace(tidal=torch.cat(part, 1))
-               for p, part in zip(out, parts)]
+    pot = compute_potential and any(p.potential is not None for p in out)
+    tid = compute_tidal and any(p.tidal is not None for p in out)
+    if pot or tid:
+        def read(fields, name):
+            return [None if getattr(p, name) is None
+                    else painter.readout_fields(fields, p.x, o)
+                    for p, o in zip(out, orders)]
+        out = [p.replace(**e) for p, e in zip(out, potential_tidal(
+            pm, delta_k, kernel_type, lambda k: fft.c2r(k, pm.Nmesh), read,
+            pot, tid))]
     return out, delta_k
 
 
@@ -209,8 +242,9 @@ def compute_force_carry(pm: PM, painter: Painter, store: Store,
         else:
             store = store.replace(acc=None).take(order)
         del order
-    return _force_in_order(pm, store, kernel_type, softening_type,
-                           delta_transfer)
+    acc, delta_k = _force_in_order(pm, _k1, store.x, kernel_type,
+                                   softening_type, delta_transfer)
+    return store.replace(acc=acc), delta_k
 
 
 def compute_force_stale(pm: PM, painter: Painter, store: Store,
@@ -228,23 +262,30 @@ def compute_force_stale(pm: PM, painter: Painter, store: Store,
     (ops/stale.py). K1 and K2 take particles in any order, so here there
     are no movers and no overflow, and the result is exact whatever the
     drift; only the kernels' locality decays with it."""
-    return _force_in_order(pm, store.replace(acc=None), kernel_type,
-                           softening_type, delta_transfer)
+    acc, delta_k = _force_in_order(pm, _k1, store.x, kernel_type,
+                                   softening_type, delta_transfer)
+    return store.replace(acc=acc), delta_k
 
 
-def _force_in_order(pm: PM, store: Store, kernel_type: str,
+def _k1(pm: PM, x, weight: float):
+    """K1: the canvas of the rows x, weight a particle."""
+    return cic.cic_paint(x, pm.Nmesh, pm.InvCellSize, weight)
+
+
+def _force_in_order(pm: PM, paint, x, kernel_type: str,
                     softening_type: str, delta_transfer=None):
-    """The body of the carry and stale forces: K1, the force fields and
-    K2 on the store's rows in their order. K1 deposits 1 / N a particle,
-    so the canvas is (1 + delta) / Norm with no pass of its own."""
+    """The body of the carry and stale forces (and of benchlib's
+    order-free steps): paint(pm, x, weight) -> canvas (K1; K5 for
+    benchlib's paint8=False) with 1 / N a particle, so the canvas is
+    (1 + delta) / Norm with no pass of its own; r2c, the force fields
+    and K2 on the rows x in their order. Returns (acc, delta_k)."""
     with prof.clock("force.paint"):
-        canvas = cic.cic_paint(store.x, pm.Nmesh, pm.InvCellSize,
-                               float(np.float32(1.0 / store.np_local)))
+        canvas = paint(pm, x, float(np.float32(1.0 / x.shape[0])))
     with prof.clock("force.r2c"):
         delta_k = fft.r2c(canvas)
     del canvas
     delta_k, fields = _force_fields(pm, delta_k, kernel_type,
                                     softening_type, delta_transfer)
     with prof.clock("force.readout"):
-        acc = cic.cic_readout(fields, store.x, pm.InvCellSize)
-    return store.replace(acc=acc), delta_k
+        acc = cic.cic_readout(fields, x, pm.InvCellSize)
+    return acc, delta_k

@@ -205,24 +205,6 @@ class PM:
         return fft.c2r(k if donate else k.clone(
             memory_format=torch.contiguous_format), self.Nmesh)
 
-    def c2r_grad3(self, fk: torch.Tensor, gradorder: int):
-        """Three gradient returns (c2r(i k_d * fk) for d in x, y, z), as
-        the benchlib step takes them, with the diff table order per
-        kernel (0 = k, 1 = k_finite super-Lanczos) and apply_diff's
-        self-conjugate-mode zeroing (gravity.c:34-64). Three c2r calls,
-        one field at a time, each gradient made in one temporary. fk is
-        consumed: the last gradient is taken in fk itself, so fk is gone
-        before the last c2r (the two-canvas cost model of gravity.c:415,
-        468); a caller that keeps fk passes a clone."""
-        from . import transfers
-        out = []
-        for d in range(3):
-            g = transfers.apply_grad(self, fk, d, gradorder,
-                                     out=fk if d == 2 else None)
-            out.append(self.c2r(g, donate=True))
-            del g
-        return tuple(out)
-
     # ---- diagnostics ----
 
     def compute_variance(self, delta_k: torch.Tensor) -> float:

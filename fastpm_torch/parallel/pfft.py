@@ -19,10 +19,11 @@ Pencil layouts (a Px x Py grid):
   along through the transfers (their tables are zero there).
 
 The transfers of a k shard are the single-device ones (transfers.py,
-kernels.py) applied with the rank's KShard, whose 1D tables along y
-(and z) are the rank's slice. The TPU package's fused matmul-DFT
-three-gradient inverse is a TPU mechanism: c2r_grad3_local is three
-c2r_local calls.
+kernels.py, the force's k-space stage gravity.acc_fields) applied with
+the rank's KShard (engine.kpm), whose 1D tables along y (and z) are the
+rank's slice. The TPU package's fused matmul-DFT three-gradient inverse
+is a TPU mechanism: the force's three gradients take three c2r_local
+calls.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import numpy as np
 import torch
 
 from ..mesh import PM
-from .. import kernels, transfers
 from .comm import Ring, Grid
 
 __all__ = ["SlabPM", "PencilPM", "KShard"]
@@ -76,7 +76,7 @@ class KShard(PM):
 
 class SlabPM:
     """PM engine over the slab decomposition of a ring of ranks: a host
-    PM (geometry) plus shard-local FFTs and transfers."""
+    PM (geometry), the k shard's geometry (kpm) and shard-local FFTs."""
 
     def __init__(self, pm: PM, ring: Ring):
         self.pm = pm
@@ -115,32 +115,6 @@ class SlabPM:
         x = torch.fft.irfftn(k, s=(pm.Nmesh[1], pm.Nmesh[2]), dim=(1, 2))
         return x.to(pm.dtype)
 
-    def c2r_grad3_local(self, pot_k: torch.Tensor, gradorder: int):
-        """The force step's three gradient inverses: c2r_local(i k_d
-        pot_k) for d in x, y, z, one field at a time."""
-        return tuple(self.c2r_local(self.apply_grad(pot_k, d, gradorder))
-                     for d in range(3))
-
-    # ---- shard-local transfers (transfers.py on the k shard) ----
-
-    def apply_pot(self, dk, order: int):
-        return transfers.apply_pot(self.kpm, dk, order)
-
-    def apply_grad(self, dk, dir: int, order: int):
-        return transfers.apply_grad(self.kpm, dk, dir, order)
-
-    def apply_decic(self, dk):
-        return transfers.apply_decic(self.kpm, dk)
-
-    def apply_softening(self, dk, softening_type: str):
-        return kernels.apply_softening(self.kpm, dk, softening_type)
-
-    def apply_laplace(self, dk, order: int):
-        return transfers.apply_laplace(self.kpm, dk, order)
-
-    def apply_fk_interp(self, dk, logk, vals, key=None):
-        return transfers.apply_fk_interp(self.kpm, dk, logk, vals, key)
-
     # ---- canvas collectives (paint reduce / readout gather) ----
 
     def reduce_canvas(self, canvas_full: torch.Tensor) -> torch.Tensor:
@@ -155,7 +129,7 @@ class SlabPM:
 class PencilPM:
     """PM engine over the pencil decomposition of a px x py Grid (the
     reference's default PFFT 2D decomposition, pmpfft.c:108-260): a host
-    PM (geometry) plus shard-local FFTs and transfers.
+    PM (geometry), the k shard's geometry (kpm) and shard-local FFTs.
 
     r2c: rfft(z) -> pad z -> all_to_all over the y-ring (z <-> y) ->
     fft(y) -> all_to_all over the x-ring (y <-> x) -> fft(x)
@@ -208,18 +182,6 @@ class PencilPM:
         k = self.grid.yring.all_to_all(k, split_dim=1, concat_dim=2)
         x = torch.fft.irfft(k[:, :, :self.nzh], n=pm.Nmesh[2], dim=2)
         return x.to(pm.dtype)
-
-    c2r_grad3_local = SlabPM.c2r_grad3_local
-
-    # ---- shard-local transfers (transfers.py on the k shard) ----
-
-    apply_pot = SlabPM.apply_pot
-    apply_grad = SlabPM.apply_grad
-    apply_decic = SlabPM.apply_decic
-    apply_softening = SlabPM.apply_softening
-    apply_laplace = SlabPM.apply_laplace
-    # the pad's modes are zero: any factor keeps them zero
-    apply_fk_interp = SlabPM.apply_fk_interp
 
     # ---- canvas collectives (paint reduce / readout gather) ----
 

@@ -42,8 +42,11 @@ _paint_homed2 and _readout_homed2), reduces the halo blocks along x over
 the x-ring and then along y over the y-ring (corners ride both hops),
 and gathers the fields back y first, then x.
 
-Both homed forces and v1 read out the potential and the tidal tensor
-when asked (the extra fields through the homed readout, K2's kernel).
+Every body takes its fields from the one-card force's k-space stage
+(gravity.acc_fields, gravity.potential_tidal for the potential and the
+tidal tensor when asked, read through the homed readout, K2's kernel),
+on the rank's KShard, the inverse being c2r_local and the halo gather
+(homed) or the full gather (v1).
 Each body takes the neutrino linear response as a transfer hook on the
 rank's softened k shard (the JAX package's pre / post split,
 psolver.py:943-1116, as one call): a homed body sums its overflow count
@@ -68,7 +71,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..kernels import kernel_orders, apply_kernel_transfer
+from ..gravity import acc_fields, potential_tidal
+from ..kernels import apply_softening
 from ..ops import cic
 from ..ops.cic import Slab, Pencil
 from ..painter import Painter
@@ -94,35 +98,32 @@ def _normalize(spm: SlabPM, canvas, total_mass, softening_type):
     transform's y shard (the canvas enters r2c as 1 + delta)."""
     ntotal = spm.ring.psum(total_mass)
     delta_k = spm.r2c_local(canvas / (ntotal / spm.pm.Norm))
-    return spm.apply_softening(delta_k, softening_type)
+    return apply_softening(spm.kpm, delta_k, softening_type)
 
 
-def _extra_groups(compute_potential: bool, compute_tidal: bool):
-    """The readouts past acc, at most three fields each: (name, the
-    members of apply_kernel_transfer)."""
-    return ([("potential", (0,))] if compute_potential else []) + (
-        [("tidal", (0, 1, 2)), ("tidal", (3, 4, 5))] if compute_tidal
-        else [])
+def _inverse(engine, gather):
+    """c2r(k) -> field for the force stage (gravity.acc_fields): the
+    shard's inverse, gathered as the readout needs it (gather(field) ->
+    the extended or full field)."""
+    return lambda k: gather(engine.c2r_local(k))
 
 
-def _read_extras(engine, delta_k, kernel_type: str, outs, xs, read,
-                 compute_potential: bool, compute_tidal: bool):
-    """Fill outs[i]["potential"] (N,) and outs[i]["tidal"] (N, 6) of each
-    species: read(local fields, x) -> (N, k) reads the rank's local
-    inverses (gathered as the force's readout needs them)."""
-    parts = [dict() for _ in outs]
-    for name, membs in _extra_groups(compute_potential, compute_tidal):
-        locs = [engine.c2r_local(apply_kernel_transfer(
-            engine.kpm, delta_k, kernel_type, name, m)) for m in membs]
-        vals = read(locs, xs)
-        del locs
-        for part, v in zip(parts, vals):
-            part.setdefault(name, []).append(v)
-    for out, part in zip(outs, parts):
-        if "potential" in part:
-            out["potential"] = part["potential"][0][:, 0]
-        if "tidal" in part:
-            out["tidal"] = torch.cat(part["tidal"], dim=1)
+def _multi_fields(engine, delta_k, kernel_type: str, c2r, readout3, read,
+                  xs, compute_potential: bool, compute_tidal: bool):
+    """The multi-species bodies' readouts of the rank's k shard: the
+    acceleration by readout3(fields, x) -> (N, 3) at every species'
+    rows, then the potential and tidal tensor by read(fields, x) -> (N,
+    k) (gravity.potential_tidal). Returns [dict(acc[, potential,
+    tidal]) per species]."""
+    fields = acc_fields(engine.kpm, delta_k, kernel_type, c2r)
+    outs = [dict(acc=readout3(fields, x)) for x in xs]
+    del fields
+    for out, e in zip(outs, potential_tidal(
+            engine.kpm, delta_k, kernel_type, c2r,
+            lambda fs, name: [read(fs, x) for x in xs],
+            compute_potential, compute_tidal)):
+        out.update(e)
+    return outs
 
 
 def _force_local_multi(spm, painter, xs, masses, kernel_type: str,
@@ -145,17 +146,11 @@ def _force_local_multi(spm, painter, xs, masses, kernel_type: str,
     del canvas
     if transfer is not None:
         delta_k = transfer(delta_k)
-    fulls = [spm.gather_canvas(spm.c2r_local(apply_kernel_transfer(
-        spm.kpm, delta_k, kernel_type, "acc", d))) for d in range(3)]
-    outs = [dict(acc=painter.readout3(*fulls, x)) for x in xs]
-    del fulls
-
-    def read(locs, xs):
-        fulls = [spm.gather_canvas(f) for f in locs]
-        return [painter.readout_fields(fulls, x) for x in xs]
-
-    _read_extras(spm, delta_k, kernel_type, outs, xs, read,
-                 compute_potential, compute_tidal)
+    outs = _multi_fields(spm, delta_k, kernel_type,
+                         _inverse(spm, spm.gather_canvas),
+                         lambda fs, x: painter.readout3(*fs, x),
+                         painter.readout_fields, xs, compute_potential,
+                         compute_tidal)
     return outs, delta_k
 
 
@@ -332,18 +327,6 @@ def _pencil(ppm: PencilPM, Hx: int, Hy: int) -> _Homing:
                    (nlx + 2 * Hx + 1, nly + 2 * Hy + 1, n2), reduce, gather)
 
 
-def _grad3_fields_homed(engine, delta_k, kernel_type: str, gather):
-    """Shared tail of the homed force bodies: the potential transfer,
-    the three gradient inverses, and the halo gather of each.
-    gather(field) -> extended field."""
-    potorder, gradorder, _d, deconv = kernel_orders(kernel_type)
-    out = delta_k
-    for _ in range(deconv):
-        out = engine.apply_decic(out)
-    pot_k = engine.apply_pot(out, potorder)
-    return [gather(g) for g in engine.c2r_grad3_local(pot_k, gradorder)]
-
-
 def _transferred(engine, delta_k, bad, transfer):
     """(delta_k through the transfer hook, the global overflow count),
     or (None, count) when a particle lies beyond the halo: the count is
@@ -379,16 +362,11 @@ def _homed_multi(engine, hom: _Homing, xs, masses, kernel_type: str,
     delta_k, bad = _transferred(engine, delta_k, bad, transfer)
     if delta_k is None:
         return None, bad, None
-    fields = _grad3_fields_homed(engine, delta_k, kernel_type, hom.gather)
-    outs = [dict(acc=readout3(fields, x, inv, hom.geom)) for x in xs]
-    del fields
-
-    def read(locs, xs):
-        fs = [hom.gather(f) for f in locs]
-        return [cic.cic_readout_homed(fs, x, inv, hom.geom) for x in xs]
-
-    _read_extras(engine, delta_k, kernel_type, outs, xs, read,
-                 compute_potential, compute_tidal)
+    outs = _multi_fields(
+        engine, delta_k, kernel_type, _inverse(engine, hom.gather),
+        lambda fs, x: readout3(fs, x, inv, hom.geom),
+        lambda fs, x: cic.cic_readout_homed(fs, x, inv, hom.geom), xs,
+        compute_potential, compute_tidal)
     return outs, bad, delta_k
 
 
@@ -419,7 +397,8 @@ def _homed_carry(engine, hom: _Homing, store: Store, kernel_type: str,
     delta_k, bad = _transferred(engine, delta_k, bad, transfer)
     if delta_k is None:
         return None, bad, None
-    fields = _grad3_fields_homed(engine, delta_k, kernel_type, hom.gather)
+    fields = acc_fields(engine.kpm, delta_k, kernel_type,
+                        _inverse(engine, hom.gather))
     acc = readout3(fields, store.x, inv, hom.geom)
     return store.replace(acc=acc), bad, delta_k
 
@@ -589,7 +568,8 @@ def _force_local_homed_rehome(spm: SlabPM, store: Store, kernel_type: str,
     delta_k = _normalize(spm, hom.reduce(canvas), _total_mass(x, 1.0),
                          softening_type)
     del canvas
-    fields = _grad3_fields_homed(spm, delta_k, kernel_type, hom.gather)
+    fields = acc_fields(spm.kpm, delta_k, kernel_type,
+                        _inverse(spm, hom.gather))
     acc = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     acc[:E] = readout3(fields, x, inv, hom.geom)
     del fields

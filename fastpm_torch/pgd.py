@@ -15,8 +15,8 @@ readout. The band filter's table depends only on the mesh and is kept
 per PM.
 
 Over ranks (compute_local) the filter acts on the rank's k shard (a
-parallel.pfft.KShard), the three gradient fields come back through the
-engine's c2r_grad3_local with order 1, and the force's reader
+parallel.pfft.KShard), the three order-1 gradients come back through
+the engine's c2r_local, and the force's reader
 (parallel.psolver.reader) reads them at the store's rows: homed K2 after
 the halo gather on a slab or pencil, the gathered full fields for v1.
 """
@@ -84,6 +84,8 @@ class PGDCorrection:
         rank's rows and read(fields, x) the force's reader of local
         fields (psolver.reader)."""
         pot = self._pot_transfer_alpha(engine.kpm, delta_k, alpha_fac)
-        fields = engine.c2r_grad3_local(pot, 1)
+        fields = [engine.c2r_local(transfers.apply_diff(engine.kpm, pot, d,
+                                                        order=1))
+                  for d in range(3)]
         del pot
-        return read(list(fields), pos)
+        return read(fields, pos)

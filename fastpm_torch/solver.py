@@ -66,7 +66,7 @@ is on: `init` (the constructor: meshes, lattice), `lpt` (setup_lpt),
 `kick`, `drift` and `force` (evolve's actions); inside `force`,
 `force.wait` (the host's fetch of the last force's finite-ness flag),
 `force.wrap` (the periodic wrap), `force.check` (the finite-ness scan)
-and the one-device force's phases (gravity.py).
+and the force's phases (gravity.py; over ranks the k-space stage's).
 """
 
 from __future__ import annotations

@@ -74,21 +74,20 @@ def apply_diff(pm: PM, dk, dir: int, order: int, zero_nyquist: bool = True,
     return out
 
 
-def apply_laplace(pm: PM, dk, order: int, inplace: bool = False):
+def apply_laplace(pm: PM, dk, order: int):
     """Inverse Laplacian 1/kk with finite-difference order 0/1/2
-    (transfer.c:153-186); the zero mode is zeroed. inplace: dk is
-    multiplied in place (a caller that gives dk up)."""
+    (transfer.c:153-186); the zero mode is zeroed."""
     kk = pm.kk(["kk", "kk_finite", "kk_finite2"][order])
     nz = kk != 0
     inv = torch.where(nz, 1.0 / torch.where(nz, kk, torch.ones_like(kk)),
                       torch.zeros_like(kk))
-    return dk.mul_(inv) if inplace else dk * inv
+    return dk * inv
 
 
-def apply_pot(pm: PM, dk, order: int, inplace: bool = False):
+def apply_pot(pm: PM, dk, order: int):
     """-1/kk: Poisson potential from overdensity (gravity.c:13-18), the
-    sign taken in place on the product; inplace: on dk itself."""
-    return apply_laplace(pm, dk, order, inplace).neg_()
+    sign taken in place on the product."""
+    return apply_laplace(pm, dk, order).neg_()
 
 
 def apply_grad(pm: PM, dk, dir: int, order: int, out=None):

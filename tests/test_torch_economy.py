@@ -2,11 +2,11 @@
 out-of-place composition it replaces (32^3, CPU).
 
 The lean paths scale in place (the canvas by the mean mass, r2c's
-1/Norm, c2r's Norm on a donated field), take the potential transfer in
-place where delta_k is not kept, take the last gradient in the donated
-potential (mesh.c2r_grad3), sort and permute columns one at a time into
-a donated store or into donated x and v, and kick and drift in place
-in the columns the Solver made and nobody outside has seen. Each is
+1/Norm, c2r's Norm on a donated field), make each gradient of the force's
+k-space stage (gravity.acc_fields) in one pass and let it go as its
+field is made, sort and permute columns one at a time into a donated
+store or into donated x and v, and kick and drift in place in the
+columns the Solver made and nobody outside has seen. Each is
 held here, bit for bit, against the plain expressions written out below,
 and every kept input is checked unchanged.
 """
@@ -105,10 +105,17 @@ def test_r2c_c2r(pm, field):
 
 @pytest.mark.parametrize("order", [0, 1])
 def test_c2r_grad3(pm, field, order):
+    """The force's k-space stage (kernel naive or 1_4: potorder 0,
+    gradorder 0 or 1) through the plain c2r against the plain gradients
+    of the plain potential; delta_k kept."""
     fk = plain_r2c(pm, field)
-    want = plain_grad3(pm, fk, order)
-    for g, w in zip(pm.c2r_grad3(fk.clone(), order), want):
+    kept = fk.clone()
+    want = plain_grad3(pm, plain_pot(pm, kept, 0), order)
+    got = gravity.acc_fields(pm, fk, {0: "naive", 1: "1_4"}[order],
+                             lambda g: plain_c2r(pm, g))
+    for g, w in zip(got, want):
         same(g, w)
+    same(fk, kept)
 
 
 @pytest.mark.parametrize("kernel_type", ["1_4", "gadget", "5_4"])
@@ -126,8 +133,6 @@ def test_transfers(pm, field, kernel_type):
                                            memb),
              plain_kernel_transfer(pm, kept, kernel_type, field_, memb))
     same(dk, kept)
-    same(transfers.apply_pot(pm, dk, potorder, inplace=True),
-         plain_pot(pm, kept, potorder))
 
 
 def _particles(n=N // 2, box=64.0, seed=1):
@@ -137,22 +142,32 @@ def _particles(n=N // 2, box=64.0, seed=1):
     return x, torch.randn(x.shape, generator=g)
 
 
+def plain_fields(pm, dk, kernel_type, c2r):
+    """The force's three fields as the plain chain: c2r of each
+    acceleration transfer."""
+    return tuple(c2r(plain_kernel_transfer(pm, dk, kernel_type, "acc", d))
+                 for d in range(3))
+
+
 def plain_step(pm, x, v, coeffs, carry, kernel_type="1_4", sort=True):
-    """The benchlib step as plain out-of-place expressions; sort=False:
-    the carry's K1 and K2 on the rows in their order (the stale step)."""
-    potorder, gradorder, _, _ = kernels.kernel_orders(kernel_type)
+    """The benchlib step as plain out-of-place expressions of the
+    Solver's force bodies (the carry's K1 with 1 / N a particle, or the
+    Painter's canvas over the total mass; the unnormalised FFTs; the
+    plain chain); sort=False: the carry's K1 and K2 on the rows in their
+    order (the stale step)."""
     inv = pm.InvCellSize
     painter = Painter(pm, "cic")
     if carry:
         if sort:
             order = cic.sort_by_cell(x, pm.Nmesh, inv)
             x, v = x[order], v[order]
-        canvas = cic.cic_paint(x, pm.Nmesh, inv)
+        canvas = cic.cic_paint(x, pm.Nmesh, inv,
+                               float(np.float32(1.0 / x.shape[0])))
     else:
-        canvas = painter.paint(x, 1.0)
-    canvas = canvas / (x.shape[0] / pm.Norm)
-    pot_k = plain_pot(pm, plain_r2c(pm, canvas), potorder)
-    fields = plain_grad3(pm, pot_k, gradorder)
+        canvas = painter.paint(x, 1.0) / x.shape[0]
+    fields = plain_fields(pm, torch.fft.rfftn(canvas), kernel_type,
+                          lambda k: torch.fft.irfftn(k, s=pm.Nmesh,
+                                                     norm="forward"))
     acc = (cic.cic_readout(fields, x, inv) if carry
            else painter.readout3(*fields, x))
     c = torch.tensor(coeffs, dtype=torch.float32)
@@ -330,8 +345,7 @@ def plain_primitives(monkeypatch):
     monkeypatch.setattr(PM, "r2c", plain_r2c)
     monkeypatch.setattr(PM, "c2r", lambda pm, k, donate=False:
                         plain_c2r(pm, k))
-    monkeypatch.setattr(PM, "c2r_grad3", lambda pm, fk, order:
-                        plain_grad3(pm, fk, order))
+    monkeypatch.setattr(gravity, "acc_fields", plain_fields)
     monkeypatch.setattr(kernels, "apply_kernel_transfer",
                         plain_kernel_transfer)
     monkeypatch.setattr(Store, "take", lambda p, index, donate=False:

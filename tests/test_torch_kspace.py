@@ -7,7 +7,10 @@ gradient, Nyquist mask), with no Norm (the force's c2r is
 unnormalised, ops/fft.py; the kernel is launched with norm 1.0), for
 every kernel type and axis, on cubic and non-cubic meshes and on a k
 shard's sliced tables (parallel.pfft.KShard). The force's CPU path takes
-the plain version, and equals the chain through PM.c2r_grad3.
+the plain version, and equals the chain through PM.c2r; the force's
+k-space stage (gravity.acc_fields), which every force runs on one card
+and over ranks, equals the chain through the caller's inverse on the
+whole mesh, a slab's k shard and a pencil's k shard with its kz pad.
 
 The CUDA cases hold the kernel bit-equal to the plain version on the
 card for every kernel type and axis, launched with norm 1.0: on 64^3,
@@ -26,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from fastpm_torch import gravity, kernels
+from fastpm_torch import gravity, kernels, prof
 from fastpm_torch.mesh import PM
 from fastpm_torch.ops import fft, kspace
 from fastpm_torch.painter import Painter
@@ -111,16 +114,64 @@ def test_memory_positions():
 
 def test_force_fields_on_cpu_is_the_chain():
     """The CPU force (the plain version a gradient) equals the chain:
-    the potential tensor and PM.c2r_grad3."""
+    each acceleration transfer through PM.c2r."""
     pm = PM(16, 32.0)
     dk = _delta_k(pm)
     got_dk, fields = gravity._force_fields(pm, dk, "1_4", "gaussian")
     soft = kernels.apply_softening(pm, dk, "gaussian")
-    want = pm.c2r_grad3(kernels.apply_kernel_transfer(pm, soft, "1_4",
-                                                      "potential"), 1)
     assert torch.equal(got_dk, soft)
-    for g, w in zip(fields, want):
-        assert torch.equal(g, w)
+    for d, g in enumerate(fields):
+        assert torch.equal(g, pm.c2r(_chain(pm, soft, d, "1_4")))
+
+
+# the k-space geometries of the stage's wiring test on PM(16, 32.0): the
+# whole mesh, a slab's y shard (rank 1 of 4: y rows 4-7) and a pencil's
+# shard (rank (1, 1) of a 2 x 2 grid: y rows 8-15, z columns 5-9, the
+# last of them the kz pad past Nz/2 + 1 = 9)
+GEOMETRIES = {"one_card": None, "slab": (4, 4), "pencil": (8, 8, 5, 5)}
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("kernel_type", KERNEL_TYPES)
+def test_stage_is_the_chain(kernel_type, geometry):
+    """gravity.acc_fields, the k-space stage of every force, gives c2r of
+    each acceleration transfer bit for bit, delta_k kept, one force.kspace
+    and one force.c2r clock a field. c2r is the caller's: the whole
+    mesh's unnormalised c2r, or on a shard the inverse along x that a
+    shard's c2r_local starts with."""
+    pm = PM(16, 32.0)
+    dk = _delta_k(pm)
+    shard = GEOMETRIES[geometry]
+    if shard is None:
+        kpm = pm
+
+        def inverse(k):
+            return fft.c2r(k, pm.Nmesh)
+    else:
+        kpm = KShard(pm, *shard)
+        y0, ny, z0 = (shard + (0,))[:3]
+        dk = dk[:, y0:y0 + ny, z0:]
+        # the pencil's kz pad: zero modes past Nz/2 + 1
+        dk = torch.cat([dk, torch.zeros(
+            *dk.shape[:2], kpm.kshape[2] - dk.shape[2], dtype=dk.dtype)], 2)
+
+        def inverse(k):
+            return torch.fft.ifft(k, dim=0)
+    assert tuple(dk.shape) == kpm.kshape
+    kept = dk.clone()
+    prof.reset()
+    try:
+        fields = gravity.acc_fields(kpm, dk, kernel_type, inverse)
+        counts = {n: c.count for n, c in prof._clocks.items()}
+    finally:
+        prof.reset()
+    assert counts == {"force.kspace": 3, "force.c2r": 3}
+    assert torch.equal(dk, kept)
+    assert len(fields) == 3
+    for d, f in enumerate(fields):
+        assert torch.equal(f, inverse(_chain(kpm, dk, d, kernel_type)))
+        if geometry == "pencil":
+            assert not f[:, :, -1].any()
 
 
 # ---- on the card ----
@@ -190,12 +241,9 @@ def test_force_fields_on_cuda(kernel_type, softening):
     got_dk, fields = gravity._force_fields(pm, dk, kernel_type, softening)
     assert kspace.force_grad_k.launches == before + 3
     soft = kernels.apply_softening(pm, dk, softening)
-    want = pm.c2r_grad3(kernels.apply_kernel_transfer(
-        pm, soft, kernel_type, "potential"),
-        kernels.kernel_orders(kernel_type)[1])
     assert torch.equal(got_dk, soft)
-    for g, w in zip(fields, want):
-        assert torch.equal(g, w)
+    for d, g in enumerate(fields):
+        assert torch.equal(g, pm.c2r(_chain(pm, soft, d, kernel_type)))
 
 
 @pytest.mark.cuda

@@ -13,7 +13,7 @@ from fastpm_tpu import transfers as jtransfers, kernels as jkernels
 from fastpm_tpu.powerspectrum import measure_power as jmeasure_power
 
 from fastpm_torch.mesh import PM
-from fastpm_torch import transfers, kernels
+from fastpm_torch import gravity, transfers, kernels
 from fastpm_torch.powerspectrum import measure_power
 
 
@@ -50,10 +50,13 @@ def test_r2c_c2r(meshes):
 
 @pytest.mark.parametrize("gradorder", [0, 1])
 def test_c2r_grad3(meshes, gradorder):
+    """The force's k-space stage (gravity.acc_fields, through PM.c2r)
+    against the JAX c2r_grad3 of the potential: kernel naive (potorder
+    0, gradorder 0) or 1_4 (potorder 0, gradorder 1), no deconvolution."""
     pm, jpm, x, dk, jdk = meshes
-    pot = transfers.apply_pot(pm, dk, 0)
+    kernel = {0: "naive", 1: "1_4"}[gradorder]
     jpot = jtransfers.apply_pot(jpm, jdk, 0)
-    for got, want in zip(pm.c2r_grad3(pot, gradorder),
+    for got, want in zip(gravity.acc_fields(pm, dk, kernel, pm.c2r),
                          jpm.c2r_grad3(jpot, gradorder)):
         _close(got, want)
 

@@ -9,8 +9,9 @@ pencil-blocked (store.lattice_store(blocks=(px, py))), so rank
 cx * py + cy holds block b = cx * py + cy, as the JAX package's
 index-sharded arrays do. Grids 2 x 2, 1 x 2 and 2 x 1: the lopsided
 ones catch swapped axes. Covered: the grid's rings; PencilPM's r2c, c2r
-and c2r_grad3_local shard by shard, the kz pad included (Nz = 16 and 32
-with Py = 2 pad one column); required_halo_planes_pencil; the pencil
+and the force's k-space stage (gravity.acc_fields through c2r_local)
+against the JAX c2r_grad3_local shard by shard, the kz pad included
+(Nz = 16 and 32 with Py = 2 pad one column); required_halo_planes_pencil; the pencil
 multi force with both homed kernels (a scalar mass and a mass column,
 the potential and tidal tensor, a halo wider than a pencil, the
 overflow count); the pencil carry; v1 over PencilPM; the slab multi's
@@ -267,7 +268,8 @@ def test_grid_rings(runs, px, py):
 def test_pencil_fft_matches_jax(runs, px, py):
     """r2c (the pad's column included), the shard transfers (potential,
     gradient, deCIC, the Laplacian, the linear response's fk interp) and
-    c2r_grad3_local shard by shard; c2r gives the field back."""
+    the force stage's three fields against c2r_grad3_local shard by
+    shard; c2r gives the field back."""
     oracle, data, ranks = runs(px, py)
     for key in ("fft_dk", "fft_transfer", "fft_laplace", "fft_fk"):
         np.testing.assert_allclose(_pencils(ranks, key, px, py, (1, 2)),

@@ -5,7 +5,11 @@ With prof.enable_sync on, every clock opens a torch.profiler range named
 "fastpm." + its name around its body: the Solver's `init`, `lpt`, `kick`,
 `drift` and `force`, and inside `force` the force's phases `force.*`.
 With it off no range is opened and no CUDA event is recorded, and the
-positions and velocities are the same bits either way.
+positions and velocities are the same bits either way. Over a one-rank
+gloo group in this process (a HashStore, no socket; torn down with the
+module) the Solver runs the bodies of the ranks: the homed slab carry,
+the pencil carry (a 1 x 1 Grid) and v1 (a painter other than CIC), each
+with the force's k-space stage and its spans.
 """
 
 import json
@@ -14,10 +18,12 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.profiler import profile, ProfilerActivity
 
 from fastpm_torch import ic, prof
 from fastpm_torch.cosmology import Cosmology
+from fastpm_torch.parallel.comm import Grid
 from fastpm_torch.powerspectrum import FuncK
 from fastpm_torch.solver import Solver, SolverConfig
 
@@ -27,12 +33,19 @@ NC = 8
 STEPS = [0.1, 0.55, 1.0]
 PHASES = ("order", "paint", "r2c", "c2r", "kspace", "readout", "check",
           "wait", "wrap")
-# the one-device force paths: the order-free carry of one species, and
-# the multi-species body in row order, here with the potential and the
-# tidal tensor at the particles
-PATHS = {"carry": dict(),
-         "multi": dict(order_free=False, compute_potential=True,
-                       compute_tidal=True)}
+# the force paths by their Solver.force_paths name: (the config's
+# options, the decomposition). On one device the order-free carry of one
+# species, and the multi-species body in row order, here with the
+# potential and the tidal tensor at the particles; over a group of one
+# rank ("ring" or "grid") the homed slab carry, the pencil carry and v1
+PATHS = {"carry": (dict(), None),
+         "multi": (dict(order_free=False, compute_potential=True,
+                        compute_tidal=True), None),
+         "homed-carry": (dict(), "ring"),
+         "pencil-carry": (dict(), "grid"),
+         "v1": (dict(painter_type="linear"), "ring")}
+# the phases the bodies over ranks clock: the Solver's and the stage's
+RANKS_PHASES = ("c2r", "kspace", "check", "wait", "wrap")
 
 
 @pytest.fixture(autouse=True)
@@ -44,13 +57,27 @@ def clean_clocks():
     prof.enable_sync(False)
 
 
-def _pass(path):
+@pytest.fixture(scope="module")
+def world():
+    """The default process group of one gloo rank, destroyed with the
+    module so that no other test of the worker sees it."""
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def _pass(path, group=None):
     """A Solver pass as a library user runs it: the constructor,
-    setup_lpt and evolve. Returns the solver."""
+    setup_lpt and evolve (over group, when given, as the path's
+    decomposition says). Returns the solver."""
+    options, comm = PATHS[path]
+    where = ({} if comm is None else dict(group=group) if comm == "ring"
+             else dict(grid=Grid(group, 1, 1)))
     c = Cosmology(h=0.6774, Omega_m=0.307494, growth_mode="lcdm")
     s = Solver(SolverConfig(nc=NC, boxsize=4.0 * NC, time_step=STEPS,
                             pm_nc_factor=2, check_values=True,
-                            **PATHS[path]), c, device="cpu")
+                            **options), c, device="cpu", **where)
     dk, _ = ic.linear_field(s.lptpm, c, FuncK.from_file(FIXTURE), seed=7,
                             aout=1.0)
     s.setup_lpt(dk, STEPS[0])
@@ -58,12 +85,12 @@ def _pass(path):
     return s
 
 
-def _traced(path, sync, tmp_path):
+def _traced(path, sync, tmp_path, group):
     """A pass under a torch.profiler CPU trace with enable_sync as given:
     (the solver, the trace's ranges by name as (start, end) in us)."""
     prof.enable_sync(sync)
     with profile(activities=[ProfilerActivity.CPU]) as trace:
-        s = _pass(path)
+        s = _pass(path, group)
     prof.enable_sync(False)
     out = tmp_path / ("trace_%s_%d.json" % (path, sync))
     trace.export_chrome_trace(str(out))
@@ -79,9 +106,11 @@ def _traced(path, sync, tmp_path):
 def runs(request, tmp_path_factory):
     """Each path's pass with the spans off and on, under a trace."""
     tmp = tmp_path_factory.mktemp("prof_" + request.param)
-    off = _traced(request.param, False, tmp)
+    group = (request.getfixturevalue("world")
+             if PATHS[request.param][1] else None)
+    off = _traced(request.param, False, tmp, group)
     prof.reset()
-    on = _traced(request.param, True, tmp)
+    on = _traced(request.param, True, tmp, group)
     clocks = {n: c.count for n, c in prof._clocks.items()}
     prof.reset()
     return dict(path=request.param, off=off, on=on, clocks=clocks)
@@ -166,20 +195,25 @@ def test_on_trace_holds_every_span(runs):
     """The pass's trace holds init, lpt, the actions and every phase of
     the force, each as often as its clock counted it."""
     _, ranges = runs["on"]
+    ranks = PATHS[runs["path"]][1] is not None
     want = {"init", "lpt", "force", "kick", "drift"}
-    want |= {"force." + p for p in PHASES}
+    want |= {"force." + p for p in (RANKS_PHASES if ranks else PHASES)}
     got = {n[len(prof.SPAN):] for n in ranges if n.startswith(prof.SPAN)}
     assert got == want
     counts = {n: len(ranges[prof.SPAN + n]) for n in got}
     assert counts == runs["clocks"]
     forces = len(STEPS)  # one force at each time
     assert counts["force"] == forces
-    for p in ("order", "paint", "r2c", "check", "wait", "wrap"):
+    for p in ("check", "wait", "wrap") + (() if ranks
+                                          else ("order", "paint", "r2c")):
         assert counts["force." + p] == forces
     # three gradients a force, and the potential's and six tidal c2r on
     # the multi path
     extra = 1 + 6 if runs["path"] == "multi" else 0
     assert counts["force.c2r"] == forces * (3 + extra)
+    if ranks:
+        # over ranks the stage's gradients alone: the softening is r2c's
+        assert counts["force.kspace"] == forces * 3
 
 
 def test_force_phases_lie_inside_a_force(runs):

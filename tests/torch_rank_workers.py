@@ -243,6 +243,7 @@ def _rows(ring, a):
 
 def slab_fft(ring, data):
     """SlabPM r2c, c2r and the shard transfers on the rank's slab."""
+    from fastpm_torch import transfers
     from fastpm_torch.mesh import PM
     from fastpm_torch.parallel.pfft import SlabPM
     field = data["fft_field"]
@@ -250,7 +251,9 @@ def slab_fft(ring, data):
     spm = SlabPM(pm, ring)
     slab = _rows(ring, field)
     dk = spm.r2c_local(slab)
-    out = spm.apply_decic(spm.apply_grad(spm.apply_pot(dk, 1), 1, 1))
+    kpm = spm.kpm
+    out = transfers.apply_decic(kpm, transfers.apply_grad(
+        kpm, transfers.apply_pot(kpm, dk, 1), 1, 1))
     return {"fft_dk": dk.numpy(), "fft_back": spm.c2r_local(dk).numpy(),
             "fft_transfer": out.numpy()}
 
@@ -424,6 +427,7 @@ def pencil(grid, data):
     the overflow count) and carry, v1 over PencilPM; where the inputs
     ask, the slab multi's potential and tidal tensor over every rank,
     the sharded Solver and read_runpbic."""
+    from fastpm_torch import gravity, transfers
     from fastpm_torch.mesh import PM
     from fastpm_torch.painter import Painter
     from fastpm_torch.store import Store
@@ -438,16 +442,18 @@ def pencil(grid, data):
     (x0, y0), (nlx, nly) = ppm.r0, ppm.rshard[:2]
     dk = ppm.r2c_local(torch.from_numpy(np.ascontiguousarray(
         field[x0:x0 + nlx, y0:y0 + nly])))
+    kpm = ppm.kpm
     res.update(
         fft_dk=dk.numpy(), fft_back=ppm.c2r_local(dk).numpy(),
-        fft_transfer=ppm.apply_decic(ppm.apply_grad(
-            ppm.apply_pot(dk, 1), 1, 1)).numpy(),
-        fft_grad3=torch.stack(ppm.c2r_grad3_local(
-            ppm.apply_pot(dk, 0), 1)).numpy(),
-        fft_laplace=ppm.apply_laplace(dk, 2).numpy(),
-        fft_fk=ppm.apply_fk_interp(dk, torch.from_numpy(data["fk_logk"]),
-                                   torch.from_numpy(data["fk_vals"]))
-        .numpy())
+        fft_transfer=transfers.apply_decic(kpm, transfers.apply_grad(
+            kpm, transfers.apply_pot(kpm, dk, 1), 1, 1)).numpy(),
+        # the force's k-space stage: kernel 1_4 is potorder 0, gradorder 1
+        fft_grad3=torch.stack(gravity.acc_fields(
+            kpm, dk, "1_4", ppm.c2r_local)).numpy(),
+        fft_laplace=transfers.apply_laplace(kpm, dk, 2).numpy(),
+        fft_fk=transfers.apply_fk_interp(
+            kpm, dk, torch.from_numpy(data["fk_logk"]),
+            torch.from_numpy(data["fk_vals"])).numpy())
 
     pm = PM(int(data["force_nc"]), float(data["force_box"]))
     ppm = PencilPM(pm, grid)
